@@ -18,8 +18,11 @@
 // the four partial score tiles of a row group are summed through shared
 // memory, and every warp of the group then runs the same online softmax on
 // the full scores. A 64-row K tile and V tile live in dynamic shared memory
-// (199 KB at D = 512, set with cudaFuncSetAttribute). This first version uses
-// warp-level mma.sync with no cp.async/TMA pipelining and no wgmma.
+// (199 KB at D = 512, set with cudaFuncSetAttribute), so there is room for
+// one stage only: K and V arrive by cp.async in two groups, and V's copy
+// overlaps the Q.K^T products and the softmax. Fragments come from shared
+// memory through ldmatrix. Still to do toward the bound: wgmma, TMA, and a
+// second stage (a smaller kv tile).
 #include "mma_bf16.cuh"
 
 namespace {
@@ -55,6 +58,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   const int t = lane % 4;
   const int rg = warp / 4;             // row group
   const int dq = warp % 4;             // D quarter
+  const int lm = lane / 8;             // ldmatrix: the matrix this lane addresses
+  const int lr = lane % 8;             // ... and its row
   const __nv_bfloat16* qb = q + (size_t)bh * Lq * D;
   const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
   const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
@@ -81,23 +86,39 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
     __syncthreads();
-    mdu::load_tile<BK, DP, LDS>(Ks, kb, k0, Lk, D, vec);
-    mdu::load_tile<BK, DP, LDS>(Vs, vb, k0, Lk, D, vec);
+    if (vec) {
+      mdu::load_tile_async<BK, DP, LDS>(Ks, kb, k0, Lk, D);
+      mdu::cp_async_commit();
+      mdu::load_tile_async<BK, DP, LDS>(Vs, vb, k0, Lk, D);
+      mdu::cp_async_commit();
+      mdu::cp_async_wait<1>();           // K has landed; V is still in flight
+    } else {
+      mdu::load_tile<BK, DP, LDS>(Ks, kb, k0, Lk, D, false);
+      mdu::load_tile<BK, DP, LDS>(Vs, vb, k0, Lk, D, false);
+    }
     __syncthreads();
 
-    // partial scores over this warp's quarter of D
+    // partial scores over this warp's quarter of D; B fragments of two
+    // n-tiles at a time: matrices (n, d lo), (n, d hi), (n+1, d lo), (n+1, d hi)
     float* mine = Sp + warp * ST * 128;
 #pragma unroll
-    for (int n = 0; n < ST; ++n) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* kr = Ks + (n * 8 + g) * LDS + dq * DQ + 2 * t;
+    for (int n = 0; n < ST; n += 2) {
+      float s0[4] = {0.f, 0.f, 0.f, 0.f};
+      float s1[4] = {0.f, 0.f, 0.f, 0.f};
+      const __nv_bfloat16* kr = Ks + ((n + lm / 2) * 8 + lr) * LDS + dq * DQ + (lm % 2) * 8;
 #pragma unroll
-      for (int kk = 0; kk < KB; ++kk)
-        mdu::mma_16816(s, qa[kk], mdu::ld_u32(kr + kk * 16),
-                       mdu::ld_u32(kr + kk * 16 + 8));
+      for (int kk = 0; kk < KB; ++kk) {
+        uint32_t b[4];
+        mdu::ldmatrix_x4(b, kr + kk * 16);
+        mdu::mma_16816(s0, qa[kk], b[0], b[1]);
+        mdu::mma_16816(s1, qa[kk], b[2], b[3]);
+      }
       *reinterpret_cast<float4*>(mine + (n * 32 + lane) * 4) =
-          make_float4(s[0], s[1], s[2], s[3]);
+          make_float4(s0[0], s0[1], s0[2], s0[3]);
+      *reinterpret_cast<float4*>(mine + ((n + 1) * 32 + lane) * 4) =
+          make_float4(s1[0], s1[1], s1[2], s1[3]);
     }
+    mdu::cp_async_wait<0>();             // V, visible to all after the barrier
     __syncthreads();
 
     // full scores of the row group, summed in a fixed order
@@ -154,13 +175,15 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1],
                              pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * LDS + dq * DQ + g;
+      // matrices (kv lo, n), (kv hi, n), (kv lo, n+1), (kv hi, n+1)
+      const __nv_bfloat16* vr =
+          Vs + (kk * 16 + (lm % 2) * 8 + lr) * LDS + dq * DQ + (lm / 2) * 8;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vp = v0 + n * 8;
-        const uint32_t b0 = mdu::pack_bf16(vp[0], vp[LDS]);
-        const uint32_t b1 = mdu::pack_bf16(vp[8 * LDS], vp[9 * LDS]);
-        mdu::mma_16816(acc[n], a, b0, b1);
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        mdu::ldmatrix_x4_trans(b, vr + n * 8);
+        mdu::mma_16816(acc[n], a, b[0], b[1]);
+        mdu::mma_16816(acc[n + 1], a, b[2], b[3]);
       }
     }
   }

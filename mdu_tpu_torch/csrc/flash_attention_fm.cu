@@ -12,14 +12,18 @@
 // What bounds it on an H100: at the UNet self-attention shapes of config 2
 // ([10, 8, 6144, 40] and [10, 8, 1536, 80]) the work is 4*L^2*D flops per
 // head against 8*L*D bytes, far above the card's ~295 flop/byte ridge, so the
-// tensor cores bound it. The fixed shift removes the running max and the
-// per-tile rescale of the accumulator, so each kv tile costs two tensor-core
-// products and one exp pass. This first version uses warp-level mma.sync
-// (m16n8k16) with register accumulators, no cp.async/TMA pipelining and no
-// wgmma; those are the next steps toward the bound.
+// tensor cores bound it. At D = 40 the exp of every score is close behind:
+// one MUFU op per 160 tensor-core flops. The fixed shift removes the running
+// max and the per-tile rescale of the accumulator, so each kv tile costs two
+// tensor-core products and one fused multiply-add + exp2 per score; the kv
+// mask runs only on the ragged last tile. K and V tiles are double-buffered
+// with cp.async, and fragments come from shared memory through ldmatrix.
+// Still to do toward the bound: wgmma and TMA (warpgroup-wide products).
 //
 // Layout: one block of 4 warps per (batch*head, 64-query tile); each warp
 // owns 16 query rows and loops over 64-row kv tiles held in shared memory.
+// (128-query blocks of 8 warps halve the L2 reads of K and V but measured no
+// faster at [10, 8, 6144, 40]: L2 is not what bounds it.)
 // D is padded to DP (a multiple of 16) with zero-filled loads.
 #include "mma_bf16.cuh"
 
@@ -28,6 +32,7 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NWARPS = 4;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 __global__ void __launch_bounds__(NWARPS * 32)
@@ -36,13 +41,13 @@ flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, int Lq, int Lk, int D,
                 float scale, float smax, int clamp, int vec) {
-  constexpr int LDS = DP + 8;          // +16 bytes: conflict-free fragment loads
+  constexpr int LDS = DP + 8;          // +16 bytes: conflict-free ldmatrix rows
   constexpr int KB = DP / 16;          // k-steps of Q.K^T
   constexpr int NT = DP / 8;           // n-tiles of P.V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LDS;
-  __nv_bfloat16* Vs = Ks + BK * LDS;
+  __nv_bfloat16* Ks = Qs + BQ * LDS;   // [2 stages][BK][LDS]
+  __nv_bfloat16* Vs = Ks + 2 * BK * LDS;
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -50,10 +55,27 @@ flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  const int lm = lane / 8;             // ldmatrix: the matrix this lane addresses
+  const int lr = lane % 8;             // ... and its row
   const __nv_bfloat16* qb = q + (size_t)bh * Lq * D;
   const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
   const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
+  const int ntiles = (Lk + BK - 1) / BK;
 
+  auto load_kv = [&](int tile, int stage) {
+    __nv_bfloat16* ks = Ks + stage * BK * LDS;
+    __nv_bfloat16* vs = Vs + stage * BK * LDS;
+    if (vec) {
+      mdu::load_tile_async<BK, DP, LDS>(ks, kb, tile * BK, Lk, D);
+      mdu::load_tile_async<BK, DP, LDS>(vs, vb, tile * BK, Lk, D);
+    } else {
+      mdu::load_tile<BK, DP, LDS>(ks, kb, tile * BK, Lk, D, false);
+      mdu::load_tile<BK, DP, LDS>(vs, vb, tile * BK, Lk, D, false);
+    }
+    mdu::cp_async_commit();
+  };
+
+  load_kv(0, 0);
   mdu::load_tile<BQ, DP, LDS>(Qs, qb, q0, Lq, D, vec);
   __syncthreads();
 
@@ -73,58 +95,82 @@ flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < NT; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float den0 = 0.f, den1 = 0.f;        // rows g and g+8 (this lane's columns)
+  const float sc = scale * LOG2E;      // exp(x) = exp2(x * log2 e)
+  const float sh = smax * LOG2E;
 
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
+  for (int it = 0; it < ntiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < ntiles) {
+      load_kv(it + 1, stage ^ 1);
+      mdu::cp_async_wait<1>();
+    } else {
+      mdu::cp_async_wait<0>();
+    }
     __syncthreads();
-    mdu::load_tile<BK, DP, LDS>(Ks, kb, k0, Lk, D, vec);
-    mdu::load_tile<BK, DP, LDS>(Vs, vb, k0, Lk, D, vec);
-    __syncthreads();
+    const __nv_bfloat16* ks = Ks + stage * BK * LDS;
+    const __nv_bfloat16* vs = Vs + stage * BK * LDS;
+    const int k0 = it * BK;
 
-    // S = Q K^T for 16 rows x 64 kv columns
+    // S = Q K^T for 16 rows x 64 kv columns; B fragments of two n-tiles at
+    // a time: matrices (n, d lo), (n, d hi), (n+1, d lo), (n+1, d hi)
     float s[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (n * 8 + g) * LDS + 2 * t;
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KB; ++kk)
-        mdu::mma_16816(s[n], qa[kk], mdu::ld_u32(kr + kk * 16),
-                       mdu::ld_u32(kr + kk * 16 + 8));
+    for (int n = 0; n < BK / 8; n += 2) {
+      const __nv_bfloat16* kr = ks + ((n + lm / 2) * 8 + lr) * LDS + (lm % 2) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        uint32_t b[4];
+        mdu::ldmatrix_x4(b, kr + kk * 16);
+        mdu::mma_16816(s[n], qa[kk], b[0], b[1]);
+        mdu::mma_16816(s[n + 1], qa[kk], b[2], b[3]);
+      }
     }
 
     // fixed-shift exp, rounded to bf16; kv columns past Lk contribute 0
     uint32_t pa[BK / 8][2];
+    const bool ragged = k0 + BK > Lk;
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
-      __nv_bfloat16 pb[4];
+      float p[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = k0 + n * 8 + 2 * t + (j & 1);
-        float x = s[n][j] * scale;
-        if (clamp) x = fminf(x, smax);
-        const float p = col < Lk ? __expf(x - smax) : 0.f;
-        pb[j] = __float2bfloat16_rn(p);
+        const float x = clamp ? fminf(s[n][j] * sc, sh) - sh : fmaf(s[n][j], sc, -sh);
+        p[j] = mdu::ex2(x);
       }
-      den0 += __bfloat162float(pb[0]) + __bfloat162float(pb[1]);
-      den1 += __bfloat162float(pb[2]) + __bfloat162float(pb[3]);
-      pa[n][0] = mdu::pack_bf16(pb[0], pb[1]);
-      pa[n][1] = mdu::pack_bf16(pb[2], pb[3]);
+      if (ragged) {
+        const int col = k0 + n * 8 + 2 * t;
+        if (col >= Lk) p[0] = p[2] = 0.f;
+        if (col + 1 >= Lk) p[1] = p[3] = 0.f;
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
+      const float2 flo = __bfloat1622float2(lo);
+      const float2 fhi = __bfloat1622float2(hi);
+      den0 += flo.x + flo.y;
+      den1 += fhi.x + fhi.y;
+      pa[n][0] = *reinterpret_cast<const uint32_t*>(&lo);
+      pa[n][1] = *reinterpret_cast<const uint32_t*>(&hi);
     }
 
-    // acc += P V: the S accumulator layout is the A fragment layout of P
+    // acc += P V: the S accumulator layout is the A fragment layout of P; V
+    // fragments by ldmatrix.trans: matrices (kv lo, n), (kv hi, n),
+    // (kv lo, n+1), (kv hi, n+1)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1],
                              pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * LDS + g;
+      const __nv_bfloat16* vr = vs + (kk * 16 + (lm % 2) * 8 + lr) * LDS + (lm / 2) * 8;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vp = v0 + n * 8;
-        const uint32_t b0 = mdu::pack_bf16(vp[0], vp[LDS]);
-        const uint32_t b1 = mdu::pack_bf16(vp[8 * LDS], vp[9 * LDS]);
-        mdu::mma_16816(acc[n], a, b0, b1);
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        mdu::ldmatrix_x4_trans(b, vr + n * 8);
+        mdu::mma_16816(acc[n], a, b[0], b[1]);
+        mdu::mma_16816(acc[n + 1], a, b[2], b[3]);
       }
     }
+    __syncthreads();                   // this stage is refilled next iteration
   }
 
   // the four lanes of a quad hold disjoint columns of the same rows
@@ -155,7 +201,7 @@ template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int Lq, int Lk, int D, float scale, float smax,
                    int clamp, int vec, cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
+  const int smem = (BQ + 4 * BK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fm_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

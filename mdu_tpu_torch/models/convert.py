@@ -10,7 +10,7 @@
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -31,9 +31,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(params: Mapping, drop_prefixes: Sequence[str] = (),
-                        dtype: Optional[torch.dtype] = None,
-                        device=None) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping,
+                        drop_prefixes: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
     """``{"params": {...}}`` of numpy arrays -> a torch ``state_dict``.
 
     Entries whose name starts with one of ``drop_prefixes`` are left out
@@ -46,8 +45,7 @@ def state_dict_from_jax(params: Mapping, drop_prefixes: Sequence[str] = (),
     for name, arr in _flatten(tree).items():
         if any(name.startswith(p) for p in drop_prefixes):
             continue
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        out[name] = t.to(device=device, dtype=dtype or torch.float32)
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return out
 
 

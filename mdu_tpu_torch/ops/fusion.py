@@ -3,7 +3,7 @@
 fused canvas is deterministic."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 
@@ -15,16 +15,10 @@ def gather_tiles(x, bboxes: Sequence[BBox]):
     return torch.stack([x[:, :, b.y:b.y + b.h, b.x:b.x + b.w] for b in bboxes])
 
 
-def scatter_add_tiles(canvas, tiles, bboxes: Sequence[BBox], tile_weights=None,
-                      per_tile_weights: Optional[Sequence] = None):
+def scatter_add_tiles(canvas, tiles, bboxes: Sequence[BBox]):
     """Add stacked tiles [T, B, C, th, tw] into a copy of an NCHW canvas."""
     canvas = canvas.clone()
-    for i, b in enumerate(bboxes):
-        t = tiles[i]
-        if tile_weights is not None:
-            t = t * tile_weights
-        if per_tile_weights is not None and per_tile_weights[i] is not None:
-            t = t * per_tile_weights[i]
+    for t, b in zip(tiles, bboxes):
         canvas[:, :, b.y:b.y + b.h, b.x:b.x + b.w] += t
     return canvas
 

@@ -2,27 +2,13 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
 
 
 @dataclass(frozen=True)
 class BBox:
-    """A latent-space tile rectangle. ``box`` is (x0, y0, x1, y1)."""
+    """A latent-space tile rectangle: origin (x, y), size (w, h)."""
 
     x: int
     y: int
     w: int
     h: int
-
-    @property
-    def box(self) -> Tuple[int, int, int, int]:
-        return (self.x, self.y, self.x + self.w, self.y + self.h)
-
-    @property
-    def slicer(self) -> Tuple[slice, slice, slice, slice]:
-        """NCHW slicing tuple."""
-        return (slice(None), slice(None),
-                slice(self.y, self.y + self.h), slice(self.x, self.x + self.w))
-
-    def __getitem__(self, idx: int) -> int:
-        return self.box[idx]
