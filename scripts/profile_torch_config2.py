@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one config-2 image goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_config2.py [--out chiprun_out/profile_config2.json]
+    python3 scripts/profile_torch_config2.py [--out PATH]
 
 Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 bf16 random weights,
 MultiDiffusion 2048 x 512, Euler 20 steps at CFG 7, exact tiled decode),
-runs one warm-up image, then one image under ``torch.profiler`` and one image
-under CUDA events alone. Prints one JSON line: the wall time of the image
+runs one warm-up image, one image timed on the host clock (ending in a
+synchronize), then one image under ``torch.profiler``. Prints one JSON line:
+the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
 share of the profiled image, and the device time by kernel family and by the
-20 largest kernels. TF32 is off.
+20 largest kernels (also written to PATH with --out). TF32 is off.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_config2.json"))
+    ap.add_argument("--out", help="also write the result as JSON to this file")
     args = ap.parse_args()
 
     import torch
@@ -105,8 +106,9 @@ def main() -> int:
                         for k, v in sorted(fams.items(), key=lambda kv: -kv[1][0])},
         "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]} for n, v in top],
     }
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(result, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 
