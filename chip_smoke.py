@@ -10,17 +10,20 @@ Phases, one JSON line each:
 2. ``build``     builds every CUDA kernel from ``mdu_tpu_torch/csrc`` (one
                  nvcc per source, in parallel), with the ptxas register and
                  shared-memory lines.
-3. ``kernels``   each kernel at its config-2 shapes and one ragged shape, in
-                 bf16, held against its plain PyTorch version run in fp32 on
-                 the same inputs: the kernel's max abs error must stay within
-                 2x the bf16 plain version's error + 1e-3. Times from CUDA
-                 events: kernel, plain version, and
+3. ``kernels``   each bf16 kernel at its config-2 shapes and one ragged shape,
+                 held against its plain PyTorch version run in fp32 on the
+                 same inputs: the kernel's max abs error must stay within 2x
+                 the bf16 plain version's error + 1e-3. Each fp32 kernel at
+                 the first config-2 shape, within 1e-4 of its plain version.
+                 Times from CUDA events: kernel, plain version, and
                  ``F.scaled_dot_product_attention`` as a yardstick only (the
                  port never calls it), beside the bound
-                 max(flops / 989 TF/s, bytes / 3.35 TB/s).
-4. ``reference`` the tiny fp32 pipeline on the card against the same
-                 pipeline on the CPU (a small end-to-end check of the port's
-                 tensor code on the card).
+                 max(flops / peak, bytes / 3.35 TB/s), peak 989 TF/s in bf16
+                 and 67 TF/s in fp32.
+4. ``reference`` a tiny pipeline, sized so that its attention reaches the
+                 flash kernels, on the card against the same pipeline on the
+                 CPU: fp32 within 1e-4 of the largest value; bf16 within 2x
+                 the CPU bf16 run's error against CPU fp32, + 1e-3 of it.
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
@@ -28,7 +31,8 @@ Phases, one JSON line each:
                  just before each image and read just after; a kernel of the
                  path launched 0 times fails the run.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
+Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
+(the kernels of the main path), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 TF32 is off for matmuls and convolutions.
 """
@@ -42,7 +46,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+F32_TOL = 1e-4                # fp32 kernels against their plain versions
 CFG2 = dict(width=2048, height=512, steps=20, cfg=7.0, tile=96, overlap=48,
             tile_bs=8, decoder_tile=128)
 EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention": 1}
@@ -94,16 +100,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, H, L, D):
+def attention_bound(B, H, L, D, itemsize=2):
     flops = 4.0 * B * H * L * L * D                 # QK^T and PV
-    nbytes = 4.0 * B * H * L * D * 2                # q, k, v read; o written; bf16
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = 4.0 * B * H * L * D * itemsize         # q, k, v read; o written
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels():
-    import torch
+def _time_check(kernel, plain, q, k, v, iters):
     import torch.nn.functional as F
+
+    ms = cuda_ms(lambda: kernel(q, k, v), iters)
+    plain_ms = cuda_ms(lambda: plain(q, k, v), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+    return ms, plain_ms, lib_ms
+
+
+def phase_kernels():
+    """bf16 kernels at every shape of KERNELS, fp32 kernels at the first."""
+    import torch
 
     from mdu_tpu_torch.ops.kernels import flash
 
@@ -113,36 +129,45 @@ def phase_kernels():
     summary = {}
     for name, spec in KERNELS.items():
         kernel, plain = fns[name]
-        checks = []
-        for shape in spec["shapes"]:
-            B, H, L, D = shape
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(3))
-            out = kernel(q, k, v)
-            torch.cuda.synchronize()
-            ref = plain(q.float(), k.float(), v.float())
-            err = (out.float() - ref).abs().max().item()
-            err_bf16 = (plain(q, k, v).float() - ref).abs().max().item()
-            tol = 2.0 * err_bf16 + 1e-3
-            require(bool(torch.isfinite(out).all()), f"{name} {shape}: non-finite output")
-            require(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
-            iters = 20 if L * L * B * H > 1e8 else 50
-            ms = cuda_ms(lambda: kernel(q, k, v), iters)
-            plain_ms = cuda_ms(lambda: plain(q, k, v), 3, warmup=1)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
-            bound_ms, bound_by = attention_bound(B, H, L, D)
-            check = dict(shape=list(shape), max_abs_err=err, plain_bf16_err=err_bf16,
-                         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-            emit("kernel_check", name=name, **check)
-            checks.append(check)
-            del q, k, v, out, ref
-        summary[name] = checks
+        for dtype in (torch.bfloat16, torch.float32):
+            key = name if dtype == torch.bfloat16 else name + "_f32"
+            shapes = spec["shapes"] if dtype == torch.bfloat16 else spec["shapes"][:1]
+            checks = []
+            for shape in shapes:
+                B, H, L, D = shape
+                q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(3))
+                out = kernel(q, k, v)
+                torch.cuda.synchronize()
+                ref = plain(q.float(), k.float(), v.float())
+                err = (out.float() - ref).abs().max().item()
+                if dtype == torch.bfloat16:
+                    # the bf16 plain version's own error against fp32 sets the bar
+                    err_plain = (plain(q, k, v).float() - ref).abs().max().item()
+                    tol = 2.0 * err_plain + 1e-3
+                else:
+                    err_plain, tol = 0.0, F32_TOL
+                require(bool(torch.isfinite(out).all()), f"{key} {shape}: non-finite output")
+                require(err <= tol, f"{key} {shape}: max abs err {err} > {tol}")
+                big = L * L * B * H > 1e8
+                iters = (20 if big else 50) if dtype == torch.bfloat16 else (3 if big else 10)
+                ms, plain_ms, lib_ms = _time_check(kernel, plain, q, k, v, iters)
+                bound_ms, bound_by = attention_bound(B, H, L, D, q.element_size())
+                check = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                             max_abs_err=err, plain_err=err_plain, tol=tol, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+                emit("kernel_check", name=key, **check)
+                checks.append(check)
+                del q, k, v, out, ref
+            summary[key] = checks
     return summary
 
 
-def phase_reference():
-    """Tiny fp32 MultiDiffusion txt2img + exact tiled decode: card vs CPU."""
+def _tiny_run(device: str, dtype):
+    """Tiny MultiDiffusion txt2img + exact tiled decode at a size whose UNet
+    level-0 and VAE mid-block attention reach the flash kernels on the card:
+    returns (latents, image) on the CPU in fp32."""
     import torch
 
     from mdu_tpu_torch import (DiffusionPipeline, SamplerConfig,
@@ -151,31 +176,54 @@ def phase_reference():
                                       random_state_dict, tiny_unet_config,
                                       tiny_vae_config)
 
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        unet, vae = UNet2DCondition(tiny_unet_config()), AutoencoderKL(tiny_vae_config())
-        unet.load_state_dict(random_state_dict(unet, 0))
-        vae.load_state_dict(random_state_dict(vae, 1))
-        pipe = DiffusionPipeline(unet, vae, device=dev)
-        gen = torch.Generator().manual_seed(5)
-        c = {"crossattn": torch.randn(1, 7, 16, generator=gen) * 0.1}
-        u = {"crossattn": torch.randn(1, 7, 16, generator=gen) * 0.1}
-        noise = torch.randn(1, 4, 16, 40, generator=gen)
-        res = pipe._txt2img_from_noise(
-            noise, c, u, SamplerConfig(steps=3), 0,
-            TiledDiffusionConfig(tile_w=16, tile_h=16, overlap=8, tile_bs=3),
-            decode=False)
-        img = pipe._decode_tensor(res.latents, TiledVAEConfig(
-            decoder_tile_size=16, fast_decoder=False))
-        outs[dev] = (res.latents.cpu(), img.float().cpu())
-    lat_err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
-    img_err = (outs["cuda"][1] - outs["cpu"][1]).abs().max().item()
-    lat_tol = 1e-4 * outs["cpu"][0].abs().max().item()
-    img_tol = 1e-4 * outs["cpu"][1].abs().max().item()
-    emit("reference", latent_max_abs_err=lat_err, latent_tol=lat_tol,
-         image_max_abs_err=img_err, image_tol=img_tol)
-    require(lat_err <= lat_tol and img_err <= img_tol,
-            "tiny pipeline on the card disagrees with the CPU")
+    unet = UNet2DCondition(tiny_unet_config(), dtype=dtype)
+    vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
+    # drawn on the CPU so that both devices get the same weights
+    unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
+    vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
+    pipe = DiffusionPipeline(unet, vae, device=device)
+    gen = torch.Generator().manual_seed(5)
+    c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    noise = torch.randn(1, 4, 32, 64, generator=gen)
+    res = pipe._txt2img_from_noise(
+        noise, c, u, SamplerConfig(steps=3), 0,
+        TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16, tile_bs=3),
+        decode=False)
+    img = pipe._decode_tensor(res.latents, TiledVAEConfig(
+        decoder_tile_size=16, fast_decoder=False))
+    return res.latents.float().cpu(), img.float().cpu()
+
+
+def phase_reference():
+    """The tiny pipeline on the card against the same pipeline on the CPU
+    (plain versions): in fp32 within 1e-4 of the largest CPU value; in bf16
+    within 2x the CPU bf16 run's own error against the CPU fp32 run plus
+    1e-3 of the largest value. Each card run must launch its fm kernel."""
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    ref = _tiny_run("cpu", torch.float32)
+    ref_bf16 = _tiny_run("cpu", torch.bfloat16)
+    for dtype, key in ((torch.float32, "flash_attention_fm_f32"),
+                       (torch.bfloat16, "flash_attention_fm")):
+        reset_launches()
+        got = _tiny_run("cuda", dtype)
+        launches = dict(LAUNCHES)
+        require(launches[key] > 0, f"tiny {dtype} pipeline launched no {key}")
+        fields = {"launches": launches}
+        for i, part in enumerate(("latent", "image")):
+            scale = ref[i].abs().max().item()
+            err = (got[i] - ref[i]).abs().max().item()
+            if dtype == torch.float32:
+                tol = 1e-4 * scale
+            else:
+                tol = 2.0 * (ref_bf16[i] - ref[i]).abs().max().item() + 1e-3 * scale
+            require(bool(torch.isfinite(got[i]).all()), f"tiny {dtype} {part}: non-finite")
+            require(err <= tol, f"tiny {dtype} {part}: max abs err {err} > {tol}")
+            fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
+        emit("reference", dtype=str(dtype).split(".")[-1], **fields)
 
 
 def build_config2():
@@ -228,8 +276,8 @@ def phase_txt2img():
     res = image(0)
     first_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    for name, n in launches.items():
-        require(n > 0, f"{name} was launched 0 times on the main path")
+    for name in EXPECTED_LAUNCHES:
+        require(launches[name] > 0, f"{name} was launched 0 times on the main path")
     require(tuple(res.images.shape) == (1, 512, 2048, 3),
             f"output shape {tuple(res.images.shape)}")
     require(bool(torch.isfinite(res.latents).all()), "non-finite latents")
@@ -255,6 +303,7 @@ def phase_txt2img():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -300,6 +349,7 @@ def main() -> int:
                          ms=main["ms"], plain_ms=main["plain_ms"],
                          bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                          library_ms=main["library_ms"], shape=main["shape"]))
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
+
 # parts of the JAX AutoencoderKL tree that the decode-only port does not hold
 VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
 
@@ -59,9 +61,10 @@ def load_jax_params(module: nn.Module, params: Mapping,
 def random_state_dict(module: nn.Module, seed: int, dtype: torch.dtype = torch.float32,
                       device=None) -> Dict[str, torch.Tensor]:
     """Random weights for every entry of ``module.state_dict()``, drawn with a
-    ``torch.Generator`` on ``device``. The module may live on the meta
-    device; load the result with ``load_state_dict(..., assign=True)``."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    ``torch.Generator`` on ``device`` (the card unless the caller names
+    another device). The module may live on the meta device; load the result
+    with ``load_state_dict(..., assign=True)``."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     out: Dict[str, torch.Tensor] = {}
     for name, ref in module.state_dict().items():

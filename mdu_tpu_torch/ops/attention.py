@@ -46,9 +46,9 @@ def _flash_variant(D: int):
 def multi_head_attention(q, k, v, num_heads: int, q_chunk: Optional[int] = None):
     """[B, L, H*D] q, k, v -> attention output [B, L, H*D].
 
-    On a bf16 CUDA tensor (the kernels' type) with Lq and Lk both >=
-    FLASH_MIN_SEQ the flash kernels run; otherwise full ``sdpa``, or
-    ``chunked_sdpa`` when ``q_chunk`` is given.
+    On a CUDA tensor with Lq and Lk both >= FLASH_MIN_SEQ the flash kernels
+    run (their wrappers raise on a dtype they do not take); otherwise full
+    ``sdpa``, or ``chunked_sdpa`` when ``q_chunk`` is given.
     """
     B, Lq, HD = q.shape
     Lk = k.shape[1]
@@ -58,8 +58,7 @@ def multi_head_attention(q, k, v, num_heads: int, q_chunk: Optional[int] = None)
         return x.reshape(B, L, num_heads, D).transpose(1, 2)
 
     qh, kh, vh = split(q, Lq), split(k, Lk), split(v, Lk)
-    if (q.is_cuda and q.dtype == torch.bfloat16
-            and Lq >= FLASH_MIN_SEQ and Lk >= FLASH_MIN_SEQ):
+    if q.is_cuda and Lq >= FLASH_MIN_SEQ and Lk >= FLASH_MIN_SEQ:
         out = _flash_variant(D)(qh.contiguous(), kh.contiguous(), vh.contiguous())
     elif q_chunk is not None:
         out = chunked_sdpa(qh, kh, vh, q_chunk=q_chunk)

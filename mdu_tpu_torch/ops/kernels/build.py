@@ -29,6 +29,7 @@ BUILD = PKG / "_build"
 SOURCES = {
     "flash_attention_fm": "flash_attention_fm.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_f32": "flash_attention_f32.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

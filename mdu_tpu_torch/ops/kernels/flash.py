@@ -1,17 +1,19 @@
-"""Flash attention: the two CUDA kernels of the txt2img path and their plain
+"""Flash attention: the CUDA kernels of the txt2img path and their plain
 PyTorch versions.
 
-* ``flash_attention_fm`` (``csrc/flash_attention_fm.cu``) replaces
+* ``flash_attention_fm`` replaces
   ``mdu_tpu.ops.pallas.flash_attention.flash_attention_t_fm``: a fixed shift
   ``smax`` in place of a running max, p rounded to v's dtype, and a
   denominator that sums the rounded p over the real kv columns.
-* ``flash_attention`` (``csrc/flash_attention.cu``) replaces
+* ``flash_attention`` replaces
   ``mdu_tpu.ops.pallas.flash_attention.flash_attention``: online softmax with
   an fp32 denominator of the unrounded p.
 
-Each wrapper launches its kernel for a CUDA tensor and raises on anything the
-kernel does not take; it runs the plain version only for a CPU tensor. Every
-kernel launch adds one to ``LAUNCHES[name]``.
+Each takes bf16 (tensor-core kernels ``csrc/flash_attention_fm.cu`` and
+``csrc/flash_attention.cu``) or fp32 (``csrc/flash_attention_f32.cu``), as
+the TPU kernels took either. Each wrapper launches a kernel for a CUDA tensor
+and raises on anything the kernels do not take; it runs the plain version
+only for a CPU tensor. Every kernel launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = {"flash_attention_fm": 0, "flash_attention": 0}
-MAX_D = {"flash_attention_fm": 160, "flash_attention": 512}
+LAUNCHES = {"flash_attention_fm": 0, "flash_attention": 0,
+            "flash_attention_fm_f32": 0, "flash_attention_f32": 0}
+MAX_D = {"flash_attention_fm": 160, "flash_attention": 512,
+         "flash_attention_fm_f32": 512, "flash_attention_f32": 512}
 _ROWS = 1024     # query rows per chunk of the plain versions (bounds memory)
 
 
@@ -73,41 +77,49 @@ def _check(name: str, q, k, v) -> None:
     for n, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name}: {n} is on {x.device}, the kernel needs CUDA")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {n} is {x.dtype}, the kernel takes bfloat16")
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{name}: {n} is {x.dtype}, the kernels take "
+                             f"bfloat16 or float32")
         if x.dim() != 4:
             raise ValueError(f"{name}: {n} must be [B, H, L, D], got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{name}: q, k, v have different dtypes")
     B, H, Lq, D = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
-    if not (1 <= D <= MAX_D[name]) or Lq == 0 or k.shape[2] == 0:
-        raise ValueError(f"{name}: needs 1 <= D <= {MAX_D[name]} and nonempty "
-                         f"sequences, got {tuple(q.shape)} / {tuple(k.shape)}")
+    max_d = MAX_D[name if q.dtype == torch.bfloat16 else name + "_f32"]
+    if not (1 <= D <= max_d) or Lq == 0 or k.shape[2] == 0:
+        raise ValueError(f"{name}: needs 1 <= D <= {max_d} for {q.dtype} and "
+                         f"nonempty sequences, got {tuple(q.shape)} / {tuple(k.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v are on different devices")
 
 
-def _vec_ok(D: int, *xs) -> int:
-    return int(D % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in xs))
+def _vec_ok(q, k, v) -> ctypes.c_int:
+    """16-byte copies: whole 16-byte chunks per row and aligned bases."""
+    D = q.shape[-1]
+    return ctypes.c_int(int(D * q.element_size() % 16 == 0
+                            and all(x.data_ptr() % 16 == 0 for x in (q, k, v))))
 
 
-def _launch(name: str, fn_name: str, extra_types, q, k, v, *extra):
+def _launch(name: str, library: str, fn_name: str, q, k, v, *extra):
+    """Launch ``fn_name`` of ``library`` on (q, k, v, out, bh, Lq, Lk, D,
+    *extra, stream); ``extra`` holds ctypes values. Counts under ``name``."""
     from .build import load
 
-    lib = load(name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + list(extra_types)
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn = getattr(load(library), fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [type(x) for x in extra] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B * H, Lq, k.shape[2], D, *extra, _vec_ok(D, q, k, v, out), stream)
+                 B * H, Lq, k.shape[2], D, *extra, stream)
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
@@ -121,9 +133,12 @@ def flash_attention_fm(q, k, v, scale: Optional[float] = None,
         return flash_attention_fm_plain(q, k, v, scale, smax, clamp)
     _check("flash_attention_fm", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return _launch("flash_attention_fm", "mdu_flash_attention_fm",
-                   [ctypes.c_float, ctypes.c_float, ctypes.c_int], q, k, v,
-                   float(scale), float(smax), int(bool(clamp)))
+    args = (ctypes.c_float(scale), ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))))
+    if q.dtype == torch.float32:
+        return _launch("flash_attention_fm_f32", "flash_attention_f32",
+                       "mdu_flash_attention_fm_f32", q, k, v, *args, _vec_ok(q, k, v))
+    return _launch("flash_attention_fm", "flash_attention_fm", "mdu_flash_attention_fm",
+                   q, k, v, *args, _vec_ok(q, k, v))
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -131,6 +146,9 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _check("flash_attention", q, k, v)
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return _launch("flash_attention", "mdu_flash_attention", [ctypes.c_float],
-                   q, k, v, float(scale))
+    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if q.dtype == torch.float32:
+        return _launch("flash_attention_f32", "flash_attention_f32",
+                       "mdu_flash_attention_f32", q, k, v, scale, _vec_ok(q, k, v))
+    return _launch("flash_attention", "flash_attention", "mdu_flash_attention",
+                   q, k, v, scale, _vec_ok(q, k, v))

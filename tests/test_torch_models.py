@@ -154,7 +154,7 @@ def test_state_dict_from_jax_names_and_strictness(unet_pair, vae_pair):
 
 def test_random_state_dict_scheme():
     port = UNet2DCondition(tiny_unet_config())
-    sd = random_state_dict(port, 0, dtype=torch.bfloat16)
+    sd = random_state_dict(port, 0, dtype=torch.bfloat16, device="cpu")
     assert set(sd) == set(port.state_dict())
     assert all(v.dtype == torch.bfloat16 for v in sd.values())
     assert float(sd["conv_in.bias"].abs().max()) == 0.0
@@ -162,8 +162,12 @@ def test_random_state_dict_scheme():
     w = sd["down_0_res_0.conv1.weight"].float()
     bound = (3.0 / (8 * 9)) ** 0.5
     assert float(w.abs().max()) <= bound * 1.01 and float(w.std()) > bound / 3
-    again = random_state_dict(port, 0)
+    again = random_state_dict(port, 0, device="cpu")
     torch.testing.assert_close(again["conv_in.weight"].to(torch.bfloat16), sd["conv_in.weight"])
     meta = UNet2DCondition(tiny_unet_config()).to("meta")
     meta.load_state_dict(again, strict=True, assign=True)
     assert meta.conv_in.weight.device.type == "cpu"
+    if not torch.cuda.is_available():
+        # the weights are drawn on the card unless the caller names the CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            random_state_dict(port, 0)
