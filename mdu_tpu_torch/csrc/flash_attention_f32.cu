@@ -9,7 +9,10 @@
 //   mdu_flash_attention_f32      flash_attention (_flash_kernel): online
 //       softmax with a running row max, fp32 denominator, floored at 1e-30.
 // With fp32 v the cast of p to v's dtype rounds nothing, so p enters both the
-// denominator and the P.V product unrounded.
+// denominator and the P.V product unrounded. With ``bf16_exp`` (the TPU
+// kernel's flag, MDU_FLASH=fm16) the fixed-shift form computes
+// p = bf16(exp(bf16(min(s * scale, smax) - smax))), as the TPU kernel does
+// for fp32 inputs.
 //
 // What bounds it on an H100: the products run as fp32 fused multiply-adds
 // (no tensor-core type keeps fp32's mantissa), fed from shared memory at one
@@ -105,7 +108,8 @@ template <int NJ4, bool FIXED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Lq,
-                 int Lk, int D, float scale, float smax, int clamp, int vec) {
+                 int Lk, int D, float scale, float smax, int clamp,
+                 int bf16_exp, int vec) {
   constexpr int VD = 4 * TPR * NJ4;    // V tile stride; columns past D are 0
   const int D4 = (D + 3) & ~3;         // Q.K^T runs over float4s; pad is 0
   const int LD = q_stride(D);
@@ -168,7 +172,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SPT; ++j) {
         const float x = s[j] * scale;
-        p[j] = k0 + c + TPR * j < Lk ? expf((clamp ? fminf(x, smax) : x) - smax) : 0.f;
+        float e = (clamp ? fminf(x, smax) : x) - smax;
+        if (bf16_exp) e = __bfloat162float(__float2bfloat16_rn(e));
+        float pe = expf(e);
+        if (bf16_exp) pe = __bfloat162float(__float2bfloat16_rn(pe));
+        p[j] = k0 + c + TPR * j < Lk ? pe : 0.f;
         l += p[j];
       }
     } else {
@@ -234,7 +242,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int NJ4, bool FIXED>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                    int Lq, int Lk, int D, float scale, float smax, int clamp,
-                   int vec, cudaStream_t stream) {
+                   int bf16_exp, int vec, cudaStream_t stream) {
   const int ld = q_stride(D);
   const int smem = ((BQ + BK) * ld + BK * 4 * TPR * NJ4 + BQ * (BK + 1)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -244,19 +252,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   flash_f32_kernel<NJ4, FIXED><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Lq, Lk, D, scale,
-      smax, clamp, vec);
+      smax, clamp, bf16_exp, vec);
   return cudaGetLastError();
 }
 
 template <bool FIXED>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int Lq, int Lk, int D, float scale, float smax, int clamp, int vec,
-             void* stream) {
+             int Lq, int Lk, int D, float scale, float smax, int clamp,
+             int bf16_exp, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch<2, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 128) return launch<4, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 256) return launch<8, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 512) return launch<16, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
+  if (D <= 64) return launch<2, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 128) return launch<4, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 256) return launch<8, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 512) return launch<16, FIXED>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -268,12 +276,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" int mdu_flash_attention_fm_f32(const void* q, const void* k,
                                           const void* v, void* o, int bh, int Lq,
                                           int Lk, int D, float scale, float smax,
-                                          int clamp, int vec, void* stream) {
-  return dispatch<true>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, stream);
+                                          int clamp, int bf16_exp, int vec,
+                                          void* stream) {
+  return dispatch<true>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec,
+                        stream);
 }
 
 extern "C" int mdu_flash_attention_f32(const void* q, const void* k, const void* v,
                                        void* o, int bh, int Lq, int Lk, int D,
                                        float scale, int vec, void* stream) {
-  return dispatch<false>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0, vec, stream);
+  return dispatch<false>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0, 0, vec, stream);
 }

@@ -8,6 +8,9 @@
 // The denominator sums the bf16-rounded p, as the TPU kernel's ones row of V
 // did on its matrix unit; here it is a row sum kept in registers. The TPU's
 // [D, L] transpose, ones row and lane padding have no counterpart.
+// With the template flag BF16_EXP (the TPU kernel's ``bf16_exp``, selected by
+// MDU_FLASH=fm16) the shifted score is rounded to bf16 before the exp:
+//   p   = bf16(exp(bf16(min(s * scale, smax) - smax))).
 //
 // What bounds it on an H100: at the UNet self-attention shapes of config 2
 // ([10, 8, 6144, 40] and [10, 8, 1536, 80]) the work is 4*L^2*D flops per
@@ -34,7 +37,7 @@ constexpr int BK = 64;
 constexpr int NWARPS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>
+template <int DP, bool BF16_EXP>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -136,7 +139,15 @@ flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
       float p[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float x = clamp ? fminf(s[n][j] * sc, sh) - sh : fmaf(s[n][j], sc, -sh);
+        float x;
+        if constexpr (BF16_EXP) {
+          // the shift in the natural domain, rounded to bf16, then the exp
+          const float e = clamp ? fminf(s[n][j] * scale, smax) - smax
+                                : fmaf(s[n][j], scale, -smax);
+          x = __bfloat162float(__float2bfloat16_rn(e)) * LOG2E;
+        } else {
+          x = clamp ? fminf(s[n][j] * sc, sh) - sh : fmaf(s[n][j], sc, -sh);
+        }
         p[j] = mdu::ex2(x);
       }
       if (ragged) {
@@ -197,20 +208,29 @@ flash_fm_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int Lq, int Lk, int D, float scale, float smax,
-                   int clamp, int vec, cudaStream_t stream) {
+template <int DP, bool BF16_EXP>
+cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
+                     int bh, int Lq, int Lk, int D, float scale, float smax,
+                     int clamp, int vec, cudaStream_t stream) {
   const int smem = (BQ + 4 * BK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fm_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fm_kernel<DP, BF16_EXP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BQ - 1) / BQ, bh);
-  flash_fm_kernel<DP><<<grid, NWARPS * 32, smem, stream>>>(
+  flash_fm_kernel<DP, BF16_EXP><<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       Lq, Lk, D, scale, smax, clamp, vec);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int bh, int Lq, int Lk, int D, float scale, float smax,
+                   int clamp, int bf16_exp, int vec, cudaStream_t stream) {
+  if (bf16_exp)
+    return launch_t<DP, true>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, stream);
+  return launch_t<DP, false>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, stream);
 }
 
 }  // namespace
@@ -220,13 +240,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int mdu_flash_attention_fm(const void* q, const void* k,
                                       const void* v, void* o, int bh, int Lq,
                                       int Lk, int D, float scale, float smax,
-                                      int clamp, int vec, void* stream) {
+                                      int clamp, int bf16_exp, int vec,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 48) return launch<48>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 64) return launch<64>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 80) return launch<80>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 96) return launch<96>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 128) return launch<128>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
-  if (D <= 160) return launch<160>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
+  if (D <= 48) return launch<48>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 64) return launch<64>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 80) return launch<80>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 96) return launch<96>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 128) return launch<128>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
+  if (D <= 160) return launch<160>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import flags
 from ..ops.attention import multi_head_attention
 from .layers import Conv2D, GroupNorm, LayerNorm, Linear, silu, timestep_embedding
 
@@ -142,9 +143,17 @@ class ResBlock(nn.Module):
 
     def forward(self, x, temb):
         t = self.time_emb_proj(silu(temb))[:, :, None, None]
-        h = self.conv1(silu(self.norm1(x)))
-        h = h + t
-        h = self.conv2(silu(self.norm2(h)))
+        if flags.fused_conv():
+            # normalise + SiLU inside the conv (JAX ``unet.py:229-235``)
+            a1, b1 = self.norm1(x, affine_only=True)
+            h = self.conv1(x, scale=a1, shift=b1)
+            h = h + t
+            a2, b2 = self.norm2(h, affine_only=True)
+            h = self.conv2(h, scale=a2, shift=b2)
+        else:
+            h = self.conv1(silu(self.norm1(x)))
+            h = h + t
+            h = self.conv2(silu(self.norm2(h)))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

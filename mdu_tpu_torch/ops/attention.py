@@ -9,11 +9,13 @@
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
-from .kernels import flash_attention, flash_attention_fm
+from .. import flags
+from .kernels import flash_attention, flash_attention_fm, flash_attention_t
 
 FLASH_MIN_SEQ = 512
 
@@ -39,7 +41,20 @@ def chunked_sdpa(q, k, v, scale: Optional[float] = None, q_chunk: int = 1024):
 
 
 def _flash_variant(D: int):
-    """The online-softmax kernel for D % 128 == 0, else the fixed-shift one."""
+    """The online-softmax kernel for D % 128 == 0, else the fixed-shift one;
+    ``MDU_FLASH`` overrides it as in the JAX package: ``lane`` the online
+    kernel, ``trans`` the online kernel with D padded to 16, ``fm`` the
+    fixed-shift kernel, ``fm16`` the fixed-shift kernel with ``bf16_exp``.
+    Any other value keeps the default."""
+    ov = flags.flash_override()
+    if ov == "lane":
+        return flash_attention
+    if ov == "trans":
+        return flash_attention_t
+    if ov == "fm":
+        return flash_attention_fm
+    if ov == "fm16":
+        return functools.partial(flash_attention_fm, bf16_exp=True)
     return flash_attention if D % 128 == 0 else flash_attention_fm
 
 

@@ -3,7 +3,10 @@
 * ``group_stats``       per-(batch, group) mean, E[x^2] and count, fp32,
                         optionally masked to a tile's owned region;
 * ``apply_group_norm``  normalise with given stats, then the affine;
-* ``group_norm``        plain GroupNorm, var = max(E[x^2] - mean^2, 0).
+* ``group_norm``        plain GroupNorm, var = max(E[x^2] - mean^2, 0);
+* ``group_norm_affine`` the same statistics folded into a per-(batch,
+                        channel) fp32 (a, b) with group_norm(x) = x * a + b,
+                        for a consumer that fuses the normalisation.
 """
 from __future__ import annotations
 
@@ -55,3 +58,25 @@ def group_norm(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
     mean, meansq, _ = group_stats(x, num_groups)
     var = torch.clamp(meansq - mean * mean, min=0.0)
     return apply_group_norm(x, num_groups, mean, var, weight, bias, eps)
+
+
+def group_norm_affine(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
+    """Folded GroupNorm affine of an NCHW tensor: per-(batch, channel) fp32
+    (a, b), each [B, C], with group_norm(x) == x * a + b."""
+    B, C, H, W = x.shape
+    G = num_groups
+    xf = x.float()
+    s1 = xf.sum(dim=(2, 3))                          # [B, C]
+    s2 = (xf * xf).sum(dim=(2, 3))
+    n = float(C // G * H * W)
+    gmean = s1.reshape(B, G, C // G).sum(dim=2) / n
+    gmeansq = s2.reshape(B, G, C // G).sum(dim=2) / n
+    var = torch.clamp(gmeansq - gmean * gmean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    mu_c = gmean.repeat_interleave(C // G, dim=1)    # [B, C]
+    rstd_c = rstd.repeat_interleave(C // G, dim=1)
+    w = torch.ones(C, device=x.device) if weight is None else weight.float()
+    b = torch.zeros(C, device=x.device) if bias is None else bias.float()
+    a_c = rstd_c * w[None, :]
+    b_c = b[None, :] - mu_c * a_c
+    return a_c, b_c

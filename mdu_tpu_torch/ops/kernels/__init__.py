@@ -1,9 +1,16 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions
-and launch counts (see ``flash.py``; built by ``build.py``)."""
-from .flash import (LAUNCHES, flash_attention, flash_attention_fm,
-                    flash_attention_fm_plain, flash_attention_plain,
-                    reset_launches)
+and launch counts (``launch.py``; built by ``build.py``)."""
+from .conv3x3 import (conv3x3_plan_fits, fused_conv3x3, fused_conv3x3_plain,
+                      pack_conv3x3_weight)
+from .flash import (flash_attention, flash_attention_fm, flash_attention_fm_plain,
+                    flash_attention_plain, flash_attention_t, flash_attention_t_plain)
+from .group_norm import fused_group_norm, fused_group_norm_plain
+from .launch import LAUNCHES, reset_launches
+from .tile_blend import BlendTable, fused_tile_blend, fused_tile_blend_plain
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_fm",
-           "flash_attention_fm_plain", "flash_attention_plain",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "reset_launches", "flash_attention", "flash_attention_fm",
+           "flash_attention_fm_plain", "flash_attention_plain", "flash_attention_t",
+           "flash_attention_t_plain", "fused_group_norm", "fused_group_norm_plain",
+           "BlendTable", "fused_tile_blend", "fused_tile_blend_plain",
+           "conv3x3_plan_fits", "fused_conv3x3", "fused_conv3x3_plain",
+           "pack_conv3x3_weight"]

@@ -30,6 +30,10 @@ SOURCES = {
     "flash_attention_fm": "flash_attention_fm.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_f32": "flash_attention_f32.cu",
+    "flash_attention_t": "flash_attention_t.cu",
+    "group_norm": "group_norm.cu",
+    "tile_blend": "tile_blend.cu",
+    "conv3x3": "conv3x3.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

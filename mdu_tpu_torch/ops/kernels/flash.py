@@ -1,19 +1,23 @@
-"""Flash attention: the CUDA kernels of the txt2img path and their plain
-PyTorch versions.
+"""Flash attention: the CUDA kernels and their plain PyTorch versions.
 
 * ``flash_attention_fm`` replaces
   ``mdu_tpu.ops.pallas.flash_attention.flash_attention_t_fm``: a fixed shift
   ``smax`` in place of a running max, p rounded to v's dtype, and a
-  denominator that sums the rounded p over the real kv columns.
+  denominator that sums the rounded p over the real kv columns; with
+  ``bf16_exp`` the shifted score is rounded to bf16 before the exp.
 * ``flash_attention`` replaces
   ``mdu_tpu.ops.pallas.flash_attention.flash_attention``: online softmax with
   an fp32 denominator of the unrounded p.
+* ``flash_attention_t`` replaces
+  ``mdu_tpu.ops.pallas.flash_attention.flash_attention_t``: the same online
+  softmax as ``flash_attention``, with D padded only to a multiple of 16.
 
-Each takes bf16 (tensor-core kernels ``csrc/flash_attention_fm.cu`` and
-``csrc/flash_attention.cu``) or fp32 (``csrc/flash_attention_f32.cu``), as
-the TPU kernels took either. Each wrapper launches a kernel for a CUDA tensor
-and raises on anything the kernels do not take; it runs the plain version
-only for a CPU tensor. Every kernel launch adds one to ``LAUNCHES[name]``.
+Each takes bf16 (tensor-core kernels ``csrc/flash_attention_fm.cu``,
+``csrc/flash_attention.cu``, ``csrc/flash_attention_t.cu``) or fp32
+(``csrc/flash_attention_f32.cu``), as the TPU kernels took either. Each
+wrapper launches a kernel for a CUDA tensor and raises on anything the
+kernels do not take; it runs the plain version only for a CPU tensor. Every
+kernel launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
@@ -22,25 +26,28 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = {"flash_attention_fm": 0, "flash_attention": 0,
-            "flash_attention_fm_f32": 0, "flash_attention_f32": 0}
-MAX_D = {"flash_attention_fm": 160, "flash_attention": 512,
-         "flash_attention_fm_f32": 512, "flash_attention_f32": 512}
+from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
+
+__all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
+           "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
+           "flash_attention_t_plain"]
+
+MAX_D = {"flash_attention_fm": 160, "flash_attention": 512, "flash_attention_t": 512,
+         "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
+         "flash_attention_t_f32": 512}
+T_MAX_D = 160    # widest head of csrc/flash_attention_t.cu; wider goes to #2
 _ROWS = 1024     # query rows per chunk of the plain versions (bounds memory)
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
 
 
 def flash_attention_fm_plain(q, k, v, scale: Optional[float] = None,
-                             smax: float = 30.0, clamp: bool = False):
+                             smax: float = 30.0, clamp: bool = False,
+                             bf16_exp: bool = False):
     """The fixed-shift kernel's arithmetic on [B, H, L, D] tensors: fp32
-    scores, p = exp(min(s, smax) - smax) cast to v's dtype, fp32 products,
+    scores, p = exp(min(s, smax) - smax) cast to v's dtype (with
+    ``bf16_exp``: p = bf16(exp(bf16(min(s, smax) - smax)))), fp32 products,
     denominator = sum of the cast p floored at 1e-30."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     kf, vf = k.float(), v.float()
@@ -49,7 +56,11 @@ def flash_attention_fm_plain(q, k, v, scale: Optional[float] = None,
         s = torch.matmul(q[:, :, i:i + _ROWS].float(), kf.transpose(-1, -2)) * scale
         if clamp:
             s = s.clamp(max=smax)
-        p = torch.exp(s - smax).to(v.dtype).float()
+        if bf16_exp:
+            p = torch.exp((s - smax).to(torch.bfloat16).float()).to(torch.bfloat16)
+        else:
+            p = torch.exp(s - smax)
+        p = p.to(v.dtype).float()
         den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
         outs.append((torch.matmul(p, vf) / den).to(q.dtype))
     return torch.cat(outs, dim=2)
@@ -68,6 +79,12 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None):
         pv = torch.matmul(p.to(v.dtype).float(), vf)
         outs.append((pv / den).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def flash_attention_t_plain(q, k, v, scale: Optional[float] = None):
+    """``flash_attention_t``'s function, which is ``flash_attention``'s: the
+    TPU kernel differs from it only in its block layout."""
+    return flash_attention_plain(q, k, v, scale)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -101,44 +118,40 @@ def _check(name: str, q, k, v) -> None:
 def _vec_ok(q, k, v) -> ctypes.c_int:
     """16-byte copies: whole 16-byte chunks per row and aligned bases."""
     D = q.shape[-1]
-    return ctypes.c_int(int(D * q.element_size() % 16 == 0
-                            and all(x.data_ptr() % 16 == 0 for x in (q, k, v))))
+    return ctypes.c_int(int(D * q.element_size() % 16 == 0 and aligned16(q, k, v)))
 
 
 def _launch(name: str, library: str, fn_name: str, q, k, v, *extra):
     """Launch ``fn_name`` of ``library`` on (q, k, v, out, bh, Lq, Lk, D,
-    *extra, stream); ``extra`` holds ctypes values. Counts under ``name``."""
-    from .build import load
-
-    fn = getattr(load(library), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [type(x) for x in extra] + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    *extra); ``extra`` holds ctypes values. Counts under ``name``."""
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B * H, Lq, k.shape[2], D, *extra, stream)
-    LAUNCHES[name] += 1
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+    launch(name, library, fn_name, q.device, ptr(q), ptr(k), ptr(v), ptr(out),
+           ctypes.c_int(B * H), ctypes.c_int(Lq), ctypes.c_int(k.shape[2]),
+           ctypes.c_int(D), *extra)
     return out
 
 
 def flash_attention_fm(q, k, v, scale: Optional[float] = None,
-                       smax: float = 30.0, clamp: bool = False):
-    """Fixed-shift flash attention on [B, H, L, D] (non-causal)."""
+                       smax: float = 30.0, clamp: bool = False,
+                       bf16_exp: bool = False):
+    """Fixed-shift flash attention on [B, H, L, D] (non-causal). In bf16 the
+    kernel takes D <= 160 and raises NotImplementedError on a wider head."""
     if q.device.type == "cpu":
-        return flash_attention_fm_plain(q, k, v, scale, smax, clamp)
+        return flash_attention_fm_plain(q, k, v, scale, smax, clamp, bf16_exp)
+    if q.dtype == torch.bfloat16 and q.dim() == 4 and q.shape[-1] > MAX_D["flash_attention_fm"]:
+        raise NotImplementedError(
+            f"flash_attention_fm: D = {q.shape[-1]} in bf16 waits for ROADMAP queue 2 "
+            f"(fm kernel at D > 160 in bf16)")
     _check("flash_attention_fm", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    args = (ctypes.c_float(scale), ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))))
+    args = (ctypes.c_float(scale), ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
+            ctypes.c_int(int(bool(bf16_exp))), _vec_ok(q, k, v))
     if q.dtype == torch.float32:
         return _launch("flash_attention_fm_f32", "flash_attention_f32",
-                       "mdu_flash_attention_fm_f32", q, k, v, *args, _vec_ok(q, k, v))
+                       "mdu_flash_attention_fm_f32", q, k, v, *args)
     return _launch("flash_attention_fm", "flash_attention_fm", "mdu_flash_attention_fm",
-                   q, k, v, *args, _vec_ok(q, k, v))
+                   q, k, v, *args)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -151,4 +164,24 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
         return _launch("flash_attention_f32", "flash_attention_f32",
                        "mdu_flash_attention_f32", q, k, v, scale, _vec_ok(q, k, v))
     return _launch("flash_attention", "flash_attention", "mdu_flash_attention",
+                   q, k, v, scale, _vec_ok(q, k, v))
+
+
+def flash_attention_t(q, k, v, scale: Optional[float] = None):
+    """Online-softmax flash attention on [B, H, L, D] with D padded to a
+    multiple of 16 (non-causal); what ``MDU_FLASH=trans`` selects.
+
+    bf16 with D <= 160 launches ``csrc/flash_attention_t.cu`` (counted under
+    ``flash_attention_t``). Two inputs go to kernels that compute the very
+    same function, and count under their names: bf16 with 160 < D <= 512
+    (the VAE's D = 512, where padding to 16 and to 128 coincide) launches
+    ``flash_attention``'s kernel; fp32 launches ``csrc/flash_attention_f32.cu``
+    (``flash_attention_f32``)."""
+    if q.device.type == "cpu":
+        return flash_attention_t_plain(q, k, v, scale)
+    _check("flash_attention_t", q, k, v)
+    if q.dtype == torch.float32 or q.shape[-1] > T_MAX_D:
+        return flash_attention(q, k, v, scale)
+    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
+    return _launch("flash_attention_t", "flash_attention_t", "mdu_flash_attention_t",
                    q, k, v, scale, _vec_ok(q, k, v))

@@ -4,7 +4,9 @@
 A tile scheduler is a combinator: it takes a per-tile denoiser and returns a
 ``denoised_fn(x, sigma, step)`` for the samplers. Tile outputs are added into
 the canvas in bbox order and divided by the paint counts,
-``where(w > 1, buf / w, buf)`` (ref multidiffusion.py:208).
+``where(w > 1, buf / w, buf)`` (ref multidiffusion.py:208). Under
+``MDU_FUSED_BLEND`` the sum is one fused gather over all tiles
+(``ops/kernels/tile_blend.py``), as in ``mdu_tpu/tiling/schedulers.py:343-367``.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import flags
 from ..config import Method
 from ..ops.fusion import gather_tiles, weighted_average
+from ..ops.kernels import BlendTable, fused_tile_blend
 from ..utils.bbox import BBox
 from ..utils.grid import batch_bboxes, clamp_overlap, paint_count, split_grid
 
@@ -71,16 +75,19 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn):
     """``denoised_fn(x, sigma, step)`` that denoises the plan's tile batches
     and fuses them (ref multidiffusion.py:131-218)."""
     weights = None
+    table = None                       # the fused blend's contributor table
 
     def denoised_fn(x, sigma, step):
-        nonlocal weights
+        nonlocal weights, table
         B, C, H, W = x.shape
         if (H, W) != (plan.h, plan.w):
             raise ValueError(f"input {H}x{W} does not match tile plan "
                              f"{plan.h}x{plan.w}")
         if weights is None or weights.device != x.device:
             weights = torch.as_tensor(plan.weights, device=x.device)
-        buf = torch.zeros_like(x)
+        fused = flags.fused_blend()
+        outs = []
+        buf = None if fused else torch.zeros_like(x)
         for batch_i, bboxes in enumerate(plan.batched):
             tiles = gather_tiles(x, bboxes)                  # [K, B, C, th, tw]
             K = tiles.shape[0]
@@ -94,8 +101,19 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn):
             flat = tiles.reshape(Kp * B, C, plan.tile_h, plan.tile_w)
             out = tile_denoise(flat, sigma, step, call_bboxes, batch_i)
             out = out.reshape(Kp, B, C, plan.tile_h, plan.tile_w)[:K]
+            if fused:
+                outs.append(out)
+                continue
             for k, b in enumerate(bboxes):
                 buf[:, :, b.y:b.y + b.h, b.x:b.x + b.w] += out[k]
+        if fused:
+            if table is None:
+                table = BlendTable(plan.h, plan.w, plan.bboxes)
+            stacked = torch.cat(outs)                          # [T, B, C, th, tw]
+            folded = stacked.reshape(-1, B * C, plan.tile_h, plan.tile_w)
+            # the raw sum only; the divide follows, as in the JAX package
+            buf = fused_tile_blend(folded, weights[0, 0], plan.h, plan.w, plan.bboxes,
+                                   normalize=False, table=table).reshape(B, C, H, W)
         return weighted_average(buf, weights)
 
     return denoised_fn

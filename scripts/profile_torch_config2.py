@@ -10,12 +10,15 @@ synchronize), then one image under ``torch.profiler``. Prints one JSON line:
 the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
 share of the profiled image, and the device time by kernel family and by the
-20 largest kernels (also written to PATH with --out). TF32 is off.
+20 largest kernels (also written to PATH with --out). TF32 is off. The
+kernel flags (MDU_FLASH, MDU_FUSED_GN, MDU_FUSED_CONV, MDU_FUSED_BLEND) are
+taken from the environment as they are, and echoed in the result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import sys
 import time
@@ -26,7 +29,11 @@ ROOT = Path(__file__).resolve().parents[1]
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
     ("flash_attention_fm", r"flash_fm_kernel"),
+    ("flash_attention_t", r"flash_t_kernel"),
     ("flash_attention", r"flash_kernel"),
+    ("fused_group_norm", r"gn_kernel"),
+    ("fused_tile_blend", r"blend_kernel"),
+    ("fused_conv3x3", r"conv_bf16_kernel|conv_f32_kernel"),
     ("conv (cuDNN / implicit GEMM)", r"conv|implicit|cudnn|xmma_fprop|sm90_xmma|winograd|fprop"),
     ("matmul (cuBLAS)", r"gemm|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),
@@ -97,6 +104,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
     result = {
         "device": torch.cuda.get_device_name(0),
+        "flags": {k: os.environ[k] for k in sorted(chip_smoke.FLAGS) if k in os.environ},
         "nvidia_smi": chip_smoke.nvidia_smi_line(),
         "image_wall_s": wall_s,
         "profiled_image_wall_s": prof_wall_s,
