@@ -16,6 +16,14 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  same inputs: the kernel's max abs error must stay within 2x
                  the bf16 plain version's error + 1e-3. Each fp32 kernel at
                  the first config-2 shape, within 1e-4 of its plain version.
+                 #1 and #3 also at D = 13 (their mma.sync forms), #1 and its
+                 ``bf16_exp`` at the VAE's [2, 1, 9600, 512] (the wide form);
+                 each line names the form the wrapper took. At config 2's
+                 shapes #1 and #3 take their warpgroup (sm90) form, and the
+                 line adds the time of the earlier mma.sync form on the same
+                 inputs (``earlier_ms``) and the MUFU exp floor
+                 (``mufu_floor_ms``: one ex2 per score at 16 a clock per SM
+                 on 132 SMs, at the ``clocks.max.sm`` nvidia-smi reads).
                  Times from CUDA events: kernel, plain version, and one
                  PyTorch call that computes the same function as a yardstick
                  only (the port never calls it): ``F.scaled_dot_product_attention``
@@ -37,7 +45,8 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
                  exact tiled decode (tile 128); 1 warm and 2 timed images,
-                 with no flag and then with the four flags. Launch counts are
+                 with no flag, with the four flags and with MDU_FLASH=fm
+                 (the VAE's D = 512 through #1's wide form). Launch counts are
                  set to 0 just before each image and read just after; each
                  kernel's launches per image must equal the pinned count
                  (and a kernel of the path launched 0 times fails the run).
@@ -68,16 +77,26 @@ CFG2 = dict(width=2048, height=512, steps=20, cfg=7.0, tile=96, overlap=48,
 FLAGS = {"MDU_FLASH": "trans", "MDU_FUSED_GN": "1", "MDU_FUSED_CONV": "1",
          "MDU_FUSED_BLEND": "1"}
 # launches per config-2 image; every other kernel must launch 0 times
-EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention": 1}
-EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention": 1,
-                    "fused_group_norm": 340, "fused_conv3x3": 320,
+# ("name.form" counts the launches of one form of a kernel)
+EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
+                     "flash_attention": 1}
+EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
+                    "flash_attention": 1, "fused_group_norm": 340, "fused_conv3x3": 320,
                     "fused_tile_blend": 20}
+EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
+               "flash_attention_fm.wide": 1}
+CONFIG2_RUNS = (("default", {}, EXPECTED_LAUNCHES), ("flagged", FLAGS, EXPECTED_FLAGGED),
+                ("fm", {"MDU_FLASH": "fm"}, EXPECTED_FM))
+MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
+N_SMS = 132
 KERNELS = {
     "flash_attention_fm": dict(
         source="mdu_tpu_torch/csrc/flash_attention_fm.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:215",
-        # UNet self-attention of config 2, levels 0 and 1; then a ragged shape
-        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40)]),
+        # UNet self-attention of config 2, levels 0 and 1; a ragged shape; the
+        # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync)
+        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
+                (1, 1, 700, 13)]),
     "flash_attention": dict(
         source="mdu_tpu_torch/csrc/flash_attention.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:335",
@@ -86,8 +105,8 @@ KERNELS = {
     "flash_attention_t": dict(
         source="mdu_tpu_torch/csrc/flash_attention_t.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:282",
-        # under MDU_FLASH=trans: config 2's UNet self-attention; then ragged
-        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40)]),
+        # under MDU_FLASH=trans: config 2's UNet self-attention; ragged; D = 13
+        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (1, 1, 700, 13)]),
     "fused_group_norm": dict(
         source="mdu_tpu_torch/csrc/group_norm.cu",
         replaces="mdu_tpu/ops/pallas/group_norm.py:33",
@@ -187,9 +206,18 @@ def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn
     return check
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def check_attention(gen, summary):
     """bf16 flash kernels at every shape of KERNELS, fp32 at the first; #1
-    also with bf16_exp (MDU_FLASH=fm16) at its first shape."""
+    also with bf16_exp (MDU_FLASH=fm16) at its first shape and at D = 512.
+    Where the warpgroup form runs at a config-2 shape, the earlier mma.sync
+    form is timed on the same inputs beside it."""
     import functools
 
     import torch
@@ -197,21 +225,23 @@ def check_attention(gen, summary):
 
     from mdu_tpu_torch.ops.kernels import flash
 
+    clock_hz = max_sm_clock_hz()
     fns = {"flash_attention_fm": (flash.flash_attention_fm, flash.flash_attention_fm_plain),
            "flash_attention": (flash.flash_attention, flash.flash_attention_plain),
            "flash_attention_t": (flash.flash_attention_t, flash.flash_attention_t_plain)}
     for name, (kernel, plain) in fns.items():
-        variants = [(torch.bfloat16, name, KERNELS[name]["shapes"], {})]
+        shapes = KERNELS[name]["shapes"]
+        variants = [(torch.bfloat16, name, shapes, {})]
         if name != "flash_attention_t":        # its fp32 form is flash_attention_f32's
-            variants.append((torch.float32, name + "_f32", KERNELS[name]["shapes"][:1], {}))
+            variants.append((torch.float32, name + "_f32", shapes[:1], {}))
         if name == "flash_attention_fm":
             variants.append((torch.bfloat16, name + "_bf16_exp",
-                             KERNELS[name]["shapes"][:1], {"bf16_exp": True}))
-        for dtype, key, shapes, kw in variants:
+                             [shapes[0], (2, 1, 9600, 512)], {"bf16_exp": True}))
+        for dtype, key, var_shapes, kw in variants:
             kern = functools.partial(kernel, **kw)
             pl = functools.partial(plain, **kw)
             checks = []
-            for shape in shapes:
+            for shape in var_shapes:
                 B, H, L, D = shape
                 q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                            for _ in range(3))
@@ -235,6 +265,17 @@ def check_attention(gen, summary):
                     del rev
                 big = L * L * B * H > 1e8
                 iters = (20 if big else 50) if dtype == torch.bfloat16 else (3 if big else 10)
+                if dtype == torch.bfloat16 and name in flash.FORMS:
+                    form = flash.bf16_form(name, q, k, v)
+                    extra["form"] = form
+                    if form == "sm90" and shape in shapes[:2]:
+                        # the mma.sync form that config 2 took before, same inputs
+                        extra["earlier_ms"] = cuda_ms(
+                            lambda: flash.launch_form(name, "mma", q, k, v, **kw), iters)
+                        extra["earlier_form"] = "mma"
+                    extra["mufu_floor_ms"] = B * H * L * L / (
+                        N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
+                    extra["sm_clock_max_mhz"] = clock_hz / 1e6
                 bound_ms, bound_by = attention_bound(B, H, L, D, q.element_size())
                 checks.append(_record(
                     key, shape, dtype, out, ref, err_plain, lambda: kern(q, k, v),
@@ -540,14 +581,13 @@ def run_config2(pipe, cond, uncond, sp, td, tv, expected, label, n=2):
 
 
 def phase_txt2img():
-    """Config 2 with no flag, then with the four flags: returns the launches
-    per image of each run."""
+    """Config 2 with no flag, with the four flags and with MDU_FLASH=fm:
+    returns the launches per image of each run."""
     t0 = time.perf_counter()
     pipe, cond, uncond, sp, td, tv = build_config2()
     setup_s = time.perf_counter() - t0
     out = {}
-    for label, flags, expected in (("default", {}, EXPECTED_LAUNCHES),
-                                   ("flagged", FLAGS, EXPECTED_FLAGGED)):
+    for label, flags, expected in CONFIG2_RUNS:
         with flags_set(flags):
             launches, fields = run_config2(pipe, cond, uncond, sp, td, tv, expected, label)
         emit("txt2img", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16",
@@ -562,9 +602,24 @@ def phase_txt2img():
 def kernel_rows(checks, launches):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
-    takes it (the flagged run for the flagged kernels)."""
+    takes it (the flagged run for the flagged kernels). #1 and #3 also list
+    every config-2 shape with the earlier form's time and the MUFU floor; #1's
+    wide form has its own row (launches from the MDU_FLASH=fm run)."""
     rows = []
     names = list(KERNELS) + list(F32_KERNELS)
+    c2_fields = ("shape", "form", "ms", "earlier_ms", "bound_ms", "mufu_floor_ms",
+                 "library_ms", "plain_ms", "max_abs_err")
+
+    def row(name, key, main, run, launch_key, source, checked, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=KERNELS[key]["replaces"],
+                    launches=launches.get(run, {}).get(launch_key, 0), launches_run=run,
+                    max_abs_err=max(c["max_abs_err"] for c in checked),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shape=main["shape"],
+                    dtype=main["dtype"], **extra)
+
     for name in names:
         if name not in checks:
             continue
@@ -572,14 +627,20 @@ def kernel_rows(checks, launches):
         source = F32_KERNELS[name][1] if name in F32_KERNELS else KERNELS[name]["source"]
         main = checks[name][0]
         run = "default" if base in ("flash_attention_fm", "flash_attention") else "flagged"
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=KERNELS[base]["replaces"],
-                         launches=launches.get(run, {}).get(name, 0), launches_run=run,
-                         max_abs_err=max(c["max_abs_err"] for c in checks[name]),
-                         ms=main["ms"], plain_ms=main["plain_ms"],
-                         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                         library_ms=main["library_ms"], shape=main["shape"],
-                         dtype=main["dtype"]))
+        extra = {}
+        if name in ("flash_attention_fm", "flash_attention_t"):
+            c2 = [c for c in checks[name] if tuple(c["shape"]) in KERNELS[name]["shapes"][:2]]
+            extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
+                         mufu_floor_ms=main.get("mufu_floor_ms"),
+                         template="mdu_tpu_torch/csrc/flash_attention_sm90.cuh",
+                         form_launches=launches.get(run, {}).get(name + ".sm90", 0),
+                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
+        rows.append(row(name, base, main, run, name, source, checks[name], **extra))
+        wide = [c for c in checks[name] if c.get("form") == "wide"]
+        if wide:
+            rows.append(row(name + ".wide", base, wide[0], "fm", name + ".wide",
+                            "mdu_tpu_torch/csrc/flash_attention.cu", wide, form="wide",
+                            entry="mdu_flash_attention_fm_wide"))
     return rows
 
 

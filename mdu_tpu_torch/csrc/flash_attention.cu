@@ -23,6 +23,14 @@
 // overlaps the Q.K^T products and the softmax. Fragments come from shared
 // memory through ldmatrix. Still to do toward the bound: wgmma, TMA, and a
 // second stage (a smaller kv tile).
+//
+// With the template flag FIXED the same layout computes kernel #1's function
+// (flash_attention_fm.cu, TPU kernel flash_attention_t_fm) for bf16 heads
+// wider than 160, which the VAE's D = 512 needs under MDU_FLASH=fm|fm16: a
+// fixed shift smax in place of the running max (no rescale), p =
+// bf16(exp(min(s * scale, smax) - smax)) (BF16_EXP: the shifted score rounded
+// to bf16 first), and a denominator that sums the rounded p over the real kv
+// columns, floored at 1e-30 (entry point mdu_flash_attention_fm_wide).
 #include "mma_bf16.cuh"
 
 namespace {
@@ -31,14 +39,15 @@ constexpr int BQ = 32;
 constexpr int BK = 64;
 constexpr int NWARPS = 8;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>
+template <int DP, bool FIXED, bool BF16_EXP>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ o, int Lq, int Lk, int D, float scale,
-             int vec) {
+             float smax, int clamp, int vec) {
   constexpr int LDS = DP + 8;
   constexpr int DQ = DP / 4;           // accumulator columns of one warp
   constexpr int KB = DQ / 16;          // k-steps of the partial Q.K^T
@@ -124,6 +133,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
     // full scores of the row group, summed in a fixed order
     float s[ST][4];
     float mx0 = NEG, mx1 = NEG;
+    uint32_t pa[ST][2];
 #pragma unroll
     for (int n = 0; n < ST; ++n) {
       float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -134,41 +144,69 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
         acc4.x += p4.x; acc4.y += p4.y; acc4.z += p4.z; acc4.w += p4.w;
       }
       const float sv[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+      if constexpr (FIXED) {
+        // the fixed shift: p rounded to bf16, the denominator sums the
+        // rounded p; kv columns past Lk contribute 0
+        float p[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + n * 8 + 2 * t + (j & 1);
-        s[n][j] = col < Lk ? sv[j] * scale : NEG;
+        for (int j = 0; j < 4; ++j) {
+          float x;
+          if constexpr (BF16_EXP) {
+            const float e = clamp ? fminf(sv[j] * scale, smax) - smax
+                                  : fmaf(sv[j], scale, -smax);
+            x = __bfloat162float(__float2bfloat16_rn(e)) * LOG2E;
+          } else {
+            x = clamp ? fminf(sv[j] * scale * LOG2E, smax * LOG2E) - smax * LOG2E
+                      : fmaf(sv[j], scale * LOG2E, -smax * LOG2E);
+          }
+          p[j] = k0 + n * 8 + 2 * t + (j & 1) < Lk ? mdu::ex2(x) : 0.f;
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
+        const float2 flo = __bfloat1622float2(lo);
+        const float2 fhi = __bfloat1622float2(hi);
+        l0 += flo.x + flo.y;
+        l1 += fhi.x + fhi.y;
+        pa[n][0] = *reinterpret_cast<const uint32_t*>(&lo);
+        pa[n][1] = *reinterpret_cast<const uint32_t*>(&hi);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + n * 8 + 2 * t + (j & 1);
+          s[n][j] = col < Lk ? sv[j] * scale : NEG;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0);
-    const float c1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= c0;
-    l1 *= c1;
+    if constexpr (!FIXED) {            // the online softmax
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float c0 = __expf(m0 - mn0);
+      const float c1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= c0;
+      l1 *= c1;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= c0; acc[n][1] *= c0;
-      acc[n][2] *= c1; acc[n][3] *= c1;
-    }
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= c0; acc[n][1] *= c0;
+        acc[n][2] *= c1; acc[n][3] *= c1;
+      }
 
-    uint32_t pa[ST][2];
 #pragma unroll
-    for (int n = 0; n < ST; ++n) {
-      const float p0 = __expf(s[n][0] - mn0), p1 = __expf(s[n][1] - mn0);
-      const float p2 = __expf(s[n][2] - mn1), p3 = __expf(s[n][3] - mn1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[n][0] = mdu::pack_bf16(__float2bfloat16_rn(p0), __float2bfloat16_rn(p1));
-      pa[n][1] = mdu::pack_bf16(__float2bfloat16_rn(p2), __float2bfloat16_rn(p3));
+      for (int n = 0; n < ST; ++n) {
+        const float p0 = __expf(s[n][0] - mn0), p1 = __expf(s[n][1] - mn0);
+        const float p2 = __expf(s[n][2] - mn1), p3 = __expf(s[n][3] - mn1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        pa[n][0] = mdu::pack_bf16(__float2bfloat16_rn(p0), __float2bfloat16_rn(p1));
+        pa[n][1] = mdu::pack_bf16(__float2bfloat16_rn(p2), __float2bfloat16_rn(p3));
+      }
     }
 
 #pragma unroll
@@ -211,21 +249,32 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
+template <int DP, bool FIXED = false, bool BF16_EXP = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int Lq, int Lk, int D, float scale, int vec,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, float smax = 0.f, int clamp = 0) {
   const int smem = (BQ + 2 * BK) * (DP + 8) * (int)sizeof(__nv_bfloat16) +
                    NWARPS * (BK / 8) * 32 * 4 * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<DP, FIXED, BF16_EXP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BQ - 1) / BQ, bh);
-  flash_kernel<DP><<<grid, NWARPS * 32, smem, stream>>>(
+  flash_kernel<DP, FIXED, BF16_EXP><<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Lq, Lk, D, scale, vec);
+      Lq, Lk, D, scale, smax, clamp, vec);
   return cudaGetLastError();
+}
+
+template <bool BF16_EXP>
+cudaError_t launch_fixed(const void* q, const void* k, const void* v, void* o,
+                         int bh, int Lq, int Lk, int D, float scale, float smax,
+                         int clamp, int vec, cudaStream_t s) {
+  if (D <= 128) return launch<128, true, BF16_EXP>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s, smax, clamp);
+  if (D <= 256) return launch<256, true, BF16_EXP>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s, smax, clamp);
+  if (D <= 384) return launch<384, true, BF16_EXP>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s, smax, clamp);
+  if (D <= 512) return launch<512, true, BF16_EXP>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s, smax, clamp);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -241,4 +290,16 @@ extern "C" int mdu_flash_attention(const void* q, const void* k, const void* v,
   if (D <= 384) return launch<384>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s);
   if (D <= 512) return launch<512>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel #1's fixed-shift function on the same split-D layout: q, k, v, o
+// contiguous bf16 [bh, L, D]; 1 <= D <= 512. Returns a cudaError_t (0 on a
+// successful launch).
+extern "C" int mdu_flash_attention_fm_wide(const void* q, const void* k, const void* v,
+                                           void* o, int bh, int Lq, int Lk, int D,
+                                           float scale, float smax, int clamp,
+                                           int bf16_exp, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_exp) return launch_fixed<true>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
+  return launch_fixed<false>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
 }

@@ -12,22 +12,32 @@
 // MDU_FLASH=fm16) the shifted score is rounded to bf16 before the exp:
 //   p   = bf16(exp(bf16(min(s * scale, smax) - smax))).
 //
-// What bounds it on an H100: at the UNet self-attention shapes of config 2
-// ([10, 8, 6144, 40] and [10, 8, 1536, 80]) the work is 4*L^2*D flops per
-// head against 8*L*D bytes, far above the card's ~295 flop/byte ridge, so the
-// tensor cores bound it. At D = 40 the exp of every score is close behind:
-// one MUFU op per 160 tensor-core flops. The fixed shift removes the running
-// max and the per-tile rescale of the accumulator, so each kv tile costs two
-// tensor-core products and one fused multiply-add + exp2 per score; the kv
-// mask runs only on the ragged last tile. K and V tiles are double-buffered
-// with cp.async, and fragments come from shared memory through ldmatrix.
-// Still to do toward the bound: wgmma and TMA (warpgroup-wide products).
+// Two forms, chosen by the wrapper (ops/kernels/flash.py) on shape and
+// alignment alone:
+// - mdu_flash_attention_fm_sm90: the warpgroup kernel of
+//   flash_attention_sm90.cuh (wgmma, TMA, a producer warp and two or three
+//   consumer warpgroups) with the FixedShift policy, for D % 8 == 0,
+//   16 <= D <= 160 and 16-byte aligned inputs: all of config 2 (D = 40, 80).
+//   What bounds it, and how it overlaps the exps with the products, is in
+//   that header: at [10, 8, 6144, 40] the tensor cores (0.489 ms) and the
+//   MUFU exp floor (about 0.72 ms at 1.98 GHz).
+// - mdu_flash_attention_fm: the mma.sync kernel below, for any D <= 160
+//   (D = 13, unaligned inputs).
+// bf16 heads wider than 160 (the VAE's 512) go to flash_attention.cu's
+// split-D kernel with the same fixed-shift policy.
 //
-// Layout: one block of 4 warps per (batch*head, 64-query tile); each warp
-// owns 16 query rows and loops over 64-row kv tiles held in shared memory.
-// (128-query blocks of 8 warps halve the L2 reads of K and V but measured no
-// faster at [10, 8, 6144, 40]: L2 is not what bounds it.)
+// The mma.sync form: the fixed shift removes the running max and the per-tile
+// rescale of the accumulator, so each kv tile costs two tensor-core products
+// and one fused multiply-add + exp2 per score; the kv mask runs only on the
+// ragged last tile. K and V tiles are double-buffered with cp.async, and
+// fragments come from shared memory through ldmatrix. One block of 4 warps
+// per (batch*head, 64-query tile); each warp owns 16 query rows and loops over
+// 64-row kv tiles held in shared memory. Each warp issues 24 mma.sync, 12
+// ldmatrix.x4 and 32 exp2 a lane per kv tile, and no product overlaps the
+// exps of the same warp: that instruction count, not L2, bounds it (128-query
+// blocks of 8 warps halve the L2 reads of K and V but measured no faster).
 // D is padded to DP (a multiple of 16) with zero-filled loads.
+#include "flash_attention_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -250,4 +260,18 @@ extern "C" int mdu_flash_attention_fm(const void* q, const void* k,
   if (D <= 128) return launch<128>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
   if (D <= 160) return launch<160>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The warpgroup form: q, k, v, o contiguous bf16 [bh, L, D], D % 8 == 0,
+// 16 <= D <= 160, 16-byte aligned. Returns a cudaError_t (0 on a successful
+// launch).
+extern "C" int mdu_flash_attention_fm_sm90(const void* q, const void* k, const void* v,
+                                           void* o, int bh, int Lq, int Lk, int D,
+                                           float scale, float smax, int clamp, int bf16_exp,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using mdu::sm90::FixedShift;
+  if (bf16_exp)
+    return mdu::sm90::launch<FixedShift<true>>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, s);
+  return mdu::sm90::launch<FixedShift<false>>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, s);
 }

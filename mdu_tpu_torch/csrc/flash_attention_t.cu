@@ -22,9 +22,22 @@
 // (two quad shuffles), one exp2 per row for the correction and a rescale of
 // the accumulator: the cost of not assuming a bound on the logits.
 //
-// Layout, as flash_attention_fm.cu: one block of 4 warps per (batch*head,
-// 64-query tile); each warp owns 16 query rows and loops over 64-row kv tiles,
-// double-buffered in shared memory with cp.async; fragments by ldmatrix.
+// Two forms, chosen by the wrapper (ops/kernels/flash.py) on shape and
+// alignment alone:
+// - mdu_flash_attention_t_sm90: the warpgroup kernel of
+//   flash_attention_sm90.cuh (wgmma, TMA, a producer warp and two or three
+//   consumer warpgroups) with the Online policy, for D % 8 == 0,
+//   16 <= D <= 160 and 16-byte aligned inputs: all of config 2 (D = 40, 80).
+//   The tensor cores (0.489 ms at [10, 8, 6144, 40]) and the MUFU exp floor
+//   (about 0.72 ms at 1.98 GHz) bound it; the header says how it overlaps the
+//   exps with the products. The rescale of the accumulator waits for the
+//   previous P.V, which has finished by the time it runs.
+// - mdu_flash_attention_t: the mma.sync kernel below, for any D <= 160
+//   (D = 4, 13, unaligned inputs). Layout as in flash_attention_fm.cu: one
+//   block of 4 warps per (batch*head, 64-query tile); each warp owns 16 query
+//   rows and loops over 64-row kv tiles, double-buffered in shared memory with
+//   cp.async; fragments by ldmatrix.
+#include "flash_attention_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -255,4 +268,14 @@ extern "C" int mdu_flash_attention_t(const void* q, const void* k, const void* v
     case 10: return launch<160>(q, k, v, o, bh, Lq, Lk, D, scale, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The warpgroup form: q, k, v, o contiguous bf16 [bh, L, D], D % 8 == 0,
+// 16 <= D <= 160, 16-byte aligned. Returns a cudaError_t (0 on a successful
+// launch).
+extern "C" int mdu_flash_attention_t_sm90(const void* q, const void* k, const void* v,
+                                          void* o, int bh, int Lq, int Lk, int D,
+                                          float scale, void* stream) {
+  return mdu::sm90::launch<mdu::sm90::Online>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0,
+                                              static_cast<cudaStream_t>(stream));
 }

@@ -70,6 +70,14 @@ def _command(name: str, out: Path) -> List[str]:
             "-o", str(out), str(CSRC / SOURCES[name])]
 
 
+def _ptxas_lines(log: str) -> List[str]:
+    """ptxas's report of each kernel: the function it compiles, registers and
+    shared memory, and the ``bytes stack frame, ... spill stores, ... spill
+    loads`` line (which does not name ptxas); and any warning."""
+    keep = ("Compiling", "registers", "smem", "spill", "warning")
+    return [ln.strip() for ln in log.splitlines() if any(w in ln for w in keep)]
+
+
 def build_all(names=None) -> Dict[str, dict]:
     """Build every missing library in parallel; returns, per library, the
     seconds its nvcc took (0 when it was already built) and the ptxas lines."""
@@ -97,9 +105,7 @@ def build_all(names=None) -> Dict[str, dict]:
         os.replace(tmp, out)
         report[name] = {
             "seconds": time.perf_counter() - t0,
-            "ptxas": [ln.strip() for ln in log.splitlines()
-                      if "ptxas" in ln and ("registers" in ln or "spill" in ln
-                                            or "smem" in ln or "Compiling" in ln)],
+            "ptxas": _ptxas_lines(log),
             "path": str(out),
         }
     if failures:

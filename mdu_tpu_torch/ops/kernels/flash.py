@@ -18,6 +18,17 @@ Each takes bf16 (tensor-core kernels ``csrc/flash_attention_fm.cu``,
 wrapper launches a kernel for a CUDA tensor and raises on anything the
 kernels do not take; it runs the plain version only for a CPU tensor. Every
 kernel launch adds one to ``LAUNCHES[name]``.
+
+In bf16, ``flash_attention_fm`` and ``flash_attention_t`` have more than one
+form, chosen by ``bf16_form`` on shape and alignment alone (never on a
+failure), each counted also under ``LAUNCHES["<name>.<form>"]``:
+
+* ``sm90``: the warpgroup kernel (``csrc/flash_attention_sm90.cuh``: wgmma,
+  TMA, ping-pong consumers) for D % 8 == 0, 16 <= D <= 160 and 16-byte
+  aligned q, k, v (a tensor map needs 16-byte strides and bases);
+* ``mma``: the ``mma.sync`` kernels for any other D <= 160;
+* ``wide`` (``flash_attention_fm`` only): 160 < D <= 512, the fixed shift on
+  ``flash_attention``'s split-D kernel.
 """
 from __future__ import annotations
 
@@ -30,12 +41,22 @@ from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
            "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
-           "flash_attention_t_plain"]
+           "flash_attention_t_plain", "bf16_form", "launch_form"]
 
-MAX_D = {"flash_attention_fm": 160, "flash_attention": 512, "flash_attention_t": 512,
+MAX_D = {"flash_attention_fm": 512, "flash_attention": 512, "flash_attention_t": 512,
          "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
          "flash_attention_t_f32": 512}
-T_MAX_D = 160    # widest head of csrc/flash_attention_t.cu; wider goes to #2
+MMA_MAX_D = 160  # widest head of the mma.sync and warpgroup forms of #1 and #3
+# (library, C function) of each bf16 form of the two kernels that have forms
+FORMS = {
+    "flash_attention_fm": {
+        "sm90": ("flash_attention_fm", "mdu_flash_attention_fm_sm90"),
+        "mma": ("flash_attention_fm", "mdu_flash_attention_fm"),
+        "wide": ("flash_attention", "mdu_flash_attention_fm_wide")},
+    "flash_attention_t": {
+        "sm90": ("flash_attention_t", "mdu_flash_attention_t_sm90"),
+        "mma": ("flash_attention_t", "mdu_flash_attention_t")},
+}
 _ROWS = 1024     # query rows per chunk of the plain versions (bounds memory)
 
 
@@ -121,37 +142,62 @@ def _vec_ok(q, k, v) -> ctypes.c_int:
     return ctypes.c_int(int(D * q.element_size() % 16 == 0 and aligned16(q, k, v)))
 
 
-def _launch(name: str, library: str, fn_name: str, q, k, v, *extra):
+def _launch(name: str, library: str, fn_name: str, q, k, v, *extra,
+            form: Optional[str] = None):
     """Launch ``fn_name`` of ``library`` on (q, k, v, out, bh, Lq, Lk, D,
-    *extra); ``extra`` holds ctypes values. Counts under ``name``."""
+    *extra); ``extra`` holds ctypes values. Counts under ``name`` (and
+    ``name.form``)."""
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
     launch(name, library, fn_name, q.device, ptr(q), ptr(k), ptr(v), ptr(out),
            ctypes.c_int(B * H), ctypes.c_int(Lq), ctypes.c_int(k.shape[2]),
-           ctypes.c_int(D), *extra)
+           ctypes.c_int(D), *extra, form=form)
     return out
+
+
+def bf16_form(name: str, q, k, v) -> str:
+    """The form of kernel ``name`` that takes bf16 q, k, v: ``sm90`` for D % 8
+    == 0, 16 <= D <= 160 and 16-byte aligned bases; else ``mma`` up to D =
+    160; else ``wide`` (``flash_attention_fm``)."""
+    D = q.shape[-1]
+    if D > MMA_MAX_D:
+        return "wide"
+    if D % 8 == 0 and 16 <= D and aligned16(q, k, v):
+        return "sm90"
+    return "mma"
+
+
+def launch_form(name: str, form: str, q, k, v, scale: Optional[float] = None,
+                smax: float = 30.0, clamp: bool = False, bf16_exp: bool = False):
+    """Launch one bf16 form of ``flash_attention_fm`` or ``flash_attention_t``
+    on checked inputs (the wrappers pass ``bf16_form``'s choice; a benchmark
+    may time another form that takes the same inputs)."""
+    library, fn_name = FORMS[name][form]
+    args = [ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)]
+    if name == "flash_attention_fm":
+        args += [ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
+                 ctypes.c_int(int(bool(bf16_exp)))]
+    if form != "sm90":
+        args.append(_vec_ok(q, k, v))
+    return _launch(name, library, fn_name, q, k, v, *args, form=form)
 
 
 def flash_attention_fm(q, k, v, scale: Optional[float] = None,
                        smax: float = 30.0, clamp: bool = False,
                        bf16_exp: bool = False):
-    """Fixed-shift flash attention on [B, H, L, D] (non-causal). In bf16 the
-    kernel takes D <= 160 and raises NotImplementedError on a wider head."""
+    """Fixed-shift flash attention on [B, H, L, D] (non-causal), D <= 512.
+    bf16 launches the form ``bf16_form`` picks; fp32 the fp32 kernel."""
     if q.device.type == "cpu":
         return flash_attention_fm_plain(q, k, v, scale, smax, clamp, bf16_exp)
-    if q.dtype == torch.bfloat16 and q.dim() == 4 and q.shape[-1] > MAX_D["flash_attention_fm"]:
-        raise NotImplementedError(
-            f"flash_attention_fm: D = {q.shape[-1]} in bf16 waits for ROADMAP queue 2 "
-            f"(fm kernel at D > 160 in bf16)")
     _check("flash_attention_fm", q, k, v)
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    args = (ctypes.c_float(scale), ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
-            ctypes.c_int(int(bool(bf16_exp))), _vec_ok(q, k, v))
     if q.dtype == torch.float32:
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
         return _launch("flash_attention_fm_f32", "flash_attention_f32",
-                       "mdu_flash_attention_fm_f32", q, k, v, *args)
-    return _launch("flash_attention_fm", "flash_attention_fm", "mdu_flash_attention_fm",
-                   q, k, v, *args)
+                       "mdu_flash_attention_fm_f32", q, k, v, ctypes.c_float(scale),
+                       ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
+                       ctypes.c_int(int(bool(bf16_exp))), _vec_ok(q, k, v))
+    return launch_form("flash_attention_fm", bf16_form("flash_attention_fm", q, k, v),
+                       q, k, v, scale, smax, clamp, bf16_exp)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -171,17 +217,17 @@ def flash_attention_t(q, k, v, scale: Optional[float] = None):
     """Online-softmax flash attention on [B, H, L, D] with D padded to a
     multiple of 16 (non-causal); what ``MDU_FLASH=trans`` selects.
 
-    bf16 with D <= 160 launches ``csrc/flash_attention_t.cu`` (counted under
-    ``flash_attention_t``). Two inputs go to kernels that compute the very
-    same function, and count under their names: bf16 with 160 < D <= 512
+    bf16 with D <= 160 launches ``csrc/flash_attention_t.cu``, the form
+    ``bf16_form`` picks (counted under ``flash_attention_t``). Two inputs go
+    to kernels that compute the very same function, and count under their
+    names: bf16 with 160 < D <= 512
     (the VAE's D = 512, where padding to 16 and to 128 coincide) launches
     ``flash_attention``'s kernel; fp32 launches ``csrc/flash_attention_f32.cu``
     (``flash_attention_f32``)."""
     if q.device.type == "cpu":
         return flash_attention_t_plain(q, k, v, scale)
     _check("flash_attention_t", q, k, v)
-    if q.dtype == torch.float32 or q.shape[-1] > T_MAX_D:
+    if q.dtype == torch.float32 or q.shape[-1] > MMA_MAX_D:   # #2's kernel
         return flash_attention(q, k, v, scale)
-    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
-    return _launch("flash_attention_t", "flash_attention_t", "mdu_flash_attention_t",
-                   q, k, v, scale, _vec_ok(q, k, v))
+    return launch_form("flash_attention_t", bf16_form("flash_attention_t", q, k, v),
+                       q, k, v, scale)

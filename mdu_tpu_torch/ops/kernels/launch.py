@@ -4,11 +4,15 @@ kernel library's C function.
 Every wrapper launches its kernel through ``launch``, which adds one to
 ``LAUNCHES[name]`` for each launch and raises when the launch was refused.
 A run resets the counts with ``reset_launches()`` and reads ``LAUNCHES``
-after it, to show which kernels its path went through.
+after it, to show which kernels its path went through. Where a kernel has
+more than one form, ``LAUNCHES["<name>.<form>"]`` also counts the launches of
+that form (``.sm90``: the warpgroup kernels; ``.mma``: the mma.sync kernels;
+``flash_attention_fm.wide``: the fixed shift at D > 160).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -17,6 +21,9 @@ LAUNCHES = {
     "flash_attention_fm_f32": 0, "flash_attention_f32": 0,
     "flash_attention_t": 0, "fused_group_norm": 0, "fused_tile_blend": 0,
     "fused_conv3x3": 0, "fused_conv3x3_f32": 0,
+    "flash_attention_fm.sm90": 0, "flash_attention_fm.mma": 0,
+    "flash_attention_fm.wide": 0, "flash_attention_t.sm90": 0,
+    "flash_attention_t.mma": 0,
 }
 
 
@@ -29,9 +36,11 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch(name: str, library: str, fn_name: str, device: torch.device, *args) -> None:
+def launch(name: str, library: str, fn_name: str, device: torch.device, *args,
+           form: Optional[str] = None) -> None:
     """Call ``fn_name`` of ``library`` with ``args`` (ctypes values) and the
-    current stream of ``device``; counts the launch under ``name``."""
+    current stream of ``device``; counts the launch under ``name`` and, with
+    ``form``, under ``name.form``."""
     from .build import load
 
     fn = getattr(load(library), fn_name)
@@ -41,6 +50,8 @@ def launch(name: str, library: str, fn_name: str, device: torch.device, *args) -
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     LAUNCHES[name] += 1
+    if form is not None:
+        LAUNCHES[f"{name}.{form}"] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 

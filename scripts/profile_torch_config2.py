@@ -28,8 +28,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
-    ("flash_attention_fm", r"flash_fm_kernel"),
-    ("flash_attention_t", r"flash_t_kernel"),
+    # the warpgroup kernel by its policy; #1's wide form is #2's kernel with
+    # FIXED = true (demangled or not)
+    ("flash_attention_fm", r"flash_fm_kernel|flash_sm90_kernel.*FixedShift"
+                           r"|flash_kernel<\d+, true|flash_kernelILi\d+ELb1"),
+    ("flash_attention_t", r"flash_t_kernel|flash_sm90_kernel.*Online"),
     ("flash_attention", r"flash_kernel"),
     ("fused_group_norm", r"gn_kernel"),
     ("fused_tile_blend", r"blend_kernel"),

@@ -37,6 +37,7 @@ from mdu_tpu_torch.ops.kernels import (LAUNCHES, flash_attention, flash_attentio
                                        fused_conv3x3_plain, fused_group_norm,
                                        fused_group_norm_plain, fused_tile_blend,
                                        fused_tile_blend_plain)
+from mdu_tpu_torch.ops.kernels import flash as flash_mod
 from mdu_tpu_torch.ops.kernels.conv3x3 import _plan_blocks
 from mdu_tpu_torch.tiling import schedulers as psched
 from mdu_tpu_torch.utils import grid
@@ -211,13 +212,60 @@ def test_flash_variant_follows_mdu_flash(monkeypatch):
             flash_attention if D % 128 == 0 else flash_attention_fm)
 
 
-def test_fm_at_wide_bf16_heads_is_not_implemented():
-    """fm / fm16 on the VAE's D = 512 in bf16 raise, naming the ROADMAP
-    item, and do not route to another kernel (checked before any launch)."""
+def _recording_launch(monkeypatch):
+    """Replaces the kernel launch of ``ops/kernels/flash.py`` with a recorder
+    of (name, library, C function, form, args), and its device check with
+    nothing, so that meta tensors reach the form choice."""
+    calls = []
+    monkeypatch.setattr(flash_mod, "_check", lambda *a: None)
+    monkeypatch.setattr(flash_mod, "launch",
+                        lambda name, lib, fn, dev, *args, form=None:
+                        calls.append((name, lib, fn, form, args)))
+    return calls
+
+
+def test_fm_at_wide_bf16_heads_takes_the_wide_form(monkeypatch):
+    """fm / fm16 on the VAE's D = 512 in bf16 launch the fixed shift on
+    flash_attention's split-D kernel (mdu_flash_attention_fm_wide), counted
+    under flash_attention_fm, with no raise."""
+    calls = _recording_launch(monkeypatch)
     q = torch.zeros(1, 1, 8, 512, dtype=torch.bfloat16, device="meta")
     for kw in ({}, {"bf16_exp": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            flash_attention_fm(q, q, q, **kw)
+        assert flash_attention_fm(q, q, q, **kw).shape == q.shape
+    assert [c[:4] for c in calls] == [("flash_attention_fm", "flash_attention",
+                                       "mdu_flash_attention_fm_wide", "wide")] * 2
+    # (q, k, v, out, bh, Lq, Lk, D, scale, smax, clamp, bf16_exp, vec)
+    assert [c[4][11].value for c in calls] == [0, 1]
+    assert calls[0][4][8].value == pytest.approx(512 ** -0.5)
+    assert flash_mod.MAX_D["flash_attention_fm"] == 512
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fm", "flash_attention_t"])
+@pytest.mark.parametrize("D,form", [(40, "sm90"), (64, "sm90"), (80, "sm90"),
+                                    (160, "sm90"), (16, "sm90"), (4, "mma"),
+                                    (13, "mma"), (72, "sm90"), (100, "mma")])
+def test_bf16_form_rule(monkeypatch, name, D, form):
+    """Aligned bf16 with D % 8 == 0 and 16 <= D <= 160 go to the warpgroup
+    form, other heads to the mma.sync form; the wrapper launches the C
+    function of the form the rule picks."""
+    calls = _recording_launch(monkeypatch)
+    q = torch.zeros(1, 1, 8, D, dtype=torch.bfloat16, device="meta")
+    assert flash_mod.bf16_form(name, q, q, q) == form
+    fn = flash_attention_fm if name == "flash_attention_fm" else flash_attention_t
+    fn(q, q, q)
+    assert calls[0][:4] == (name, name, flash_mod.FORMS[name][form][1], form)
+
+
+def test_unaligned_bf16_goes_to_the_mma_form():
+    """A base off a 16-byte boundary cannot carry a tensor map."""
+    base = torch.zeros(8 * 40 + 1, dtype=torch.bfloat16)
+    q = base[1:].view(1, 1, 8, 40)
+    ok = torch.zeros(1, 1, 8, 40, dtype=torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    for name in ("flash_attention_fm", "flash_attention_t"):
+        assert flash_mod.bf16_form(name, ok, ok, ok) == "sm90"
+        assert flash_mod.bf16_form(name, q, ok, ok) == "mma"
+        assert flash_mod.bf16_form(name, ok, ok, q) == "mma"
 
 
 def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):

@@ -32,6 +32,7 @@ def _t(*arrays):
     (200, 200, 40),     # unaligned L and D (SD1.5 head dim)
     (256, 77, 64),      # cross-attention shape: large kv padding on the TPU
     (513, 513, 160),
+    (300, 300, 512),    # the VAE's head width (the wide form's function)
 ])
 def test_fm_plain_matches_pallas(rng, Lq, Lk, D):
     q, k, v = _qkv(rng, 1, 2, Lq, Lk, D)

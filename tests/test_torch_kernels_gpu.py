@@ -20,21 +20,26 @@ from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
 pytestmark = pytest.mark.gpu
 
+# (kernel, (B, H, Lq, Lk, D), the form the wrapper must pick; None: one form)
 CASES = [
-    ("flash_attention_fm", (1, 2, 513, 513, 40)),
-    ("flash_attention_fm", (1, 2, 200, 77, 64)),
-    ("flash_attention_fm", (2, 8, 1536, 1536, 80)),
-    ("flash_attention_fm", (1, 1, 300, 300, 160)),
-    ("flash_attention_fm", (1, 1, 70, 90, 13)),       # D not a multiple of 8
-    ("flash_attention", (1, 1, 1000, 1000, 512)),
-    ("flash_attention", (1, 2, 200, 77, 128)),
-    ("flash_attention", (1, 1, 100, 130, 300)),
-    ("flash_attention_t", (1, 2, 513, 513, 40)),
-    ("flash_attention_t", (1, 2, 200, 77, 64)),
-    ("flash_attention_t", (2, 8, 1536, 1536, 80)),
-    ("flash_attention_t", (1, 1, 300, 300, 160)),
-    ("flash_attention_t", (1, 1, 70, 90, 13)),
-    ("flash_attention_t", (1, 1, 40, 40, 4)),         # DP = 16
+    ("flash_attention_fm", (1, 2, 513, 513, 40), "sm90"),
+    ("flash_attention_fm", (1, 2, 200, 77, 64), "sm90"),
+    ("flash_attention_fm", (2, 8, 1536, 1536, 80), "sm90"),
+    ("flash_attention_fm", (1, 1, 300, 300, 160), "sm90"),
+    ("flash_attention_fm", (1, 2, 77, 513, 80), "sm90"),     # Lq < Lk, both ragged
+    ("flash_attention_fm", (1, 1, 260, 128, 16), "sm90"),    # one kv tile, DP = 16
+    ("flash_attention_fm", (1, 1, 70, 90, 13), "mma"),       # D not a multiple of 8
+    ("flash_attention", (1, 1, 1000, 1000, 512), None),
+    ("flash_attention", (1, 2, 200, 77, 128), None),
+    ("flash_attention", (1, 1, 100, 130, 300), None),
+    ("flash_attention_t", (1, 2, 513, 513, 40), "sm90"),
+    ("flash_attention_t", (1, 2, 200, 77, 64), "sm90"),
+    ("flash_attention_t", (2, 8, 1536, 1536, 80), "sm90"),
+    ("flash_attention_t", (1, 1, 300, 300, 160), "sm90"),
+    ("flash_attention_t", (1, 2, 77, 513, 80), "sm90"),
+    ("flash_attention_t", (1, 1, 260, 128, 16), "sm90"),
+    ("flash_attention_t", (1, 1, 70, 90, 13), "mma"),
+    ("flash_attention_t", (1, 1, 40, 40, 4), "mma"),         # DP = 16
 ]
 CASES_F32 = [
     ("flash_attention_fm", (1, 2, 513, 513, 40)),
@@ -59,8 +64,8 @@ def _fns(name):
             "flash_attention_t": (flash.flash_attention_t, flash.flash_attention_t_plain)}[name]
 
 
-@pytest.mark.parametrize("name,shape", CASES)
-def test_kernel_matches_plain(name, shape):
+@pytest.mark.parametrize("name,shape,form", CASES)
+def test_kernel_matches_plain(name, shape, form):
     dev = _card()
     B, H, Lq, Lk, D = shape
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -68,10 +73,12 @@ def test_kernel_matches_plain(name, shape):
     k = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(torch.bfloat16)
     kernel, plain = _fns(name)
-    before = flash.LAUNCHES[name]
+    before = dict(flash.LAUNCHES)
     out = kernel(q, k, v)
     torch.cuda.synchronize()
-    assert flash.LAUNCHES[name] == before + 1
+    assert flash.LAUNCHES[name] == before[name] + 1
+    if form is not None:
+        assert flash.LAUNCHES[f"{name}.{form}"] == before[f"{name}.{form}"] + 1
     ref = plain(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     err_bf16 = (plain(q, k, v).float() - ref).abs().max().item()
@@ -121,9 +128,91 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         qb = q.to(torch.bfloat16)
         with pytest.raises(ValueError, match="contiguous"):
             fn(qb.transpose(2, 3), qb.transpose(2, 3), qb.transpose(2, 3))
-    big = torch.zeros(1, 1, 8, 200, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    big = torch.zeros(1, 1, 8, 520, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 512"):
         flash.flash_attention_fm(big, big, big)
+
+
+@pytest.mark.parametrize("bf16_exp", [False, True])
+def test_fm_wide_heads_match_plain(bf16_exp):
+    """fm / fm16 on the VAE's D = 512 in bf16: the fixed shift on the split-D
+    kernel, against the plain version."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(1, 1, 1000, 512, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    before = dict(LAUNCHES)
+    out = flash.flash_attention_fm(q, k, v, bf16_exp=bf16_exp)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fm"] == before["flash_attention_fm"] + 1
+    assert LAUNCHES["flash_attention_fm.wide"] == before["flash_attention_fm.wide"] + 1
+    assert LAUNCHES["flash_attention"] == before["flash_attention"]
+    _check_fm(q, k, v, out, bf16_exp=bf16_exp)
+
+
+def _check_fm(q, k, v, out, **kw):
+    """The fixed-shift kernel's bar: 2x the bf16 plain version's error + 1e-3;
+    with bf16_exp, plus the plain version's own change when q.k is summed in
+    the other order of d (a score near a bf16 rounding boundary may round
+    either way)."""
+    plain = flash.flash_attention_fm_plain
+    ref = plain(q.float(), k.float(), v.float(), **kw)
+    err_bf16 = (plain(q, k, v, **kw).float() - ref).abs().max().item()
+    if kw.get("bf16_exp"):
+        rev = plain(q.float().flip(-1).contiguous(), k.float().flip(-1).contiguous(),
+                    v.float(), **kw)
+        err_bf16 += (rev - ref).abs().max().item()
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2 * err_bf16 + 1e-3, (err, err_bf16)
+
+
+@pytest.mark.parametrize("D", [40, 80])
+@pytest.mark.parametrize("kw,qscale", [
+    ({}, 1.0),
+    (dict(smax=5.0, clamp=True), 4.0),            # scores above smax flattened
+    (dict(smax=60.0, clamp=True), 1.0),
+    (dict(bf16_exp=True), 1.0),
+    (dict(bf16_exp=True, smax=5.0, clamp=True), 4.0),
+    ({}, "30"),                                   # logits near +-30
+])
+def test_sm90_fm_options_match_plain(D, kw, qscale):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(1, 2, 700, D, generator=gen, device=dev) for _ in range(3))
+    if qscale == "30":
+        # each query row along one key's direction: that logit is about +30,
+        # its negative -30
+        k[:, :, :2] = torch.nn.functional.normalize(k[:, :, :2], dim=-1) * D ** 0.25 * 30 ** 0.5
+        q[:, :, :350] = k[:, :, :1].expand(-1, -1, 350, -1)
+        q[:, :, 350:] = -k[:, :, 1:2].expand(-1, -1, 350, -1)
+    else:
+        q = q * qscale
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = LAUNCHES["flash_attention_fm.sm90"]
+    out = flash.flash_attention_fm(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fm.sm90"] == before + 1
+    _check_fm(q, k, v, out, **kw)
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fm", "flash_attention_t"])
+def test_unaligned_inputs_take_the_mma_form(name):
+    """A base that is not 16-byte aligned cannot carry a tensor map: the
+    mma.sync form takes it, by the wrapper's rule and not on a failure."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = 1 * 2 * 300 * 40
+    q, k, v = (torch.randn(n + 1, generator=gen, device=dev).to(torch.bfloat16)[1:]
+               .view(1, 2, 300, 40) for _ in range(3))
+    assert flash.bf16_form(name, q, k, v) == "mma"
+    kernel, plain = _fns(name)
+    before = dict(LAUNCHES)
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"{name}.mma"] == before[f"{name}.mma"] + 1
+    ref = plain(q.float(), k.float(), v.float())
+    _close_bf16(out, ref, plain(q, k, v))
 
 
 def _close_bf16(out, ref, plain_bf16):
