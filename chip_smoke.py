@@ -17,11 +17,13 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  the bf16 plain version's error + 1e-3. Each fp32 kernel at
                  the first config-2 shape, within 1e-4 of its plain version.
                  #1 and #3 also at D = 13 (their mma.sync forms), #1 and its
-                 ``bf16_exp`` at the VAE's [2, 1, 9600, 512] (the wide form);
-                 each line names the form the wrapper took. At config 2's
-                 shapes #1 and #3 take their warpgroup (sm90) form, and the
-                 line adds the time of the earlier mma.sync form on the same
-                 inputs (``earlier_ms``) and the MUFU exp floor
+                 ``bf16_exp`` at the VAE's [2, 1, 9600, 512] (the wide form),
+                 ``bf16_exp`` also at D = 13; each line names the form the
+                 wrapper took, which must be the one its shape calls for. At
+                 config 2's shapes #1 and #3 take their warpgroup (sm90) form,
+                 and the earlier mma.sync form runs on the same inputs too,
+                 held to the same bar and timed (``earlier_ms``); the line
+                 adds the MUFU exp floor
                  (``mufu_floor_ms``: one ex2 per score at 16 a clock per SM
                  on 132 SMs, at the ``clocks.max.sm`` nvidia-smi reads).
                  Times from CUDA events: kernel, plain version, and one
@@ -215,9 +217,9 @@ def max_sm_clock_hz() -> float:
 
 def check_attention(gen, summary):
     """bf16 flash kernels at every shape of KERNELS, fp32 at the first; #1
-    also with bf16_exp (MDU_FLASH=fm16) at its first shape and at D = 512.
-    Where the warpgroup form runs at a config-2 shape, the earlier mma.sync
-    form is timed on the same inputs beside it."""
+    also with bf16_exp (MDU_FLASH=fm16) at its first shape, at D = 512 and at
+    D = 13. Where the warpgroup form runs at a config-2 shape, the earlier
+    mma.sync form is checked and timed on the same inputs beside it."""
     import functools
 
     import torch
@@ -236,7 +238,8 @@ def check_attention(gen, summary):
             variants.append((torch.float32, name + "_f32", shapes[:1], {}))
         if name == "flash_attention_fm":
             variants.append((torch.bfloat16, name + "_bf16_exp",
-                             [shapes[0], (2, 1, 9600, 512)], {"bf16_exp": True}))
+                             [shapes[0], (2, 1, 9600, 512), (1, 1, 700, 13)],
+                             {"bf16_exp": True}))
         for dtype, key, var_shapes, kw in variants:
             kern = functools.partial(kernel, **kw)
             pl = functools.partial(plain, **kw)
@@ -267,11 +270,18 @@ def check_attention(gen, summary):
                 iters = (20 if big else 50) if dtype == torch.bfloat16 else (3 if big else 10)
                 if dtype == torch.bfloat16 and name in flash.FORMS:
                     form = flash.bf16_form(name, q, k, v)
+                    want = "wide" if D > flash.MMA_MAX_D else "mma" if D % 8 else "sm90"
+                    require(form == want, f"{key} {shape}: form {form}, expected {want}")
                     extra["form"] = form
                     if form == "sm90" and shape in shapes[:2]:
-                        # the mma.sync form that config 2 took before, same inputs
-                        extra["earlier_ms"] = cuda_ms(
-                            lambda: flash.launch_form(name, "mma", q, k, v, **kw), iters)
+                        # the mma.sync form that config 2 took before, on the
+                        # same inputs: held to the same bar, and timed
+                        early = functools.partial(flash.launch_form, name, "mma", q, k, v, **kw)
+                        early_err = (early().float() - ref).abs().max().item()
+                        require(early_err <= 2.0 * err_plain + 1e-3,
+                                f"{key} {shape} mma form: max abs err {early_err}")
+                        extra["earlier_max_abs_err"] = early_err
+                        extra["earlier_ms"] = cuda_ms(early, iters)
                         extra["earlier_form"] = "mma"
                     extra["mufu_floor_ms"] = B * H * L * L / (
                         N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
@@ -608,7 +618,7 @@ def kernel_rows(checks, launches):
     rows = []
     names = list(KERNELS) + list(F32_KERNELS)
     c2_fields = ("shape", "form", "ms", "earlier_ms", "bound_ms", "mufu_floor_ms",
-                 "library_ms", "plain_ms", "max_abs_err")
+                 "library_ms", "plain_ms", "max_abs_err", "earlier_max_abs_err")
 
     def row(name, key, main, run, launch_key, source, checked, **extra):
         return dict(name=name, route="cuda", source=source,

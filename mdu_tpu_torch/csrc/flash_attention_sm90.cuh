@@ -40,16 +40,19 @@
 // - inside a consumer, each iteration issues Q.K^T of tile j + 1 and P.V of
 //   tile j back to back, then runs the exps of tile j + 1 while both products
 //   are in flight; only the bf16 packing of P waits for P.V to finish;
-// - with PINGPONG the consumers take turns to issue their products (named
+// - the consumers take turns to issue their products (ping-pong, named
 //   barriers 1 .. NCONS), so that one warpgroup's exps run while another's
-//   products occupy the tensor cores;
+//   products occupy the tensor cores; the online softmax with two consumers
+//   runs without the turns, which measured faster there;
 // - three consumers where their registers suffice (DP <= 64): more warps to
 //   keep the MUFU pipe busy (1.8 -> 1.3 ms at [10, 8, 6144, 40]);
+// - P.V is one wgmma of width DP where one is written (DP = 48, 64, 80),
+//   else one m64n16 per 16-column slice of V;
 // - the fixed shift's denominator is a product on the tensor cores (P times
-//   a tile of ones) instead of an unpack and an add per score, and bf16_exp
-//   rounds with integer operations, off the exp's pipe.
-// scripts/flash_sm90_variants.py times each of these choices against the
-// others; PERF.md has the numbers.
+//   a shared 128 x 16 tile of ones, the TPU kernel's ones row of V) instead
+//   of an unpack and an add per score, and bf16_exp rounds with integer
+//   operations, off the exp's pipe.
+// PERF.md has what each of these choices measured against the others.
 // The kv mask acts on the ragged last tile only (p = 0 for the fixed shift, a
 // score of -1e30 for the online softmax); TMA zero-fills rows past Lq and Lk.
 #pragma once
@@ -58,34 +61,15 @@
 
 #include "mma_bf16.cuh"
 
-// Build-time choices of the design, all on by default; see PERF.md for what
-// each is worth. PINGPONG: the consumers take turns to issue their products
-// (not the online softmax with two consumers, which measured faster without).
-// WIDE_PV: P.V as one wgmma of width DP where one is written (DP = 48, 64,
-// 80), else one m64n16 per 16-column slice of V.
-#ifndef MDU_SM90_PINGPONG
-#define MDU_SM90_PINGPONG 1
-#endif
-#ifndef MDU_SM90_WIDE_PV
-#define MDU_SM90_WIDE_PV 1
-#endif
-// Three consumer warpgroups (192 query rows a block, 160 registers each) up
-// to this padded width, two (128 rows, 240 registers) above it.
-#ifndef MDU_SM90_THREE_CONSUMERS_MAX_DP
-#define MDU_SM90_THREE_CONSUMERS_MAX_DP 64
-#endif
-// TENSOR_DEN: the fixed shift's denominator as one more product, P times a
-// shared 128 x 16 tile of ones (the TPU kernel's ones row of V), in place of
-// a row sum of the rounded p on the CUDA cores.
-#ifndef MDU_SM90_TENSOR_DEN
-#define MDU_SM90_TENSOR_DEN 1
-#endif
-
 namespace mdu {
 namespace sm90 {
 
 constexpr int BK = 128;          // kv rows of a tile
 constexpr int SLICE = 16;        // columns of one shared-memory slice (32 bytes)
+// Three consumer warpgroups (192 query rows a block, 160 registers each) up
+// to this padded width, two (128 rows, 240 registers) above it: three spill
+// at DP = 80.
+constexpr int THREE_CONSUMERS_MAX_DP = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
 
@@ -165,13 +149,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// The same, and the two rounded values back as floats.
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, float& rlo, float& rhi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  const float2 f = __bfloat1622float2(h);
-  rlo = f.x;
-  rhi = f.y;
-  return *reinterpret_cast<const uint32_t*>(&h);
+// p of one tile, rounded to bf16, as the A fragments of P.V
+__device__ __forceinline__ void pack(const float (&s)[64], uint32_t (&p)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    p[2 * j] = pack2(s[4 * j], s[4 * j + 1]);
+    p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3]);
+  }
 }
 
 // A finite float rounded to the nearest bf16 (ties to even), as a float, in
@@ -299,25 +283,23 @@ __device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t (&a)[4], u
 //
 // A policy turns the scores of one 64 x 128 tile (the m64n128 accumulator:
 // s[4j + i] is row g + 8 (i / 2), column 8j + 2t + i % 2, with g = lane / 4,
-// t = lane % 4 in each warp's 16 rows) into p in place (``exps``), packs p to
-// the bf16 A fragments of P.V (``pack``) and gives each row's 1 / denominator
-// at the end (``finish``). ``corr`` is the factor the accumulator's rows take
-// before the next P.V (RESCALES only). Columns at or past ``kvalid`` of a
-// ragged tile do not count. With TENSOR_DEN the kernel accumulates P times
-// ones (``dacc``: column 0 is the row sum of rows g, g + 8 in every lane).
+// t = lane % 4 in each warp's 16 rows) into p in place (``exps``) and gives
+// each row's 1 / denominator at the end (``finish``); the kernel packs p to
+// bf16 for P.V. ``corr`` is the factor the accumulator's rows take before the
+// next P.V (RESCALES only). Columns at or past ``kvalid`` of a ragged tile do
+// not count. With TENSOR_DEN the kernel accumulates P times ones (``dacc``:
+// column 0 is the row sum of rows g, g + 8 in every lane), the sum of the
+// rounded p.
 
 template <bool BF16_EXP>
 struct FixedShift {
   static constexpr bool RESCALES = false;
-  static constexpr bool TENSOR_DEN = MDU_SM90_TENSOR_DEN;
+  static constexpr bool TENSOR_DEN = true;
   float scale, smax, sc, sh;
   int clamp;
-  float den[2];   // without TENSOR_DEN: this lane's share of rows g, g + 8
 
   __device__ __forceinline__ FixedShift(float scale_, float smax_, int clamp_)
-      : scale(scale_), smax(smax_), sc(scale_ * LOG2E), sh(smax_ * LOG2E), clamp(clamp_) {
-    den[0] = den[1] = 0.f;
-  }
+      : scale(scale_), smax(smax_), sc(scale_ * LOG2E), sh(smax_ * LOG2E), clamp(clamp_) {}
 
   // the exponent, in the log2 domain, of one score
   template <bool CLAMP>
@@ -347,36 +329,9 @@ struct FixedShift {
     }
   }
 
-  // p rounded to bf16; the denominator sums the rounded values
-  __device__ __forceinline__ void pack(const float (&s)[64], uint32_t (&p)[32]) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if constexpr (TENSOR_DEN) {
-        p[2 * j] = pack2(s[4 * j], s[4 * j + 1]);
-        p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3]);
-      } else {
-        float a, b, c, d;
-        p[2 * j] = pack2(s[4 * j], s[4 * j + 1], a, b);
-        p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3], c, d);
-        den[0] += a + b;
-        den[1] += c + d;
-      }
-    }
-  }
-
   __device__ __forceinline__ void finish(float (&inv)[2], const float (&dacc)[8]) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x;
-      if constexpr (TENSOR_DEN) {
-        x = dacc[2 * r];
-      } else {
-        x = den[r];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-      }
-      inv[r] = 1.f / fmaxf(x, 1e-30f);
-    }
+    for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(dacc[2 * r], 1e-30f);
   }
 };
 
@@ -438,15 +393,6 @@ struct Online {
     for (int i = 0; i < 64; ++i) l[(i >> 1) & 1] += s[i];
   }
 
-  __device__ __forceinline__ void pack(const float (&s)[64], uint32_t (&p)[32]) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float a, b, c, d;
-      p[2 * j] = pack2(s[4 * j], s[4 * j + 1], a, b);
-      p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3], c, d);
-    }
-  }
-
   __device__ __forceinline__ void finish(float (&inv)[2], const float (&)[8]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -467,7 +413,7 @@ struct Online {
 // base to 1 KB.
 template <int DP>
 struct Smem {
-  static constexpr int NCONS = DP <= MDU_SM90_THREE_CONSUMERS_MAX_DP ? 3 : 2;
+  static constexpr int NCONS = DP <= THREE_CONSUMERS_MAX_DP ? 3 : 2;
   static constexpr int BQ = 64 * NCONS;
   static constexpr int NTHREADS = 128 * (NCONS + 1);
   static constexpr int NS = DP / SLICE;
@@ -493,9 +439,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   constexpr int STAGES = L::STAGES;
   constexpr int NCONS = L::NCONS;
   constexpr int BQ = L::BQ;
-  // the online softmax with two consumers ran faster without the turns
-  // (scripts/flash_sm90_variants.py, PERF.md)
-  constexpr bool PINGPONG = MDU_SM90_PINGPONG && !(Policy::RESCALES && NCONS == 2);
+  // the consumers take turns to issue their products, except the online
+  // softmax with two consumers: its row max and rescale sit between its
+  // products, and it measured faster without the turns (PERF.md)
+  constexpr bool PINGPONG = !(Policy::RESCALES && NCONS == 2);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = sq + L::BAR;
@@ -592,16 +539,13 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
         const uint32_t vk = vs + kk * 16 * SLICE * 2;   // kv rows 16kk.. of every slice
-#if MDU_SM90_WIDE_PV
         if constexpr (DP == 48) {
           wgmma_rs_n48(acc, a, desc_b32(vk, L::KV_SLICE, 256));
         } else if constexpr (DP == 64) {
           wgmma_rs_n64(acc, a, desc_b32(vk, L::KV_SLICE, 256));
         } else if constexpr (DP == 80) {
           wgmma_rs_n80(acc, a, desc_b32(vk, L::KV_SLICE, 256));
-        } else
-#endif
-        {
+        } else {
 #pragma unroll
           for (int c = 0; c < NS; ++c)
             wgmma_rs_n16(acc + 8 * c, a, desc_b32(vk + c * L::KV_SLICE, L::KV_SLICE, 256));
@@ -623,7 +567,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < 64; ++i) fence_reg(s[i]);
     pol.exps(s, kvalid, t, ragged && ntiles == 1, corr);
-    pol.pack(s, p);
+    pack(s, p);
 
     auto rescale = [&]() {
       if constexpr (Policy::RESCALES) {
@@ -661,7 +605,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 #pragma unroll
       for (int i = 0; i < 8; ++i) fence_reg(dacc[i]);
       if (lane == 0) mbar_arrive(empty(st));  // this warp is done with stage st
-      pol.pack(s, p);
+      pack(s, p);
     }
     // the last tile: P.V only (the last consumer gave consumer 0 its first
     // turn, so it owes no arrival after its last one)

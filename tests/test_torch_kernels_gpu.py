@@ -243,11 +243,16 @@ def test_flash_t_routes_wide_heads_and_fp32_to_the_same_function():
 
 
 def test_fm_kernel_bf16_exp():
+    """bf16_exp on the mma.sync form at D = 40 (launched by name: the wrapper
+    sends these aligned inputs to the warpgroup form), and on the fp32 kernel."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v = (torch.randn(2, 2, 700, 40, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
-    out = flash.flash_attention_fm(q, k, v, bf16_exp=True)
+    before = LAUNCHES["flash_attention_fm.mma"]
+    out = flash.launch_form("flash_attention_fm", "mma", q, k, v, bf16_exp=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fm.mma"] == before + 1
     plain = flash.flash_attention_fm_plain
     ref = plain(q.float(), k.float(), v.float(), bf16_exp=True)
     # a score near a bf16 rounding boundary may round either way: the fp32
@@ -260,6 +265,24 @@ def test_fm_kernel_bf16_exp():
     assert err <= 2 * (err_bf16 + amb) + 1e-3
     out32 = flash.flash_attention_fm(q.float(), k.float(), v.float(), bf16_exp=True)
     assert (out32 - ref).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("D,unaligned", [(13, False), (40, True)])
+def test_fm_bf16_exp_takes_the_mma_form_by_rule(D, unaligned):
+    """bf16_exp where the wrapper's rule picks the mma.sync form: a head with
+    D % 8 != 0, and inputs that are not 16-byte aligned."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = 1 * 2 * 700 * D
+    q, k, v = (torch.randn(n + int(unaligned), generator=gen, device=dev)
+               .to(torch.bfloat16)[int(unaligned):].view(1, 2, 700, D) for _ in range(3))
+    assert flash.bf16_form("flash_attention_fm", q, k, v) == "mma"
+    before = dict(LAUNCHES)
+    out = flash.flash_attention_fm(q, k, v, bf16_exp=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fm"] == before["flash_attention_fm"] + 1
+    assert LAUNCHES["flash_attention_fm.mma"] == before["flash_attention_fm.mma"] + 1
+    _check_fm(q, k, v, out, bf16_exp=True)
 
 
 @pytest.mark.parametrize("shape,dtype", [
