@@ -26,13 +26,21 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  adds the MUFU exp floor
                  (``mufu_floor_ms``: one ex2 per score at 16 a clock per SM
                  on 132 SMs, at the ``clocks.max.sm`` nvidia-smi reads).
-                 Times from CUDA events: kernel, plain version, and one
+                 #6 at config 2's four shapes takes its warpgroup (sm90)
+                 form, and its mma.sync form runs beside it in the same way;
+                 its tiny and unaligned shapes take the mma.sync form.
+                 Times from CUDA events around a loop of calls (``ms``, which
+                 includes the wrapper's host time where that is longer than
+                 the kernel's): kernel, plain version, and one
                  PyTorch call that computes the same function as a yardstick
                  only (the port never calls it): ``F.scaled_dot_product_attention``
                  for attention, ``F.group_norm`` for GroupNorm, cuDNN's
                  ``F.conv2d`` on the pre-activated input for the fused conv
                  ("conv alone": no one call computes the fused function),
-                 none for the tile blend. Bounds: max(flops / peak, bytes /
+                 none for the tile blend. ``device_ms`` and
+                 ``library_device_ms``: the device time alone of the kernel's
+                 and the yardstick's launches (torch.profiler's kernel
+                 durations, summed, per call). Bounds: max(flops / peak, bytes /
                  3.35 TB/s), peak 989 TF/s in bf16 and 67 TF/s in fp32, bytes
                  = each input read once and each output written once.
 4. ``reference`` a tiny pipeline, sized so that its attention reaches the
@@ -84,7 +92,7 @@ EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
                      "flash_attention": 1}
 EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
                     "flash_attention": 1, "fused_group_norm": 340, "fused_conv3x3": 320,
-                    "fused_tile_blend": 20}
+                    "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
 EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
                "flash_attention_fm.wide": 1}
 CONFIG2_RUNS = (("default", {}, EXPECTED_LAUNCHES), ("flagged", FLAGS, EXPECTED_FLAGGED),
@@ -124,9 +132,13 @@ KERNELS = {
     "fused_conv3x3": dict(
         source="mdu_tpu_torch/csrc/conv3x3.cu",
         replaces="mdu_tpu/ops/pallas/conv3x3.py:96",
-        # [B, H, W, C] -> Co: config 2's level-0 and level-1 ResBlock convs;
-        # then odd H, W and C (no 16-byte vectors)
-        shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (2, 7, 9, 12, 20)]),
+        # [B, H, W, C] -> Co: config 2's four ResBlock conv shapes (the first
+        # two are its level-0 and level-1 convs); H and W off the warpgroup
+        # form's 32 x 8 tile; Co off its 160 channels; odd H, W and C (the
+        # mma.sync form, no 16-byte vectors)
+        shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
+                (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
+                (2, 7, 9, 12, 20)]),
 }
 # the fp32 forms: the kernel they are counted under, and where it lives
 F32_KERNELS = {
@@ -187,10 +199,34 @@ def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call: the durations of the kernels (and copies)
+    that ``iters`` calls put on the card, summed by torch.profiler, over
+    ``iters``. The host's time between launches does not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(evt, "device_time", None)
+            total_us += evt.cuda_time if dt is None else dt
+    require(total_us > 0, "torch.profiler saw no device time")
+    return total_us / 1e3 / iters
+
+
 def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn,
             bound_ms, bound_by, iters, plain_iters=3, **extra):
     """Check one kernel output against the fp32 plain version, time kernel,
-    plain version and yardstick, emit a ``kernel_check`` line."""
+    plain version and yardstick (CUDA events around a loop of calls; the
+    kernel and the yardstick also on the device alone), emit a
+    ``kernel_check`` line."""
     import torch
 
     err = (out.float() - ref.float()).abs().max().item()
@@ -198,12 +234,14 @@ def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn
     require(bool(torch.isfinite(out).all()), f"{name} {shape}: non-finite output")
     require(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
     ms = cuda_ms(kernel_fn, iters)
+    dev_ms = device_ms(kernel_fn, iters)
     plain_ms = cuda_ms(plain_fn, plain_iters, warmup=1)
     lib_ms = cuda_ms(lib_fn, iters) if lib_fn is not None else None
+    lib_dev_ms = device_ms(lib_fn, iters) if lib_fn is not None else None
     check = dict(shape=list(shape), dtype=_dtype_name(dtype), max_abs_err=err,
                  plain_err=err_plain if dtype == torch.bfloat16 else 0.0, tol=tol, ms=ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, **extra)
+                 device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
     emit("kernel_check", name=name, **check)
     return check
 
@@ -282,6 +320,7 @@ def check_attention(gen, summary):
                                 f"{key} {shape} mma form: max abs err {early_err}")
                         extra["earlier_max_abs_err"] = early_err
                         extra["earlier_ms"] = cuda_ms(early, iters)
+                        extra["earlier_device_ms"] = device_ms(early, iters)
                         extra["earlier_form"] = "mma"
                     extra["mufu_floor_ms"] = B * H * L * L / (
                         N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
@@ -372,13 +411,17 @@ def check_tile_blend(gen, summary):
 
 def check_conv(gen, summary):
     """bf16 at every shape of KERNELS with and without fuse_act; fp32 at the
-    first shape with fuse_act. The yardstick is cuDNN's conv alone, on the
-    pre-activated channels-last input."""
+    first shape with fuse_act. Each bf16 line names the form the wrapper
+    took, which must be the one its shape calls for; at config 2's four
+    shapes the earlier mma.sync form runs on the same inputs too, held to the
+    same bar and timed (``earlier_ms``). The yardstick is cuDNN's conv alone,
+    on the pre-activated channels-last input."""
     import torch
     import torch.nn.functional as F
 
     from mdu_tpu_torch.ops.kernels import (fused_conv3x3, fused_conv3x3_plain,
                                            pack_conv3x3_weight)
+    from mdu_tpu_torch.ops.kernels import conv3x3 as conv_mod
 
     shapes = KERNELS["fused_conv3x3"]["shapes"]
     runs = [(s, torch.bfloat16, act, "fused_conv3x3") for s in shapes for act in (True, False)]
@@ -395,6 +438,23 @@ def check_conv(gen, summary):
         ref = fused_conv3x3_plain(x.float(), w.float(), a, sh, fuse_act=act)
         err_plain = ((fused_conv3x3_plain(x, w, a, sh, fuse_act=act).float() - ref)
                      .abs().max().item() if dtype == torch.bfloat16 else 0.0)
+        iters = 20 if dtype == torch.bfloat16 else 5
+        extra = {}
+        if dtype == torch.bfloat16:
+            form = conv_mod.conv_form(x, packed, a, sh)
+            want = "sm90" if C % conv_mod.SM90_CHUNK == 0 else "mma"
+            require(form == want, f"{key} {(B, H, W, C, Co)}: form {form}, expected {want}")
+            extra["form"] = form
+            if (B, H, W, C, Co) in shapes[:4]:
+                # the mma.sync form that config 2 took before, on the same
+                # inputs: held to the same bar, and timed
+                early = lambda: conv_mod.launch_form("mma", x, packed, a, sh, act)
+                early_err = (early().float() - ref).abs().max().item()
+                require(early_err <= 2.0 * err_plain + 1e-3,
+                        f"{key} {(B, H, W, C, Co)} mma form: max abs err {early_err}")
+                extra.update(earlier_form="mma", earlier_max_abs_err=early_err,
+                             earlier_ms=cuda_ms(early, iters),
+                             earlier_device_ms=device_ms(early, iters))
         if act:
             xf = x.float() * a[:, None, None, :] + sh[:, None, None, :]
             xa = (xf * torch.sigmoid(xf)).to(dtype)
@@ -410,9 +470,9 @@ def check_conv(gen, summary):
             key, (B, H, W, C, Co), dtype, out, ref, err_plain,
             lambda: fused_conv3x3(x, w, a, sh, fuse_act=act, packed=packed),
             lambda: fused_conv3x3_plain(x, w, a, sh, fuse_act=act),
-            lambda: F.conv2d(xa, w_oihw, padding=1), bound_ms, bound_by,
-            20 if dtype == torch.bfloat16 else 5, fuse_act=act,
-            library="F.conv2d on the pre-activated input (conv alone)"))
+            lambda: F.conv2d(xa, w_oihw, padding=1), bound_ms, bound_by, iters,
+            fuse_act=act, library="F.conv2d on the pre-activated input (conv alone)", **extra))
+        del x, w, packed, out, ref, xa, w_oihw
     summary.update(checks)
 
 
@@ -612,22 +672,25 @@ def phase_txt2img():
 def kernel_rows(checks, launches):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
-    takes it (the flagged run for the flagged kernels). #1 and #3 also list
-    every config-2 shape with the earlier form's time and the MUFU floor; #1's
-    wide form has its own row (launches from the MDU_FLASH=fm run)."""
+    takes it (the flagged run for the flagged kernels). #1, #3 and #6 also
+    list every config-2 shape with the earlier form's time (#1 and #3 with
+    the MUFU floor); #1's wide form has its own row (launches from the
+    MDU_FLASH=fm run)."""
     rows = []
     names = list(KERNELS) + list(F32_KERNELS)
-    c2_fields = ("shape", "form", "ms", "earlier_ms", "bound_ms", "mufu_floor_ms",
-                 "library_ms", "plain_ms", "max_abs_err", "earlier_max_abs_err")
+    c2_fields = ("shape", "form", "fuse_act", "ms", "device_ms", "earlier_ms",
+                 "earlier_device_ms", "bound_ms", "mufu_floor_ms", "library_ms",
+                 "library_device_ms", "plain_ms", "max_abs_err", "earlier_max_abs_err")
 
     def row(name, key, main, run, launch_key, source, checked, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=KERNELS[key]["replaces"],
                     launches=launches.get(run, {}).get(launch_key, 0), launches_run=run,
                     max_abs_err=max(c["max_abs_err"] for c in checked),
-                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                    library_ms=main["library_ms"], shape=main["shape"],
+                    library_ms=main["library_ms"],
+                    library_device_ms=main["library_device_ms"], shape=main["shape"],
                     dtype=main["dtype"], **extra)
 
     for name in names:
@@ -643,6 +706,12 @@ def kernel_rows(checks, launches):
             extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
                          mufu_floor_ms=main.get("mufu_floor_ms"),
                          template="mdu_tpu_torch/csrc/flash_attention_sm90.cuh",
+                         form_launches=launches.get(run, {}).get(name + ".sm90", 0),
+                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
+        elif name == "fused_conv3x3":
+            c2 = [c for c in checks[name]
+                  if tuple(c["shape"]) in KERNELS[name]["shapes"][:4] and c["fuse_act"]]
+            extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
                          form_launches=launches.get(run, {}).get(name + ".sm90", 0),
                          config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
         rows.append(row(name, base, main, run, name, source, checks[name], **extra))

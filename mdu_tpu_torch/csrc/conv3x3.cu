@@ -14,29 +14,69 @@
 //
 // As an implicit GEMM: M = B*H*W output pixels, N = Co, K = 9*C. The weight
 // arrives re-laid out once per module as [Co][9][Cp] (tap-major K, C padded
-// to Cp, a multiple of 32, with zeros). A block owns an 8 x 16 tile of output
-// pixels of one image and 128 output channels. For each chunk of 32 input
-// channels it loads the tile's 10 x 18 input pixels with their halo (16-byte
-// loads of 8 channels), applies the affine and SiLU in fp32 once per loaded
-// element and stores the bf16 result in shared memory, while the chunk's
-// weights for all 9 taps arrive by cp.async (92 KB); then 8 warps run the 9
-// taps' mma.sync m16n8k16 products (fp32 accumulate), each tap reading the
-// halo tile shifted by the tap (ldmatrix takes a row address per lane). This
-// is the counterpart of the TPU kernel's activated-input block held in VMEM
-// across its output-channel steps: each input element is activated about
-// 1.4 x (Co / 128) times (the halo, the output-channel blocks), not once
-// per tap.
+// to Cp, a multiple of 32, with zeros). What bounds it on an H100: at config
+// 2's ResBlock shapes (C, Co of 320 and 640 on 64x96 and 32x48 latents,
+// batch 10) 2*M*9*C*Co flops against a few tens of MB, far above the ridge,
+// so the tensor cores at 989 TFLOP/s: 0.1145 ms at [10, 64, 96, 320] -> 320
+// and at [10, 32, 48, 640] -> 640.
 //
-// What bounds it on an H100: at config 2's ResBlock shapes (C, Co of 320 and
-// 640 on 64x96 and 32x48 latents, batch 10) 2*M*9*C*Co flops against a few
-// tens of MB, far above the ridge, so the tensor cores at 989 TFLOP/s. It is
-// single-staged (loads, barrier, products, barrier) with two blocks an SM
-// (107 KB of shared memory each); double-buffered chunks and wgmma are the
-// steps toward the bound.
+// Two bf16 forms, chosen by the wrapper (ops/kernels/conv3x3.py::conv_form)
+// on shape and alignment alone:
+//
+// mdu_conv3x3_sm90, the warpgroup form (C % 64 == 0, 16-byte aligned
+// operands: all of config 2). A block owns 32 x 8 output pixels of one image
+// and 160 output channels; warpgroup 0 is the producer, two consumer
+// warpgroups own 16 x 8 pixels each (two m64 tiles of 8 rows x 8 columns).
+// - B (the weights) by TMA: one box per (chunk of 64 input channels, tap),
+//   160 rows x 128 bytes with the 128-byte swizzle, into a ring of 4 stages
+//   with full / empty mbarriers, kept full by one producer thread; the
+//   producer gives its registers up (setmaxnreg 24) to the consumers (240).
+// - A (the activated input) from shared memory too. The halo of a chunk
+//   (34 x 10 pixels x 64 channels) arrives by TMA, 8 boxes of one 8-channel
+//   group each, as planes [group][pixel][8 channels] (zero-filled outside
+//   the image). In this layout a tap's window is a wgmma descriptor with no
+//   swizzle: a core matrix is 8 consecutive pixels of one group, 128
+//   contiguous bytes at any 16-byte aligned start, so the window shifted by
+//   (dy, dx) starts (dy * 10 + dx) * 16 bytes on; the next 8 pixels down are
+//   SBO = 160 bytes on, the next 8 channels LBO = one plane on. That is why
+//   the tile is 8 pixels wide. No A fragment lives in registers, and no
+//   ldmatrix runs: each consumer issues per tap 2 x 4 wgmma.m64n160k16.
+// - The consumers activate each chunk's halo in place once (each one half of
+//   the rows, then a named barrier), zeroing by coordinates what lies outside
+//   the image: the TMA's zero fill is not enough, silu(0 * a + b) != 0. The
+//   activation of chunk k + 1 is cut into nine slices, one after each tap's
+//   products of chunk k are issued, so it runs while they are in flight.
+//   Three halo buffers let the producer load chunk k + 1's raw halo while
+//   chunk k - 1's products may still read their buffer.
+// - Per tap the consumer keeps two groups of products in flight (wait 1),
+//   then returns the previous tap's weight stage.
+// L2 traffic and waves per SM (132 SMs, one block an SM; weights 9 * C * 160
+// * 2 bytes a block, halo 8 * 5440 bytes a chunk a block):
+//   [10, 64, 96, 320] -> 320: 480 blocks, 3.64 waves, weights 442 MB + halo
+//     104 MB (the mma.sync form: 1.06 GB + 166 MB)
+//   [10, 64, 96, 640] -> 320: 480 blocks, 3.64 waves, 885 MB + 209 MB
+//   [10, 32, 48, 320] -> 640: 240 blocks, 1.82 waves, 221 MB + 52 MB
+//   [10, 32, 48, 640] -> 640: 240 blocks, 1.82 waves, 442 MB + 104 MB
+// The last wave runs 64 % (64x96) and 82 % (32x48) full, about 9 % of the
+// time at both. The design leaves that as it is: with tiles of equal work a
+// persistent grid runs the same ceil(blocks / 132) tile times per SM, and a
+// smaller tile at small H*W would read the weights more often.
+//
+// mdu_conv3x3, the mma.sync form (any other bf16 input: C = 12, 24, unaligned
+// operands). A block owns an 8 x 16 tile of output pixels of one image and
+// 128 output channels. For each chunk of 32 input channels it loads the
+// tile's 10 x 18 input pixels with their halo (16-byte loads of 8 channels),
+// applies the affine and SiLU in fp32 once per loaded element and stores the
+// bf16 result in shared memory, while the chunk's weights for all 9 taps
+// arrive by cp.async (92 KB); then 8 warps run the 9 taps' mma.sync m16n8k16
+// products (fp32 accumulate), each tap reading the halo tile shifted by the
+// tap (ldmatrix takes a row address per lane). Single-staged (loads,
+// barrier, products, barrier), two blocks an SM.
 //
 // The fp32 form (a model built in fp32) is a plain shared-memory tiled
 // product: 64 pixels x 64 channels a block, 4 x 4 outputs a thread.
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -204,6 +244,276 @@ conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,   // [B, H, W, C]
   }
 }
 
+// ------------------------------------------------- bf16, warpgroup form
+namespace wg {
+
+constexpr int TH = 32;                    // output rows of a block
+constexpr int TW = 8;                     // output columns: one core matrix of A
+constexpr int HH = TH + 2;                // 34 halo rows
+constexpr int HW = TW + 2;                // 10 halo columns
+constexpr int HP = HH * HW;               // 340 halo pixels
+constexpr int BKC = 64;                   // input channels of a chunk
+constexpr int NG = BKC / 8;               // 8-channel groups of a chunk
+constexpr int BOX_BYTES = HP * 16;        // one group of the halo: 5440 bytes
+constexpr int GROUP_BYTES = 5504;         // ... rounded up to 128 (a TMA destination)
+constexpr int HALO_BYTES = NG * GROUP_BYTES;
+constexpr int NH = 3;                     // halo buffers
+constexpr int BN = 160;                   // output channels of a block
+constexpr int W_STAGE = BN * BKC * 2;     // one tap's weights of a chunk: 20480 bytes
+constexpr int STAGES = 4;                 // the weight ring
+constexpr int OFF_HALO = STAGES * W_STAGE;
+constexpr int OFF_BAR = OFF_HALO + NH * HALO_BYTES;
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 2 * NH) + 1024;
+constexpr int NTHREADS = 384;             // the producer warpgroup and two consumers
+constexpr int ACT_PIX = HP / 2;           // halo pixels a consumer activates: 170
+constexpr int ACT_ITEMS = ACT_PIX * NG;   // ... as 16-byte vectors: 1360
+constexpr int ACT_Q = (ACT_ITEMS + 127) / 128;   // vectors a thread: 11
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+static_assert(W_STAGE % 1024 == 0 && OFF_HALO % 1024 == 0, "128-byte swizzle atoms");
+static_assert(GROUP_BYTES >= BOX_BYTES && GROUP_BYTES % 128 == 0, "TMA destinations");
+
+// D += A B, m64n160k16: A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// A block: output rows y0 .. y0 + 31, columns x0 .. x0 + 7 of image b, output
+// channels n0 .. n0 + 159. Warpgroup 0 is the producer (one thread issues
+// every TMA load); consumer warpgroup cw = 0, 1 owns output rows 16 cw ..
+// 16 cw + 15 as two m64 tiles of 8 rows x 8 columns.
+template <bool ACT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 __nv_bfloat16* __restrict__ y, int H, int W, int C, int Cp, int Co) {
+  using namespace mdu::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024u - (mdu::smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sb = mdu::smem_addr(base);
+  const uint32_t bars = sb + OFF_BAR;
+  auto wstage = [&](int st) { return sb + (uint32_t)(st * W_STAGE); };
+  auto halo = [&](int h) { return sb + (uint32_t)(OFF_HALO + h * HALO_BYTES); };
+  auto wfull = [&](int st) { return bars + 8u * st; };
+  auto wempty = [&](int st) { return bars + 8u * (STAGES + st); };
+  auto hfull = [&](int h) { return bars + 8u * (2 * STAGES + h); };
+  auto hempty = [&](int h) { return bars + 8u * (2 * STAGES + NH + h); };
+
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const int b = blockIdx.x / (tiles_x * tiles_y);
+  const int tyx = blockIdx.x % (tiles_x * tiles_y);
+  const int y0 = (tyx / tiles_x) * TH;
+  const int x0 = (tyx % tiles_x) * TW;
+  const int n0 = blockIdx.y * BN;
+  const int nchunks = Cp / BKC;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(wfull(st), 1);
+      mbar_init(wempty(st), 8);           // one arrival per consumer warp
+    }
+    for (int h = 0; h < NH; ++h) {
+      mbar_init(hfull(h), 1);
+      mbar_init(hempty(h), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      // the raw halo of chunk k: one box of 8 channels x 10 x 34 pixels per
+      // channel group, zero-filled outside the image and past C
+      auto load_halo = [&](int k) {
+        const int h = k % NH;
+        mbar_arrive_expect_tx(hfull(h), NG * BOX_BYTES);
+        for (int j = 0; j < NG; ++j)
+          tma_load_4d(halo(h) + j * GROUP_BYTES, &mx, hfull(h), k * BKC + 8 * j, x0 - 1,
+                      y0 - 1, b);
+      };
+      load_halo(0);
+      for (int k = 0; k < nchunks; ++k) {
+        if (k + 1 < nchunks) {            // a chunk ahead of the consumers
+          if (k + 1 >= NH) mbar_wait(hempty((k + 1) % NH), ((k + 1) / NH - 1) & 1);
+          load_halo(k + 1);
+        }
+        for (int tap = 0; tap < 9; ++tap) {
+          const int it = k * 9 + tap;
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(wempty(st), (it / STAGES - 1) & 1);
+          mbar_arrive_expect_tx(wfull(st), W_STAGE);
+          tma_load_2d(wstage(st), &mw, wfull(st), tap * Cp + k * BKC, n0);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+
+    // Activates, in place, vectors q0 .. q1 - 1 of this thread in this
+    // consumer's half of chunk k's halo (halo rows 17 cw .. 17 cw + 16): zero
+    // outside the image and past C, silu(x * scale + shift) rounded to bf16
+    // elsewhere.
+    auto activate = [&](int k, int q0, int q1) {
+      unsigned char* hb = base + OFF_HALO + (k % NH) * HALO_BYTES;
+      for (int q = q0; q < q1; ++q) {
+        const int i = tid + 128 * q;
+        if (i >= ACT_ITEMS) break;
+        const int j = i / ACT_PIX;
+        const int hp = cw * ACT_PIX + i % ACT_PIX;
+        const int gy = y0 - 1 + hp / HW;
+        const int gx = x0 - 1 + hp % HW;
+        const int c = k * BKC + 8 * j;
+        uint4* p = reinterpret_cast<uint4*>(hb + j * GROUP_BYTES + hp * 16);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C) {
+          v = *p;
+          const float* sc = scale + (size_t)b * C + c;
+          const float* sh = shift + (size_t)b * C + c;
+          const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc));
+          const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc) + 1);
+          const float4 h0 = __ldg(reinterpret_cast<const float4*>(sh));
+          const float4 h1 = __ldg(reinterpret_cast<const float4*>(sh) + 1);
+          const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+          const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+          __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 f = __bfloat1622float2(e[r]);
+            e[r] = __floats2bfloat162_rn(silu_fast(f.x * sv[2 * r] + hv[2 * r]),
+                                         silu_fast(f.y * sv[2 * r + 1] + hv[2 * r + 1]));
+          }
+        }
+        *p = v;
+      }
+    };
+
+    float acc[2][80];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 80; ++r) acc[i][r] = 0.f;
+
+    if (ACT) {
+      mbar_wait(hfull(0), 0);
+      activate(0, 0, ACT_Q);
+      fence_proxy_async();                // seen by wgmma
+      named_sync(1);
+    }
+    const int orow = 16 * cw;             // this consumer's first output row
+    int it = 0;                           // chunk * 9 + tap
+    for (int k = 0; k < nchunks; ++k) {
+      const int h = k % NH;
+      const bool next = ACT && k + 1 < nchunks;
+      if (!ACT) mbar_wait(hfull(h), (k / NH) & 1);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap, ++it) {
+        const int st = it % STAGES;
+        // the tap's window: the halo shifted by (dy, dx); 8 rows of 8 pixels
+        // an m64 tile, the next 8-pixel row 10 pixels on (SBO = 160 bytes),
+        // the next 8 channels one group on (LBO)
+        const uint32_t a0 = halo(h) + ((orow + tap / 3) * HW + tap % 3) * 16;
+        mbar_wait(wfull(st), (it / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < BKC / 16; ++s) {
+          const uint64_t db = desc_sw128(wstage(st) + 32 * s);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            wgmma_ss_n160(acc[i], desc_plain(a0 + 2 * s * GROUP_BYTES + i * 8 * HW * 16,
+                                             GROUP_BYTES, HW * 16), db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();                  // the previous tap's products are done
+        if (it > 0 && lane == 0) {
+          mbar_arrive(wempty((it - 1) % STAGES));
+          if (tap == 0) mbar_arrive(hempty((k - 1) % NH));
+        }
+        // a ninth of the next chunk's activation while this tap's products run
+        if (next) {
+          if (tap == 0) mbar_wait(hfull((k + 1) % NH), ((k + 1) / NH) & 1);
+          activate(k + 1, tap * ACT_Q / 9, (tap + 1) * ACT_Q / 9);
+        }
+      }
+      if (next) {
+        fence_proxy_async();
+        named_sync(1);                    // both halves of chunk k + 1 activated
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 80; ++r) fence_reg(acc[i][r]);
+
+    // acc[i][4j + 2hh + e]: m64 row 16 warp + g + 8 hh = output row
+    // orow + 8 i + 2 warp + hh, column g; output channel n0 + 8 j + 2 t + e
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int gx = x0 + g;
+    const bool pairs = (Co & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int gy = y0 + orow + 8 * i + 2 * warp + hh;
+        if (gy >= H || gx >= W) continue;
+        __nv_bfloat16* yr = y + (((size_t)b * H + gy) * W + gx) * Co;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int co = n0 + 8 * j + 2 * t;
+          const float v0 = acc[i][4 * j + 2 * hh];
+          const float v1 = acc[i][4 * j + 2 * hh + 1];
+          if (pairs && co + 1 < Co) {
+            *reinterpret_cast<__nv_bfloat162*>(yr + co) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (co < Co) yr[co] = __float2bfloat16_rn(v0);
+            if (co + 1 < Co) yr[co + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
 // ---------------------------------------------------------------- fp32
 constexpr int FBM = 64;
 constexpr int FBN = 64;
@@ -342,5 +652,50 @@ extern "C" int mdu_conv3x3(const void* x, const void* w, const void* scale,
     else
       conv_f32_kernel<false><<<grid, FNT, 0, s>>>(xp, wp, sc, sh, yp, B, H, W, C, Cp, Co);
   }
+  return (int)cudaGetLastError();
+}
+
+// The warpgroup form. x: contiguous NHWC [B, H, W, C] bf16 with C % 64 == 0
+// and a 16-byte aligned base; w: the packed [Co, 9 * Cp] bf16 weight (Cp = C),
+// 16-byte aligned; scale, shift: fp32 [B, C], 16-byte aligned, read only with
+// ``fuse_act``; y: contiguous NHWC [B, H, W, Co] bf16. Returns a cudaError_t
+// (0 on a successful launch).
+extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
+                                const void* shift, void* y, int B, int H, int W, int C,
+                                int Cp, int Co, int fuse_act, void* stream) {
+  using namespace mdu::sm90;
+  if (C % wg::BKC != 0 || Cp != C) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  // x as {C, W, H, B}; a box is one 8-channel group of the 10 x 34 halo
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                  (cuuint64_t)H * W * C * 2};
+  const cuuint32_t xbox[4] = {8, wg::HW, wg::HH, 1};
+  // the packed weight as {9 * Cp, Co}; a box is 64 K columns of 160 rows,
+  // 128-byte swizzled; rows past Co are zero-filled
+  const cuuint64_t wdims[2] = {(cuuint64_t)9 * Cp, (cuuint64_t)Co};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)9 * Cp * 2};
+  const cuuint32_t wbox[2] = {wg::BKC, wg::BN};
+  if (encode(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdims, xstrides,
+             xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdims, wstrides,
+             wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fuse_act ? wg::conv_sm90_kernel<true> : wg::conv_sm90_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long tiles = (long)B * ((H + wg::TH - 1) / wg::TH) * ((W + wg::TW - 1) / wg::TW);
+  dim3 grid((unsigned)tiles, (Co + wg::BN - 1) / wg::BN);
+  kernel<<<grid, wg::NTHREADS, wg::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      mx, mw, static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<__nv_bfloat16*>(y), H, W, C, Cp, Co);
   return (int)cudaGetLastError();
 }

@@ -57,9 +57,8 @@
 // score of -1e30 for the online softmax); TMA zero-fills rows past Lq and Lk.
 #pragma once
 
-#include <cuda.h>
-
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace mdu {
 namespace sm90 {
@@ -73,76 +72,7 @@ constexpr int THREE_CONSUMERS_MAX_DP = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
 
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Waits until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 3-d tensor map ({column, row, head} coordinates) into shared
-// memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 32-byte-swizzled operand: start
-// address, leading and stride byte offsets (bytes), layout type 3 (B32).
-// K-major: SBO = 256 (the next 8 rows), LBO unused. MN-major: SBO = 256 (the
-// next 8 rows of K), LBO = the next 16-column slice along MN.
-__device__ __forceinline__ uint64_t desc_b32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)3 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Pins a register across the asynchronous products: the compiler may neither
-// move its reads and writes over this point nor reuse it before it.
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
-__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
+// ------------------------------------------------------------ helpers
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -642,31 +572,6 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 }
 
 // --------------------------------------------------------------------- host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver that the runtime has loaded, so that
-// the library needs no -lcuda.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(entry);
-  }
-  return fn;
-}
 
 // A contiguous [bh, L, D] bf16 tensor as a 3-d tensor map whose box is one
 // 16-column slice of ``rows`` rows, 32-byte swizzled; the TMA fills columns

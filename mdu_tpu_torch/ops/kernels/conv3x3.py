@@ -13,6 +13,16 @@ count under ``fused_conv3x3``), fp32 on the CUDA cores
 (``fused_conv3x3_f32``). The wrapper raises on a CUDA tensor it does not
 take and runs the plain version only for a CPU tensor.
 
+bf16 has two forms, chosen by ``conv_form`` on shape and alignment alone
+(never on a failure), each counted also under
+``LAUNCHES["fused_conv3x3.<form>"]``:
+
+* ``sm90``: the warpgroup kernel (wgmma, TMA, a producer warp, three
+  activation warps and two consumer warpgroups) for C % 64 == 0, Co % 8 == 0
+  and 16-byte aligned x, packed weight, scale and shift: all of config 2;
+* ``mma``: the ``mma.sync`` kernel for any other bf16 input (the tiny UNet's
+  C = 12 and 24, unaligned operands).
+
 ``_plan_blocks`` / ``conv3x3_plan_fits`` are copies of the JAX planner. The
 port uses them only to decide dispatch as the JAX package does (the same
 layers take the fused arithmetic on both sides), not to size CUDA blocks.
@@ -28,9 +38,12 @@ import torch.nn.functional as F
 from .launch import aligned16, launch, ptr
 
 __all__ = ["fused_conv3x3", "fused_conv3x3_plain", "pack_conv3x3_weight",
-           "conv3x3_plan_fits"]
+           "conv3x3_plan_fits", "conv_form", "launch_form"]
 
-K_CHUNK = 32     # input channels of one K chunk of the kernel
+K_CHUNK = 32     # input channels of one K chunk of the mma.sync kernel
+SM90_CHUNK = 64  # ... of the warpgroup kernel, which takes no padded channels
+# C function of each bf16 form (library conv3x3)
+FORMS = {"sm90": "mdu_conv3x3_sm90", "mma": "mdu_conv3x3"}
 
 
 def _plan_blocks(H: int, W: int, C: int, Co: int,
@@ -80,6 +93,37 @@ def fused_conv3x3_plain(x, w, scale=None, shift=None, fuse_act: bool = False):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def conv_form(x, packed, scale=None, shift=None) -> str:
+    """The form of the bf16 kernel that takes these operands: ``sm90`` for
+    C % 64 == 0 and Co % 8 == 0 with every operand on a 16-byte boundary (a
+    tensor map needs 16-byte aligned bases and strides; the activation reads
+    scale and shift 8 channels at a time), else ``mma``."""
+    ops = [t for t in (x, packed, scale, shift) if t is not None]
+    if (x.shape[-1] % SM90_CHUNK == 0 and packed.shape[0] % 8 == 0
+            and aligned16(*ops)):
+        return "sm90"
+    return "mma"
+
+
+def launch_form(form: str, x, packed, scale, shift, fuse_act: bool):
+    """Launch one bf16 form on checked operands (the wrapper passes
+    ``conv_form``'s choice; a benchmark may time the other form on the same
+    inputs). Returns y [B, H, W, Co]."""
+    B, H, W, C = x.shape
+    Co = packed.shape[0]
+    Cp = -(-C // K_CHUNK) * K_CHUNK
+    if not fuse_act:
+        scale = shift = x                    # not read by the kernels
+    y = torch.empty(B, H, W, Co, dtype=x.dtype, device=x.device)
+    args = [ptr(x), ptr(packed), ptr(scale), ptr(shift), ptr(y),
+            *(ctypes.c_int(v) for v in (B, H, W, C, Cp, Co, int(bool(fuse_act))))]
+    if form == "mma":
+        args += [ctypes.c_int(1),            # is_bf16
+                 ctypes.c_int(int(C % 8 == 0 and aligned16(x, scale, shift)))]
+    launch("fused_conv3x3", "conv3x3", FORMS[form], x.device, *args, form=form)
+    return y
+
+
 def fused_conv3x3(x, w, scale=None, shift=None, fuse_act: bool = False,
                   packed=None):
     """conv3x3(silu(x * scale + shift)) ('same' padding) on NHWC x with HWIO
@@ -113,12 +157,13 @@ def fused_conv3x3(x, w, scale=None, shift=None, fuse_act: bool = False,
                     or tuple(t.shape) != (B, C) or not t.is_contiguous()):
                 raise ValueError(f"fused_conv3x3: {n} must be a contiguous fp32 "
                                  f"[{B}, {C}] tensor on {x.device}")
-    else:
-        scale = shift = x                    # not read by the kernel
+    if bf16:
+        form = conv_form(x, packed, scale, shift) if fuse_act else conv_form(x, packed)
+        return launch_form(form, x, packed, scale, shift, fuse_act)
     y = torch.empty(B, H, W, Co, dtype=x.dtype, device=x.device)
-    vec = int(bf16 and C % 8 == 0 and aligned16(x, scale, shift))
+    if not fuse_act:
+        scale = shift = x                    # not read by the kernel
     launch(name, "conv3x3", "mdu_conv3x3", x.device,
            ptr(x), ptr(packed), ptr(scale), ptr(shift), ptr(y),
-           *(ctypes.c_int(v) for v in (B, H, W, C, Cp, Co, int(bool(fuse_act)),
-                                       int(bf16), vec)))
+           *(ctypes.c_int(v) for v in (B, H, W, C, Cp, Co, int(bool(fuse_act)), 0, 0)))
     return y

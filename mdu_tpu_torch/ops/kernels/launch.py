@@ -6,8 +6,8 @@ Every wrapper launches its kernel through ``launch``, which adds one to
 A run resets the counts with ``reset_launches()`` and reads ``LAUNCHES``
 after it, to show which kernels its path went through. Where a kernel has
 more than one form, ``LAUNCHES["<name>.<form>"]`` also counts the launches of
-that form (``.sm90``: the warpgroup kernels; ``.mma``: the mma.sync kernels;
-``flash_attention_fm.wide``: the fixed shift at D > 160).
+that form (``.sm90``: the warpgroup kernels; ``.mma``: the mma.sync kernels,
+of #1, #3 and #6; ``flash_attention_fm.wide``: the fixed shift at D > 160).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ LAUNCHES = {
     "fused_conv3x3": 0, "fused_conv3x3_f32": 0,
     "flash_attention_fm.sm90": 0, "flash_attention_fm.mma": 0,
     "flash_attention_fm.wide": 0, "flash_attention_t.sm90": 0,
-    "flash_attention_t.mma": 0,
+    "flash_attention_t.mma": 0, "fused_conv3x3.sm90": 0, "fused_conv3x3.mma": 0,
 }
 
 

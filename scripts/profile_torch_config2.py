@@ -36,7 +36,7 @@ FAMILIES = [
     ("flash_attention", r"flash_kernel"),
     ("fused_group_norm", r"gn_kernel"),
     ("fused_tile_blend", r"blend_kernel"),
-    ("fused_conv3x3", r"conv_bf16_kernel|conv_f32_kernel"),
+    ("fused_conv3x3", r"conv_bf16_kernel|conv_sm90_kernel|conv_f32_kernel"),
     ("conv (cuDNN / implicit GEMM)", r"conv|implicit|cudnn|xmma_fprop|sm90_xmma|winograd|fprop"),
     ("matmul (cuBLAS)", r"gemm|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),

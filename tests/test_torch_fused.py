@@ -268,6 +268,47 @@ def test_unaligned_bf16_goes_to_the_mma_form():
         assert flash_mod.bf16_form(name, ok, ok, q) == "mma"
 
 
+def _off16(shape, dtype, unaligned):
+    """A contiguous tensor of ``shape`` whose base is (or is not) on a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 1, dtype=dtype)
+    t = (base[1:] if unaligned else base[:n]).view(*shape)
+    assert (t.data_ptr() % 16 != 0) == unaligned
+    return t
+
+
+@pytest.mark.parametrize("C,Co,off,form", [
+    (320, 320, None, "sm90"), (640, 320, None, "sm90"), (64, 40, None, "sm90"),
+    (24, 40, None, "mma"), (12, 40, None, "mma"), (96, 40, None, "mma"),  # C % 64
+    (320, 20, None, "mma"),                                                # Co % 8
+    (320, 40, "x", "mma"), (320, 40, "packed", "mma"), (320, 40, "scale", "mma"),
+    (320, 40, "shift", "mma")])
+def test_conv_form_rule(monkeypatch, C, Co, off, form):
+    """bf16 with C % 64 == 0, Co % 8 == 0 and every operand on a 16-byte
+    boundary goes to the warpgroup form, anything else to the mma.sync form;
+    the launch takes the C function of the form it is given and counts it
+    under it."""
+    from mdu_tpu_torch.ops.kernels import conv3x3 as conv_mod
+
+    B, H, W = 1, 4, 8
+    Cp = -(-C // conv_mod.K_CHUNK) * conv_mod.K_CHUNK
+    bf = torch.bfloat16
+    x = _off16((B, H, W, C), bf, off == "x")
+    packed = _off16((Co, 9 * Cp), bf, off == "packed")
+    scale = _off16((B, C), torch.float32, off == "scale")
+    shift = _off16((B, C), torch.float32, off == "shift")
+    assert conv_mod.conv_form(x, packed, scale, shift) == form
+    calls = []
+    monkeypatch.setattr(conv_mod, "launch", lambda name, lib, fn, dev, *args, form=None:
+                        calls.append((name, lib, fn, form, len(args))))
+    y = conv_mod.launch_form(form, x, packed, scale, shift, True)
+    assert y.shape == (B, H, W, Co)
+    # (x, packed, scale, shift, y, B, H, W, C, Cp, Co, fuse_act) + (is_bf16, vec)
+    assert calls == [("fused_conv3x3", "conv3x3", conv_mod.FORMS[form], form,
+                      12 if form == "sm90" else 14)]
+
+
 def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):
     before = dict(LAUNCHES)
     x = torch.from_numpy(rng.normal(size=(1, 8, 8, 8)).astype(np.float32))

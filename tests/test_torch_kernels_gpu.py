@@ -16,6 +16,7 @@ from mdu_tpu_torch.ops.kernels import (LAUNCHES, BlendTable, flash, fused_conv3x
                                        fused_conv3x3_plain, fused_group_norm,
                                        fused_group_norm_plain, fused_tile_blend,
                                        fused_tile_blend_plain, pack_conv3x3_weight)
+from mdu_tpu_torch.ops.kernels import conv3x3 as conv3x3_mod
 from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
 pytestmark = pytest.mark.gpu
@@ -340,16 +341,21 @@ def test_tile_blend_kernel_matches_plain(h, w, th, tw, ov, BC, normalize, dtype)
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B,H,W,C,Co,dtype", [
-    (2, 64, 96, 320, 320, torch.bfloat16),
-    (2, 32, 48, 640, 640, torch.bfloat16),
-    (2, 16, 16, 24, 8, torch.bfloat16),      # tiny UNet widths
-    (2, 7, 9, 12, 20, torch.bfloat16),       # odd H, W, C: no 16-byte loads
-    (2, 32, 48, 320, 64, torch.float32),
-    (1, 7, 9, 12, 20, torch.float32),
+@pytest.mark.parametrize("B,H,W,C,Co,dtype,form", [
+    (2, 64, 96, 320, 320, torch.bfloat16, "sm90"),   # config 2's four widths
+    (2, 64, 96, 640, 320, torch.bfloat16, "sm90"),
+    (2, 32, 48, 320, 640, torch.bfloat16, "sm90"),
+    (2, 32, 48, 640, 640, torch.bfloat16, "sm90"),
+    (2, 45, 21, 128, 200, torch.bfloat16, "sm90"),   # H, W, Co off the 32 x 8 x 160 tile
+    (1, 7, 9, 64, 24, torch.bfloat16, "sm90"),       # one partial tile and box
+    (1, 7, 9, 64, 20, torch.bfloat16, "mma"),        # Co % 8 != 0
+    (2, 16, 16, 24, 8, torch.bfloat16, "mma"),       # tiny UNet widths
+    (2, 7, 9, 12, 20, torch.bfloat16, "mma"),        # odd H, W, C: no 16-byte loads
+    (2, 32, 48, 320, 64, torch.float32, None),
+    (1, 7, 9, 12, 20, torch.float32, None),
 ])
 @pytest.mark.parametrize("fuse_act", [True, False])
-def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, dtype, fuse_act):
+def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, dtype, form, fuse_act):
     dev = _card()
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -358,15 +364,42 @@ def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, dtype, fuse_act):
     a = 1 + 0.5 * torch.randn(B, C, generator=gen, device=dev)
     sh = 0.2 * torch.randn(B, C, generator=gen, device=dev)
     name = "fused_conv3x3" if dtype == torch.bfloat16 else "fused_conv3x3_f32"
-    before = LAUNCHES[name]
+    before = dict(LAUNCHES)
     out = fused_conv3x3(x, w, a, sh, fuse_act=fuse_act, packed=pack_conv3x3_weight(w))
     torch.cuda.synchronize()
-    assert LAUNCHES[name] == before + 1 and out.shape == (B, H, W, Co)
+    assert LAUNCHES[name] == before[name] + 1 and out.shape == (B, H, W, Co)
+    if form is not None:
+        assert LAUNCHES[f"{name}.{form}"] == before[f"{name}.{form}"] + 1
     ref = fused_conv3x3_plain(x.float(), w.float(), a, sh, fuse_act=fuse_act)
     if dtype == torch.bfloat16:
         _close_bf16(out, ref, fused_conv3x3_plain(x, w, a, sh, fuse_act=fuse_act))
     else:
         assert (out - ref).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("C,unaligned", [(12, False), (24, False), (64, True)])
+def test_conv3x3_takes_the_mma_form_by_rule(C, unaligned):
+    """C = 12 and 24 (the tiny UNet) and an x off a 16-byte boundary go to the
+    mma.sync form, by the wrapper's rule and not on a failure, and match the
+    plain version there."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, W, Co = 2, 9, 11, 40
+    n = B * H * W * C
+    base = torch.randn(n + 1, generator=gen, device=dev).to(torch.bfloat16)
+    x = (base[1:] if unaligned else base[:n]).view(B, H, W, C)
+    assert (x.data_ptr() % 16 != 0) == unaligned
+    w = (torch.randn(3, 3, C, Co, generator=gen, device=dev) / (9 * C) ** 0.5).to(torch.bfloat16)
+    a = 1 + 0.5 * torch.randn(B, C, generator=gen, device=dev)
+    sh = 0.2 * torch.randn(B, C, generator=gen, device=dev)
+    packed = pack_conv3x3_weight(w)
+    assert conv3x3_mod.conv_form(x, packed, a, sh) == "mma"
+    before = LAUNCHES["fused_conv3x3.mma"]
+    out = fused_conv3x3(x, w, a, sh, fuse_act=True, packed=packed)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_conv3x3.mma"] == before + 1
+    ref = fused_conv3x3_plain(x.float(), w.float(), a, sh, fuse_act=True)
+    _close_bf16(out, ref, fused_conv3x3_plain(x, w, a, sh, fuse_act=True))
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take():
