@@ -23,14 +23,16 @@
 // Two bf16 forms, chosen by the wrapper (ops/kernels/conv3x3.py::conv_form)
 // on shape and alignment alone:
 //
-// mdu_conv3x3_sm90, the warpgroup form (C % 64 == 0, 16-byte aligned
-// operands: all of config 2). A block owns 32 x 8 output pixels of one image
-// and 160 output channels; warpgroup 0 is the producer, two consumer
-// warpgroups own 16 x 8 pixels each (two m64 tiles of 8 rows x 8 columns).
+// mdu_conv3x3_sm90, the warpgroup form (C % 64 == 0, Co % 8 == 0, 16-byte
+// aligned operands: all of config 2). A block owns 32 x 8 output pixels of
+// one image and 160 output channels (m64n160 divides Co = 320 and 640);
+// warpgroup 0 holds the producer warp and three activation warps, two
+// consumer warpgroups own 16 x 8 pixels each (two m64 tiles of 8 rows x 8
+// columns). setmaxnreg moves registers from warpgroup 0 (80) to the
+// consumers (208).
 // - B (the weights) by TMA: one box per (chunk of 64 input channels, tap),
 //   160 rows x 128 bytes with the 128-byte swizzle, into a ring of 4 stages
-//   with full / empty mbarriers, kept full by one producer thread; the
-//   producer gives its registers up (setmaxnreg 24) to the consumers (240).
+//   with full / empty mbarriers, kept full by one producer thread.
 // - A (the activated input) from shared memory too. The halo of a chunk
 //   (34 x 10 pixels x 64 channels) arrives by TMA, 8 boxes of one 8-channel
 //   group each, as planes [group][pixel][8 channels] (zero-filled outside
@@ -39,17 +41,19 @@
 //   contiguous bytes at any 16-byte aligned start, so the window shifted by
 //   (dy, dx) starts (dy * 10 + dx) * 16 bytes on; the next 8 pixels down are
 //   SBO = 160 bytes on, the next 8 channels LBO = one plane on. That is why
-//   the tile is 8 pixels wide. No A fragment lives in registers, and no
-//   ldmatrix runs: each consumer issues per tap 2 x 4 wgmma.m64n160k16.
-// - The consumers activate each chunk's halo in place once (each one half of
-//   the rows, then a named barrier), zeroing by coordinates what lies outside
-//   the image: the TMA's zero fill is not enough, silu(0 * a + b) != 0. The
-//   activation of chunk k + 1 is cut into nine slices, one after each tap's
-//   products of chunk k are issued, so it runs while they are in flight.
-//   Three halo buffers let the producer load chunk k + 1's raw halo while
-//   chunk k - 1's products may still read their buffer.
-// - Per tap the consumer keeps two groups of products in flight (wait 1),
+//   the tile is 8 pixels wide. No A fragment passes through registers and
+//   no ldmatrix runs: each consumer issues per tap 2 x 4 wgmma.m64n160k16.
+// - The three activation warps activate each chunk's halo in place once,
+//   zeroing by coordinates what lies outside the image (the TMA's zero fill
+//   is not enough: silu(0 * a + b) != 0), and release it to the consumers
+//   by an mbarrier. Three halo buffers let them activate chunk k + 1 while
+//   the consumers run the products of chunk k and the producer loads chunk
+//   k + 2's raw halo. Each thread keeps one channel group's scale and shift
+//   in registers and works on four pixels at once.
+// - Per tap a consumer keeps two groups of products in flight (wait 1),
 //   then returns the previous tap's weight stage.
+// - The epilogue goes through shared memory (a free halo buffer, 32-byte
+//   swizzled, conflict-free) and TMA stores, which clip the ragged edges.
 // L2 traffic and waves per SM (132 SMs, one block an SM; weights 9 * C * 160
 // * 2 bytes a block, halo 8 * 5440 bytes a chunk a block):
 //   [10, 64, 96, 320] -> 320: 480 blocks, 3.64 waves, weights 442 MB + halo
@@ -263,14 +267,15 @@ constexpr int W_STAGE = BN * BKC * 2;     // one tap's weights of a chunk: 20480
 constexpr int STAGES = 4;                 // the weight ring
 constexpr int OFF_HALO = STAGES * W_STAGE;
 constexpr int OFF_BAR = OFF_HALO + NH * HALO_BYTES;
-constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 2 * NH) + 1024;
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 3 * NH) + 1024;
 constexpr int NTHREADS = 384;             // the producer warpgroup and two consumers
-constexpr int ACT_PIX = HP / 2;           // halo pixels a consumer activates: 170
-constexpr int ACT_ITEMS = ACT_PIX * NG;   // ... as 16-byte vectors: 1360
-constexpr int ACT_Q = (ACT_ITEMS + 127) / 128;   // vectors a thread: 11
+constexpr int ACT_THREADS = 96;           // warps 1-3: the activation
+constexpr int ACT_ITEMS = HP * NG;        // 16-byte vectors of a chunk's halo: 2720
+constexpr int OUT_BOX = 16 * TW * 16 * 2; // one output box: 16 rows x 8 pixels x 16 channels
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 static_assert(W_STAGE % 1024 == 0 && OFF_HALO % 1024 == 0, "128-byte swizzle atoms");
 static_assert(GROUP_BYTES >= BOX_BYTES && GROUP_BYTES % 128 == 0, "TMA destinations");
+static_assert(HALO_BYTES % 1024 == 0 && (BN / 16) * OUT_BOX <= HALO_BYTES, "output staging");
 
 // D += A B, m64n160k16: A and B from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t da, uint64_t db) {
@@ -308,14 +313,18 @@ __device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t da, uint6
 }
 
 // A block: output rows y0 .. y0 + 31, columns x0 .. x0 + 7 of image b, output
-// channels n0 .. n0 + 159. Warpgroup 0 is the producer (one thread issues
-// every TMA load); consumer warpgroup cw = 0, 1 owns output rows 16 cw ..
-// 16 cw + 15 as two m64 tiles of 8 rows x 8 columns.
+// channels n0 .. n0 + 159.
+// - Warpgroup 0: warp 0 is the producer (one thread issues every TMA load);
+//   warps 1-3 activate each chunk's halo in place once it has landed.
+// - Consumer warpgroup cw = 0, 1 owns output rows 16 cw .. 16 cw + 15 as two
+//   m64 tiles of 8 rows x 8 columns, and stores them through shared memory
+//   by TMA.
 template <bool ACT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
-                 const float* __restrict__ scale, const float* __restrict__ shift,
-                 __nv_bfloat16* __restrict__ y, int H, int W, int C, int Cp, int Co) {
+                 const __grid_constant__ CUtensorMap my, const float* __restrict__ scale,
+                 const float* __restrict__ shift, __nv_bfloat16* __restrict__ y, int H, int W,
+                 int C, int Cp, int Co) {
   using namespace mdu::sm90;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024u - (mdu::smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -326,7 +335,8 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
   auto wfull = [&](int st) { return bars + 8u * st; };
   auto wempty = [&](int st) { return bars + 8u * (STAGES + st); };
   auto hfull = [&](int h) { return bars + 8u * (2 * STAGES + h); };
-  auto hempty = [&](int h) { return bars + 8u * (2 * STAGES + NH + h); };
+  auto hready = [&](int h) { return bars + 8u * (2 * STAGES + NH + h); };
+  auto hempty = [&](int h) { return bars + 8u * (2 * STAGES + 2 * NH + h); };
 
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
@@ -344,6 +354,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
     }
     for (int h = 0; h < NH; ++h) {
       mbar_init(hfull(h), 1);
+      mbar_init(hready(h), ACT_THREADS);
       mbar_init(hempty(h), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -351,9 +362,9 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
     if (threadIdx.x == 0) {
+      // ------------------------------------------------------------ producer
       // the raw halo of chunk k: one box of 8 channels x 10 x 34 pixels per
       // channel group, zero-filled outside the image and past C
       auto load_halo = [&](int k) {
@@ -377,52 +388,54 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
           tma_load_2d(wstage(st), &mw, wfull(st), tap * Cp + k * BKC, n0);
         }
       }
+    } else if (ACT && threadIdx.x >= 32) {
+      // ---------------------------------------------------------- activation
+      // Each chunk's halo in place, once, while the consumers run the
+      // products of the chunk before: zero outside the image and past C (the
+      // TMA's zero fill is not enough: silu(0 * a + b) != 0), silu(x * scale
+      // + shift) rounded to bf16 elsewhere; then seen by wgmma.
+      const int at = threadIdx.x - 32;
+      for (int k = 0; k < nchunks; ++k) {
+        const int h = k % NH;
+        unsigned char* hb = base + OFF_HALO + h * HALO_BYTES;
+        mbar_wait(hfull(h), (k / NH) & 1);
+        for (int i = at; i < ACT_ITEMS; i += ACT_THREADS) {
+          const int j = i / HP;
+          const int hp = i - j * HP;
+          const int gy = y0 - 1 + hp / HW;
+          const int gx = x0 - 1 + hp % HW;
+          const int c = k * BKC + 8 * j;
+          uint4* p = reinterpret_cast<uint4*>(hb + j * GROUP_BYTES + hp * 16);
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C) {
+            v = *p;
+            const float4* sc = reinterpret_cast<const float4*>(scale + (size_t)b * C + c);
+            const float4* sh = reinterpret_cast<const float4*>(shift + (size_t)b * C + c);
+            const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1);
+            const float4 h0 = __ldg(sh), h1 = __ldg(sh + 1);
+            const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+            const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+            __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float2 f = __bfloat1622float2(e[r]);
+              e[r] = __floats2bfloat162_rn(silu_fast(f.x * sv[2 * r] + hv[2 * r]),
+                                           silu_fast(f.y * sv[2 * r + 1] + hv[2 * r + 1]));
+            }
+          }
+          *p = v;
+        }
+        fence_proxy_async();
+        mbar_arrive(hready(h));
+      }
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
     const int cw = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
-
-    // Activates, in place, vectors q0 .. q1 - 1 of this thread in this
-    // consumer's half of chunk k's halo (halo rows 17 cw .. 17 cw + 16): zero
-    // outside the image and past C, silu(x * scale + shift) rounded to bf16
-    // elsewhere.
-    auto activate = [&](int k, int q0, int q1) {
-      unsigned char* hb = base + OFF_HALO + (k % NH) * HALO_BYTES;
-      for (int q = q0; q < q1; ++q) {
-        const int i = tid + 128 * q;
-        if (i >= ACT_ITEMS) break;
-        const int j = i / ACT_PIX;
-        const int hp = cw * ACT_PIX + i % ACT_PIX;
-        const int gy = y0 - 1 + hp / HW;
-        const int gx = x0 - 1 + hp % HW;
-        const int c = k * BKC + 8 * j;
-        uint4* p = reinterpret_cast<uint4*>(hb + j * GROUP_BYTES + hp * 16);
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C) {
-          v = *p;
-          const float* sc = scale + (size_t)b * C + c;
-          const float* sh = shift + (size_t)b * C + c;
-          const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc));
-          const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc) + 1);
-          const float4 h0 = __ldg(reinterpret_cast<const float4*>(sh));
-          const float4 h1 = __ldg(reinterpret_cast<const float4*>(sh) + 1);
-          const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-          __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float2 f = __bfloat1622float2(e[r]);
-            e[r] = __floats2bfloat162_rn(silu_fast(f.x * sv[2 * r] + hv[2 * r]),
-                                         silu_fast(f.y * sv[2 * r + 1] + hv[2 * r + 1]));
-          }
-        }
-        *p = v;
-      }
-    };
 
     float acc[2][80];
 #pragma unroll
@@ -430,18 +443,11 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
 #pragma unroll
       for (int r = 0; r < 80; ++r) acc[i][r] = 0.f;
 
-    if (ACT) {
-      mbar_wait(hfull(0), 0);
-      activate(0, 0, ACT_Q);
-      fence_proxy_async();                // seen by wgmma
-      named_sync(1);
-    }
     const int orow = 16 * cw;             // this consumer's first output row
     int it = 0;                           // chunk * 9 + tap
     for (int k = 0; k < nchunks; ++k) {
       const int h = k % NH;
-      const bool next = ACT && k + 1 < nchunks;
-      if (!ACT) mbar_wait(hfull(h), (k / NH) & 1);
+      mbar_wait(ACT ? hready(h) : hfull(h), (k / NH) & 1);
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap, ++it) {
         const int st = it % STAGES;
@@ -465,15 +471,6 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
           mbar_arrive(wempty((it - 1) % STAGES));
           if (tap == 0) mbar_arrive(hempty((k - 1) % NH));
         }
-        // a ninth of the next chunk's activation while this tap's products run
-        if (next) {
-          if (tap == 0) mbar_wait(hfull((k + 1) % NH), ((k + 1) / NH) & 1);
-          activate(k + 1, tap * ACT_Q / 9, (tap + 1) * ACT_Q / 9);
-        }
-      }
-      if (next) {
-        fence_proxy_async();
-        named_sync(1);                    // both halves of chunk k + 1 activated
       }
     }
     wgmma_wait<0>();
@@ -482,12 +479,12 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
 #pragma unroll
       for (int r = 0; r < 80; ++r) fence_reg(acc[i][r]);
 
-    // acc[i][4j + 2hh + e]: m64 row 16 warp + g + 8 hh = output row
-    // orow + 8 i + 2 warp + hh, column g; output channel n0 + 8 j + 2 t + e
+    // acc[i][4j + 2hh + e]: m64 row 16 warp + g + 8 hh = row r = 8 i + 2 warp
+    // + hh of this consumer's 16 x 8 pixels, column g; output channel n0 + 8 j
+    // + 2 t + e.
     const int g = lane / 4;
     const int t = lane % 4;
     const int gx = x0 + g;
-    const bool pairs = (Co & 1) == 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -498,14 +495,9 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int co = n0 + 8 * j + 2 * t;
-          const float v0 = acc[i][4 * j + 2 * hh];
-          const float v1 = acc[i][4 * j + 2 * hh + 1];
-          if (pairs && co + 1 < Co) {
-            *reinterpret_cast<__nv_bfloat162*>(yr + co) = __floats2bfloat162_rn(v0, v1);
-          } else {
-            if (co < Co) yr[co] = __float2bfloat16_rn(v0);
-            if (co + 1 < Co) yr[co + 1] = __float2bfloat16_rn(v1);
-          }
+          if (co < Co)
+            *reinterpret_cast<__nv_bfloat162*>(yr + co) =
+                __floats2bfloat162_rn(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
         }
       }
     }
@@ -658,16 +650,17 @@ extern "C" int mdu_conv3x3(const void* x, const void* w, const void* scale,
 // The warpgroup form. x: contiguous NHWC [B, H, W, C] bf16 with C % 64 == 0
 // and a 16-byte aligned base; w: the packed [Co, 9 * Cp] bf16 weight (Cp = C),
 // 16-byte aligned; scale, shift: fp32 [B, C], 16-byte aligned, read only with
-// ``fuse_act``; y: contiguous NHWC [B, H, W, Co] bf16. Returns a cudaError_t
+// ``fuse_act``; y: contiguous NHWC [B, H, W, Co] bf16, Co % 8 == 0, 16-byte
+// aligned. Returns a cudaError_t
 // (0 on a successful launch).
 extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
                                 const void* shift, void* y, int B, int H, int W, int C,
                                 int Cp, int Co, int fuse_act, void* stream) {
   using namespace mdu::sm90;
-  if (C % wg::BKC != 0 || Cp != C) return (int)cudaErrorInvalidValue;
+  if (C % wg::BKC != 0 || Cp != C || Co % 8 != 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorInvalidValue;
-  CUtensorMap mx, mw;
+  CUtensorMap mx, mw, my;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   // x as {C, W, H, B}; a box is one 8-channel group of the 10 x 34 halo
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
@@ -679,6 +672,12 @@ extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
   const cuuint64_t wdims[2] = {(cuuint64_t)9 * Cp, (cuuint64_t)Co};
   const cuuint64_t wstrides[1] = {(cuuint64_t)9 * Cp * 2};
   const cuuint32_t wbox[2] = {wg::BKC, wg::BN};
+  // y as {Co, W, H, B}; a box is 16 channels x 8 pixels x 16 rows,
+  // 32-byte swizzled; the parts outside y are not written
+  const cuuint64_t ydims[4] = {(cuuint64_t)Co, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t ystrides[3] = {(cuuint64_t)Co * 2, (cuuint64_t)W * Co * 2,
+                                  (cuuint64_t)H * W * Co * 2};
+  const cuuint32_t ybox[4] = {16, wg::TW, wg::TH / 2, 1};
   if (encode(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdims, xstrides,
              xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -686,6 +685,10 @@ extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
       encode(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdims, wstrides,
              wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&my, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, y, ydims, ystrides, ybox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   auto kernel = fuse_act ? wg::conv_sm90_kernel<true> : wg::conv_sm90_kernel<false>;
@@ -695,7 +698,7 @@ extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
   const long tiles = (long)B * ((H + wg::TH - 1) / wg::TH) * ((W + wg::TW - 1) / wg::TW);
   dim3 grid((unsigned)tiles, (Co + wg::BN - 1) / wg::BN);
   kernel<<<grid, wg::NTHREADS, wg::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      mx, mw, static_cast<const float*>(scale), static_cast<const float*>(shift),
+      mx, mw, my, static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<__nv_bfloat16*>(y), H, W, C, Cp, Co);
   return (int)cudaGetLastError();
 }
