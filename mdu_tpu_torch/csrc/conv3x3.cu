@@ -484,22 +484,35 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
     // + 2 t + e.
     const int g = lane / 4;
     const int t = lane % 4;
-    const int gx = x0 + g;
+    // Through shared memory: the halo buffer of chunk nchunks + cw (mod 3),
+    // which no load, activation or product touches any more (the other
+    // consumer is at most STAGES taps behind, in the last chunk), as 10
+    // boxes of 16 rows x 8 pixels x 16 channels with the 32-byte swizzle (the
+    // 16-byte half of a 32-byte row flips every 4 rows): conflict-free
+    // stores, and the TMA writes only what lies inside y.
+    const uint32_t out = halo((nchunks + cw) % NH);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int gy = y0 + orow + 8 * i + 2 * warp + hh;
-        if (gy >= H || gx >= W) continue;
-        __nv_bfloat16* yr = y + (((size_t)b * H + gy) * W + gx) * Co;
+        const int row = (8 * i + 2 * warp + hh) * 8 + g;     // box row: (r, pixel)
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
-          const int co = n0 + 8 * j + 2 * t;
-          if (co < Co)
-            *reinterpret_cast<__nv_bfloat162*>(yr + co) =
-                __floats2bfloat162_rn(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+          const uint32_t addr = out + (j / 2) * OUT_BOX + row * 32 +
+                                (((j & 1) ^ ((row >> 2) & 1)) << 4) + 4 * t;
+          const uint32_t v = mdu::pack_bf16(__float2bfloat16_rn(acc[i][4 * j + 2 * hh]),
+                                            __float2bfloat16_rn(acc[i][4 * j + 2 * hh + 1]));
+          asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
         }
       }
+    }
+    fence_proxy_async();                  // seen by the TMA
+    named_sync(2 + cw, 128);
+    if (tid == 0) {
+      for (int c = 0; c < BN / 16; ++c)
+        tma_store_4d(&my, out + c * OUT_BOX, n0 + 16 * c, x0, y0 + orow, b);
+      tma_store_commit();
+      tma_store_wait_read();
     }
   }
 }
