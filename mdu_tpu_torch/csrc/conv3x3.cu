@@ -270,7 +270,8 @@ constexpr int OFF_BAR = OFF_HALO + NH * HALO_BYTES;
 constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 3 * NH) + 1024;
 constexpr int NTHREADS = 384;             // the producer warpgroup and two consumers
 constexpr int ACT_THREADS = 96;           // warps 1-3: the activation
-constexpr int ACT_ITEMS = HP * NG;        // 16-byte vectors of a chunk's halo: 2720
+constexpr int ACT_LANES = ACT_THREADS / NG;       // threads of one channel group: 12
+constexpr int ACT_Q = (HP + ACT_LANES - 1) / ACT_LANES;   // pixels a thread: 29
 constexpr int OUT_BOX = 16 * TW * 16 * 2; // one output box: 16 rows x 8 pixels x 16 channels
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 static_assert(W_STAGE % 1024 == 0 && OFF_HALO % 1024 == 0, "128-byte swizzle atoms");
@@ -362,7 +363,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n");
     if (threadIdx.x == 0) {
       // ------------------------------------------------------------ producer
       // the raw halo of chunk k: one box of 8 channels x 10 x 34 pixels per
@@ -393,29 +394,45 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
       // Each chunk's halo in place, once, while the consumers run the
       // products of the chunk before: zero outside the image and past C (the
       // TMA's zero fill is not enough: silu(0 * a + b) != 0), silu(x * scale
-      // + shift) rounded to bf16 elsewhere; then seen by wgmma.
+      // + shift) rounded to bf16 elsewhere; then seen by wgmma. Thread at
+      // owns channel group at / 12 (its scale and shift stay in registers)
+      // and every 12th pixel from at % 12; it loads four pixels before it
+      // computes them, so that their latencies overlap.
       const int at = threadIdx.x - 32;
+      const int j = at / ACT_LANES;
+      const int p0 = at % ACT_LANES;
       for (int k = 0; k < nchunks; ++k) {
         const int h = k % NH;
-        unsigned char* hb = base + OFF_HALO + h * HALO_BYTES;
+        const int c = k * BKC + 8 * j;
+        float sv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float hv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (c < C) {
+          const float4* sc = reinterpret_cast<const float4*>(scale + (size_t)b * C + c);
+          const float4* sh = reinterpret_cast<const float4*>(shift + (size_t)b * C + c);
+          const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1);
+          const float4 h0 = __ldg(sh), h1 = __ldg(sh + 1);
+          sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
+          sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+          hv[0] = h0.x; hv[1] = h0.y; hv[2] = h0.z; hv[3] = h0.w;
+          hv[4] = h1.x; hv[5] = h1.y; hv[6] = h1.z; hv[7] = h1.w;
+        }
+        unsigned char* hb = base + OFF_HALO + h * HALO_BYTES + j * GROUP_BYTES;
         mbar_wait(hfull(h), (k / NH) & 1);
-        for (int i = at; i < ACT_ITEMS; i += ACT_THREADS) {
-          const int j = i / HP;
-          const int hp = i - j * HP;
-          const int gy = y0 - 1 + hp / HW;
-          const int gx = x0 - 1 + hp % HW;
-          const int c = k * BKC + 8 * j;
-          uint4* p = reinterpret_cast<uint4*>(hb + j * GROUP_BYTES + hp * 16);
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C) {
-            v = *p;
-            const float4* sc = reinterpret_cast<const float4*>(scale + (size_t)b * C + c);
-            const float4* sh = reinterpret_cast<const float4*>(shift + (size_t)b * C + c);
-            const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1);
-            const float4 h0 = __ldg(sh), h1 = __ldg(sh + 1);
-            const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-            const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-            __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+        for (int q0 = 0; q0 < ACT_Q; q0 += 4) {
+          uint4 v[4];
+          bool in[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int hp = p0 + ACT_LANES * (q0 + u);
+            const int gy = y0 - 1 + hp / HW;
+            const int gx = x0 - 1 + hp % HW;
+            in[u] = hp < HP && gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
+            v[u] = hp < HP ? *reinterpret_cast<const uint4*>(hb + hp * 16)
+                           : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v[u]);
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               const float2 f = __bfloat1622float2(e[r]);
@@ -423,7 +440,12 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
                                            silu_fast(f.y * sv[2 * r + 1] + hv[2 * r + 1]));
             }
           }
-          *p = v;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int hp = p0 + ACT_LANES * (q0 + u);
+            if (hp < HP)                    // the pad stays zero after the activation
+              *reinterpret_cast<uint4*>(hb + hp * 16) = in[u] ? v[u] : make_uint4(0u, 0u, 0u, 0u);
+          }
         }
         fence_proxy_async();
         mbar_arrive(hready(h));
@@ -431,7 +453,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
     const int cw = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
