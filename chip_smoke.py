@@ -199,26 +199,30 @@ def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Device time of one call: the durations of the kernels (and copies)
     that ``iters`` calls put on the card, summed by torch.profiler, over
-    ``iters``. The host's time between launches does not count."""
+    ``iters``. The host's time between launches does not count. None (not
+    measured) when two profiled windows in a row show no device activity,
+    as one cuDNN convolution did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            dt = getattr(evt, "device_time", None)
-            total_us += evt.cuda_time if dt is None else dt
-    require(total_us > 0, "torch.profiler saw no device time")
-    return total_us / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                dt = getattr(evt, "device_time", None)
+                total_us += evt.cuda_time if dt is None else dt
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
 
 
 def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn,
@@ -442,7 +446,7 @@ def check_conv(gen, summary):
         extra = {}
         if dtype == torch.bfloat16:
             form = conv_mod.conv_form(x, packed, a, sh)
-            want = "sm90" if C % conv_mod.SM90_CHUNK == 0 else "mma"
+            want = "sm90" if C % conv_mod.SM90_CHUNK == 0 and Co % 8 == 0 else "mma"
             require(form == want, f"{key} {(B, H, W, C, Co)}: form {form}, expected {want}")
             extra["form"] = form
             if (B, H, W, C, Co) in shapes[:4]:
