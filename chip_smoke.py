@@ -14,9 +14,19 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
 3. ``kernels``   each bf16 kernel at its config-2 shapes and one ragged shape,
                  held against its plain PyTorch version run in fp32 on the
                  same inputs: the kernel's max abs error must stay within 2x
-                 the bf16 plain version's error + 1e-3. Each fp32 kernel at
-                 the first config-2 shape, within 1e-4 of its plain version.
-                 #1 and #3 also at D = 13 (their mma.sync forms), #1 and its
+                 the bf16 plain version's error + 1e-3. The fp32 kernels of
+                 #1 and #2 (and #1 with ``bf16_exp``) at config 2's shapes,
+                 the VAE's, a ragged one and an odd D, #6 in fp32 at its
+                 first shape, each within 1e-4 of its plain version (with
+                 ``bf16_exp`` plus the order ambiguity below); each fp32
+                 attention line names its form (sm90, wide or simt, which
+                 must be the one its shape calls for), and at the
+                 config-2-sized shapes the CUDA-core simt form runs on the
+                 same inputs, held to the same bar and timed. Its bound is
+                 three TF32 passes at 495 TFLOP/s (``fma_bound_ms``: fp32 on
+                 the CUDA cores), and SDPA is timed also under the
+                 efficient-attention backend, with the default call's backend
+                 named. #1 and #3 also at D = 13 (their mma.sync forms), #1 and its
                  ``bf16_exp`` at the VAE's [2, 1, 9600, 512] (the wide form),
                  ``bf16_exp`` also at D = 13; each line names the form the
                  wrapper took, which must be the one its shape calls for. At
@@ -47,10 +57,11 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  flash kernels, on the card against the same pipeline on the
                  CPU: fp32 within 1e-4 of the largest value; bf16 within 2x
                  the CPU bf16 run's error against CPU fp32, + 1e-3 of it.
-                 Once with no flag (the fm kernel must launch) and once with
-                 MDU_FLASH=trans MDU_FUSED_GN=1 MDU_FUSED_CONV=1
-                 MDU_FUSED_BLEND=1 (each flagged kernel must launch; in fp32
-                 the trans attention is flash_attention_f32's kernel).
+                 Once with no flag (the fm kernel must launch; in fp32 its
+                 sm90 form) and once with MDU_FLASH=trans MDU_FUSED_GN=1
+                 MDU_FUSED_CONV=1 MDU_FUSED_BLEND=1 (each flagged kernel must
+                 launch; in fp32 the trans attention is flash_attention_f32's
+                 sm90 form).
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
@@ -80,6 +91,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 (the fp32 attention's three passes)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 F32_TOL = 1e-4                # fp32 kernels against their plain versions
 CFG2 = dict(width=2048, height=512, steps=20, cfg=7.0, tile=96, overlap=48,
@@ -106,12 +118,18 @@ KERNELS = {
         # UNet self-attention of config 2, levels 0 and 1; a ragged shape; the
         # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync)
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
-                (1, 1, 700, 13)]),
+                (1, 1, 700, 13)],
+        # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
+        f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
+                    (1, 1, 700, 13)]),
     "flash_attention": dict(
         source="mdu_tpu_torch/csrc/flash_attention.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:335",
         # VAE mid-block attention of config 2's decode; then a ragged shape
-        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512)]),
+        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512)],
+        # fp32: the VAE's (wide form), ragged, config 2's level 0 as
+        # MDU_FLASH=trans sends it (sm90), an odd D (simt)
+        f32_shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (10, 8, 6144, 40), (1, 1, 700, 13)]),
     "flash_attention_t": dict(
         source="mdu_tpu_torch/csrc/flash_attention_t.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:282",
@@ -140,10 +158,14 @@ KERNELS = {
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
                 (2, 7, 9, 12, 20)]),
 }
-# the fp32 forms: the kernel they are counted under, and where it lives
+# config-2-sized fp32 attention shapes, where the CUDA-core (simt) form runs
+# beside the tensor-core form on the same inputs
+F32_CONFIG2 = [(10, 8, 6144, 40), (10, 8, 1536, 80), (2, 1, 9600, 512)]
+# the fp32 kernels: the TPU kernel they replace, and where they live
 F32_KERNELS = {
-    "flash_attention_fm_f32": ("flash_attention_fm", "mdu_tpu_torch/csrc/flash_attention_f32.cu"),
-    "flash_attention_f32": ("flash_attention", "mdu_tpu_torch/csrc/flash_attention_f32.cu"),
+    "flash_attention_fm_f32": ("flash_attention_fm",
+                               "mdu_tpu_torch/csrc/flash_attention_f32_sm90.cuh"),
+    "flash_attention_f32": ("flash_attention", "mdu_tpu_torch/csrc/flash_attention_f32_sm90.cuh"),
     "fused_conv3x3_f32": ("fused_conv3x3", "mdu_tpu_torch/csrc/conv3x3.cu"),
 }
 
@@ -182,17 +204,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, itemsize: int = 2):
+def bound(flops: float, nbytes: float, itemsize: int = 2, peak: float = None):
     """(bound ms, what bounds it) for the work and the bytes of one call."""
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    peak = peak or (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(B, H, L, D, itemsize=2):
-    return bound(4.0 * B * H * L * L * D,            # QK^T and PV
+def attention_bound(B, H, L, D, itemsize=2, passes=1, peak=None):
+    return bound(passes * 4.0 * B * H * L * L * D,   # QK^T and PV
                  4.0 * B * H * L * D * itemsize,     # q, k, v read; o written
-                 itemsize)
+                 itemsize, peak)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend that F.scaled_dot_product_attention picks for q, k, v."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        idx = int(torch._fused_sdp_choice(q, k, v))
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        return f"unknown ({type(exc).__name__})"
+    names = {int(b.value): n for n, b in SDPBackend.__members__.items()}
+    return names.get(idx, str(idx))
 
 
 def _dtype_name(dtype) -> str:
@@ -234,7 +269,8 @@ def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn
     import torch
 
     err = (out.float() - ref.float()).abs().max().item()
-    tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL
+    # fp32: err_plain is 0, or the order ambiguity of bf16_exp
+    tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL + err_plain
     require(bool(torch.isfinite(out).all()), f"{name} {shape}: non-finite output")
     require(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
     ms = cuda_ms(kernel_fn, iters)
@@ -243,7 +279,7 @@ def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn
     lib_ms = cuda_ms(lib_fn, iters) if lib_fn is not None else None
     lib_dev_ms = device_ms(lib_fn, iters) if lib_fn is not None else None
     check = dict(shape=list(shape), dtype=_dtype_name(dtype), max_abs_err=err,
-                 plain_err=err_plain if dtype == torch.bfloat16 else 0.0, tol=tol, ms=ms,
+                 plain_err=err_plain, tol=tol, ms=ms,
                  device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                  library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
     emit("kernel_check", name=name, **check)
@@ -258,14 +294,20 @@ def max_sm_clock_hz() -> float:
 
 
 def check_attention(gen, summary):
-    """bf16 flash kernels at every shape of KERNELS, fp32 at the first; #1
-    also with bf16_exp (MDU_FLASH=fm16) at its first shape, at D = 512 and at
-    D = 13. Where the warpgroup form runs at a config-2 shape, the earlier
-    mma.sync form is checked and timed on the same inputs beside it."""
+    """bf16 flash kernels at every shape of KERNELS, fp32 at every
+    ``f32_shapes``; #1 also with bf16_exp (MDU_FLASH=fm16) at its first
+    shape, at D = 512 and at D = 13, and in fp32 at its first shape. Each
+    line names the form the wrapper took, which must be the one its shape
+    calls for. Where the warpgroup form runs at a config-2 shape, the earlier
+    form (bf16: mma.sync; fp32: the CUDA-core simt form) is checked and timed
+    on the same inputs beside it. fp32 lines bound the kernel by three TF32
+    passes and give the fp32 FMA bound beside it, and time SDPA also under
+    the efficient-attention backend."""
     import functools
 
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from mdu_tpu_torch.ops.kernels import flash
 
@@ -273,14 +315,22 @@ def check_attention(gen, summary):
     fns = {"flash_attention_fm": (flash.flash_attention_fm, flash.flash_attention_fm_plain),
            "flash_attention": (flash.flash_attention, flash.flash_attention_plain),
            "flash_attention_t": (flash.flash_attention_t, flash.flash_attention_t_plain)}
+
+    def sdpa_efficient(q, k, v):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v)
+
     for name, (kernel, plain) in fns.items():
         shapes = KERNELS[name]["shapes"]
         variants = [(torch.bfloat16, name, shapes, {})]
         if name != "flash_attention_t":        # its fp32 form is flash_attention_f32's
-            variants.append((torch.float32, name + "_f32", shapes[:1], {}))
+            f32_shapes = KERNELS[name]["f32_shapes"]
+            variants.append((torch.float32, name + "_f32", f32_shapes, {}))
         if name == "flash_attention_fm":
             variants.append((torch.bfloat16, name + "_bf16_exp",
                              [shapes[0], (2, 1, 9600, 512), (1, 1, 700, 13)],
+                             {"bf16_exp": True}))
+            variants.append((torch.float32, name + "_f32_bf16_exp", f32_shapes[:1],
                              {"bf16_exp": True}))
         for dtype, key, var_shapes, kw in variants:
             kern = functools.partial(kernel, **kw)
@@ -310,6 +360,8 @@ def check_attention(gen, summary):
                     del rev
                 big = L * L * B * H > 1e8
                 iters = (20 if big else 50) if dtype == torch.bfloat16 else (3 if big else 10)
+                lib_fn = lambda: F.scaled_dot_product_attention(q, k, v)
+                mufu = B * H * L * L / (N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
                 if dtype == torch.bfloat16 and name in flash.FORMS:
                     form = flash.bf16_form(name, q, k, v)
                     want = "wide" if D > flash.MMA_MAX_D else "mma" if D % 8 else "sm90"
@@ -326,14 +378,46 @@ def check_attention(gen, summary):
                         extra["earlier_ms"] = cuda_ms(early, iters)
                         extra["earlier_device_ms"] = device_ms(early, iters)
                         extra["earlier_form"] = "mma"
-                    extra["mufu_floor_ms"] = B * H * L * L / (
-                        N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
+                    extra["mufu_floor_ms"] = mufu
                     extra["sm_clock_max_mhz"] = clock_hz / 1e6
-                bound_ms, bound_by = attention_bound(B, H, L, D, q.element_size())
+                if dtype == torch.float32:
+                    fname = name + "_f32"
+                    form = flash.f32_form(fname, q, k, v)
+                    want = ("sm90" if D <= flash.F32_SM90_MAX_D else "wide") if D % 4 == 0 \
+                        else "simt"
+                    require(form == want, f"{key} {shape}: form {form}, expected {want}")
+                    extra["form"] = form
+                    if shape in F32_CONFIG2:
+                        # the CUDA-core form that fp32 took before, on the
+                        # same inputs: held to the same bar, and timed
+                        early = functools.partial(flash.launch_f32_form, fname, "simt", q, k, v,
+                                                  **kw)
+                        early_err = (early() - ref).abs().max().item()
+                        require(early_err <= F32_TOL + err_plain,
+                                f"{key} {shape} simt form: max abs err {early_err}")
+                        extra.update(earlier_form="simt", earlier_max_abs_err=early_err,
+                                     earlier_ms=cuda_ms(early, iters),
+                                     earlier_device_ms=device_ms(early, iters))
+                    extra["fma_bound_ms"] = attention_bound(B, H, L, D, 4)[0]
+                    extra["mufu_floor_ms"] = mufu
+                    extra["sm_clock_max_mhz"] = clock_hz / 1e6
+                    extra["bound_basis"] = "3 TF32 passes at 495 TFLOP/s"
+                    extra["library_backend"] = sdpa_backend(q, k, v)
+                    try:
+                        sdpa_efficient(q, k, v)
+                        eff = lambda: sdpa_efficient(q, k, v)
+                        extra["library_efficient_ms"] = cuda_ms(eff, iters)
+                        extra["library_efficient_device_ms"] = device_ms(eff, iters)
+                    except RuntimeError as exc:            # the backend does not take it
+                        extra["library_efficient_ms"] = None
+                        extra["library_efficient_error"] = str(exc).splitlines()[0][:200]
+                    bound_ms, bound_by = attention_bound(B, H, L, D, 4, passes=3,
+                                                         peak=PEAK_TF32_FLOPS)
+                else:
+                    bound_ms, bound_by = attention_bound(B, H, L, D, q.element_size())
                 checks.append(_record(
                     key, shape, dtype, out, ref, err_plain, lambda: kern(q, k, v),
-                    lambda: pl(q, k, v), lambda: F.scaled_dot_product_attention(q, k, v),
-                    bound_ms, bound_by, iters, **extra))
+                    lambda: pl(q, k, v), lib_fn, bound_ms, bound_by, iters, **extra))
                 del q, k, v, out, ref
             summary[key] = checks
 
@@ -544,17 +628,20 @@ def phase_reference():
     (plain versions): in fp32 within 1e-4 of the largest CPU value; in bf16
     within 2x the CPU bf16 run's own error against the CPU fp32 run plus
     1e-3 of the largest value. With no flag each card run must launch its fm
-    kernel; with the four flags, each flagged kernel."""
+    kernel (in fp32 its sm90 form: the heads are D = 4 and 16); with the four
+    flags, each flagged kernel. Returns the launches of each fp32 run."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    runs = [({}, {torch.float32: ["flash_attention_fm_f32"],
+    runs = [({}, {torch.float32: ["flash_attention_fm_f32", "flash_attention_fm_f32.sm90"],
                   torch.bfloat16: ["flash_attention_fm"]}),
-            (FLAGS, {torch.float32: ["flash_attention_f32", "fused_group_norm",
-                                     "fused_conv3x3_f32", "fused_tile_blend"],
+            (FLAGS, {torch.float32: ["flash_attention_f32", "flash_attention_f32.sm90",
+                                     "fused_group_norm", "fused_conv3x3_f32",
+                                     "fused_tile_blend"],
                      torch.bfloat16: ["flash_attention_t", "fused_group_norm",
                                       "fused_conv3x3", "fused_tile_blend"]})]
+    f32_launches = {}
     for flags, must_launch in runs:
         with flags_set(flags):
             ref = _tiny_run("cpu", torch.float32)
@@ -567,6 +654,8 @@ def phase_reference():
                     require(launches[key] > 0,
                             f"tiny {dtype} pipeline (flags {flags}) launched no {key}")
                 fields = {"flags": flags, "launches": launches}
+                if dtype == torch.float32:
+                    f32_launches["flagged" if flags else "default"] = launches
                 for i, part in enumerate(("latent", "image")):
                     scale = ref[i].abs().max().item()
                     err = (got[i] - ref[i]).abs().max().item()
@@ -580,12 +669,13 @@ def phase_reference():
                                         f"err {err} > {tol}")
                     fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
                 emit("reference", dtype=_dtype_name(dtype), **fields)
+    return f32_launches
 
 
-def build_config2():
+def build_config2(dtype=None):
     """Config 2's pipeline, conds and settings: SD1.5 UNet and VAE with random
-    bf16 weights drawn on the card. Returns (pipe, cond, uncond, sampler,
-    tiled_diffusion, tiled_vae)."""
+    weights drawn on the card, bf16 unless ``dtype`` says otherwise. Returns
+    (pipe, cond, uncond, sampler, tiled_diffusion, tiled_vae)."""
     import torch
 
     from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
@@ -593,7 +683,7 @@ def build_config2():
     from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, VAEConfig,
                                       random_state_dict, sd15_unet_config)
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    dev, bf16 = torch.device("cuda"), dtype or torch.bfloat16
     with torch.device("meta"):
         unet = UNet2DCondition(sd15_unet_config(), dtype=bf16)
         vae = AutoencoderKL(VAEConfig(), dtype=bf16)
@@ -673,23 +763,31 @@ def phase_txt2img():
     return out
 
 
-def kernel_rows(checks, launches):
+def kernel_rows(checks, launches, f32_launches):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels). #1, #3 and #6 also
     list every config-2 shape with the earlier form's time (#1 and #3 with
     the MUFU floor); #1's wide form has its own row (launches from the
-    MDU_FLASH=fm run)."""
+    MDU_FLASH=fm run). The fp32 attention kernels, which config 2 in bf16
+    does not run, take their launches from the reference phase's fp32 runs
+    of the tiny pipeline (no flag for #1, the four flags for #2) and list
+    every config-2-sized shape with the simt form's time, both bounds and
+    SDPA under both backends."""
     rows = []
     names = list(KERNELS) + list(F32_KERNELS)
     c2_fields = ("shape", "form", "fuse_act", "ms", "device_ms", "earlier_ms",
-                 "earlier_device_ms", "bound_ms", "mufu_floor_ms", "library_ms",
-                 "library_device_ms", "plain_ms", "max_abs_err", "earlier_max_abs_err")
+                 "earlier_device_ms", "bound_ms", "fma_bound_ms", "mufu_floor_ms",
+                 "library_ms", "library_device_ms", "library_backend", "library_efficient_ms",
+                 "library_efficient_device_ms", "plain_ms", "max_abs_err",
+                 "earlier_max_abs_err")
 
     def row(name, key, main, run, launch_key, source, checked, **extra):
+        runs = f32_launches if run.startswith("reference") else launches
+        run_key = run.split(" ")[-1] if run.startswith("reference") else run
         return dict(name=name, route="cuda", source=source,
                     replaces=KERNELS[key]["replaces"],
-                    launches=launches.get(run, {}).get(launch_key, 0), launches_run=run,
+                    launches=runs.get(run_key, {}).get(launch_key, 0), launches_run=run,
                     max_abs_err=max(c["max_abs_err"] for c in checked),
                     ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -705,7 +803,24 @@ def kernel_rows(checks, launches):
         main = checks[name][0]
         run = "default" if base in ("flash_attention_fm", "flash_attention") else "flagged"
         extra = {}
-        if name in ("flash_attention_fm", "flash_attention_t"):
+        if name in ("flash_attention_fm_f32", "flash_attention_f32"):
+            run = "reference fp32 " + ("default" if name == "flash_attention_fm_f32"
+                                       else "flagged")
+            c2 = [c for c in checks[name] if tuple(c["shape"]) in F32_CONFIG2]
+            extra = dict(form=main.get("form"), earlier_form="simt",
+                         earlier_ms=main.get("earlier_ms"),
+                         earlier_device_ms=main.get("earlier_device_ms"),
+                         fma_bound_ms=main.get("fma_bound_ms"),
+                         mufu_floor_ms=main.get("mufu_floor_ms"),
+                         bound_basis=main.get("bound_basis"),
+                         library_backend=main.get("library_backend"),
+                         library_efficient_ms=main.get("library_efficient_ms"),
+                         library_efficient_device_ms=main.get("library_efficient_device_ms"),
+                         forms=sorted({c.get("form") for c in checks[name]}),
+                         form_launches={f: f32_launches.get(run.split(" ")[-1], {})
+                                        .get(f"{name}.{f}", 0) for f in ("sm90", "wide", "simt")},
+                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
+        elif name in ("flash_attention_fm", "flash_attention_t"):
             c2 = [c for c in checks[name] if tuple(c["shape"]) in KERNELS[name]["shapes"][:2]]
             extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
                          mufu_floor_ms=main.get("mufu_floor_ms"),
@@ -720,7 +835,7 @@ def kernel_rows(checks, launches):
                          config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
         rows.append(row(name, base, main, run, name, source, checks[name], **extra))
         wide = [c for c in checks[name] if c.get("form") == "wide"]
-        if wide:
+        if wide and name == "flash_attention_fm":
             rows.append(row(name + ".wide", base, wide[0], "fm", name + ".wide",
                             "mdu_tpu_torch/csrc/flash_attention.cu", wide, form="wide",
                             entry="mdu_flash_attention_fm_wide"))
@@ -764,19 +879,19 @@ def main() -> int:
          libraries={k: v["path"].rsplit("/", 1)[-1] for k, v in report.items()},
          ptxas={k: v["ptxas"] for k, v in report.items()})
 
-    checks, launches = {}, {}
+    checks, launches, f32_launches = {}, {}, {}
     if "kernels" in phases:
         checks = phase_kernels()
         emit("kernels", kernels={k: [dict(shape=c["shape"], dtype=c["dtype"],
                                           max_abs_err=c["max_abs_err"], tol=c["tol"])
                                      for c in v] for k, v in checks.items()})
     if "reference" in phases:
-        phase_reference()
+        f32_launches = phase_reference()
     if "txt2img" in phases:
         launches = phase_txt2img()
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
-    print(json.dumps({"kernels": kernel_rows(checks, launches)}))
+    print(json.dumps({"kernels": kernel_rows(checks, launches, f32_launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,12 +1,12 @@
 // Flash attention for fp32 inputs on Hopper (sm_90a): both softmax forms of
-// the port, fp32 throughout, on the CUDA cores.
+// the port, in three forms each.
 //
 // Replaces the TPU kernels of mdu_tpu/ops/pallas/flash_attention.py when
 // they are given fp32 tensors, as a model built in fp32 gives them:
-//   mdu_flash_attention_fm_f32   flash_attention_t_fm (_flash_kernel_t_fm):
+//   mdu_flash_attention_fm_f32*  flash_attention_t_fm (_flash_kernel_t_fm):
 //       p = exp(min(s * scale, smax) - smax) (min only with clamp),
 //       out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30) over real kv columns;
-//   mdu_flash_attention_f32      flash_attention (_flash_kernel): online
+//   mdu_flash_attention_f32*     flash_attention (_flash_kernel): online
 //       softmax with a running row max, fp32 denominator, floored at 1e-30.
 // With fp32 v the cast of p to v's dtype rounds nothing, so p enters both the
 // denominator and the P.V product unrounded. With ``bf16_exp`` (the TPU
@@ -14,15 +14,27 @@
 // p = bf16(exp(bf16(min(s * scale, smax) - smax))), as the TPU kernel does
 // for fp32 inputs.
 //
-// What bounds it on an H100: the products run as fp32 fused multiply-adds
-// (no tensor-core type keeps fp32's mantissa), fed from shared memory at one
-// 16-byte read per four of them (a little more in Q.K^T), so shared-memory
-// issue bounds it below the fp32 peak. It is the simple kernel, kept for
-// exactness; the bf16 kernels (flash_attention_fm.cu, flash_attention.cu)
-// are the fast path.
+// The forms, chosen by the wrapper (ops/kernels/flash.py, f32_form) on
+// shape and alignment alone:
+//   *_sm90  D % 4 == 0, D <= 160, 16-byte aligned q, k, v: the tensor cores,
+//           wgmma and TMA, each product as three TF32 products
+//           (flash_attention_f32_sm90.cuh; config 2's heads in fp32);
+//   *_wide  the same alignment with 160 < D <= 512: mma.sync in TF32, three
+//           passes, on a split-D layout (the same header; the VAE's D = 512);
+//   the entry points without a suffix: anything else, on the CUDA cores, the
+//           kernel below.
+// No tensor-core type keeps fp32's 24-bit mantissa in one pass: tf32 keeps
+// 11 bits. Three passes over big = tf32(x) and small = x - big keep the
+// result within a few fp32 ulps, which is what the 1e-4 bar against the
+// fp32 plain version checks.
 //
-// Layout: one block of 256 threads per (batch*head, 32-query tile), looping
-// over 32-row kv tiles. Thread (r, c) = (tid / 8, tid % 8) owns query row r:
+// What bounds the CUDA-core form on an H100: the products run as fp32 fused
+// multiply-adds, fed from shared memory at one 16-byte read per four of them
+// (a little more in Q.K^T), so shared-memory issue bounds it below the fp32
+// peak (67 TFLOP/s). It takes the odd head widths and unaligned inputs.
+//
+// Layout of the CUDA-core form: one block of 256 threads per (batch*head,
+// 32-query tile), looping over 32-row kv tiles. Thread (r, c) = (tid / 8, tid % 8) owns query row r:
 // scores of kv columns c, c+8, c+16, c+24 of a tile, and accumulator columns
 // 4c..4c+3 of every 32 (up to 64 registers at D = 512). Every shared-memory
 // read is 16 bytes, four multiply-adds' worth. The eight threads of a row are
@@ -31,6 +43,7 @@
 // and K rows are padded (q_stride), so the eight K rows that a quarter warp
 // reads fall in different banks. K and V tiles arrive by cp.async in two
 // groups, so V's copy overlaps the Q.K^T products and the softmax.
+#include "flash_attention_f32_sm90.cuh"
 #include "mma_bf16.cuh"                // cp.async helpers
 
 namespace {
@@ -286,4 +299,37 @@ extern "C" int mdu_flash_attention_f32(const void* q, const void* k, const void*
                                        void* o, int bh, int Lq, int Lk, int D,
                                        float scale, int vec, void* stream) {
   return dispatch<false>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0, 0, vec, stream);
+}
+
+// The tensor-core forms: q, k, v, o contiguous fp32 [bh, L, D], D % 4 == 0,
+// 16-byte aligned; D <= 160 (sm90) or 160 < D <= 512 (wide). Each returns a
+// cudaError_t (0 on a successful launch).
+extern "C" int mdu_flash_attention_fm_f32_sm90(const void* q, const void* k, const void* v,
+                                               void* o, int bh, int Lq, int Lk, int D,
+                                               float scale, float smax, int clamp,
+                                               int bf16_exp, void* stream) {
+  return mdu::f32::launch_sm90<mdu::f32::Fixed>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp,
+                                                bf16_exp, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mdu_flash_attention_f32_sm90(const void* q, const void* k, const void* v,
+                                            void* o, int bh, int Lq, int Lk, int D,
+                                            float scale, void* stream) {
+  return mdu::f32::launch_sm90<mdu::f32::Online>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0, 0,
+                                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mdu_flash_attention_fm_f32_wide(const void* q, const void* k, const void* v,
+                                               void* o, int bh, int Lq, int Lk, int D,
+                                               float scale, float smax, int clamp,
+                                               int bf16_exp, void* stream) {
+  return mdu::f32::launch_wide<mdu::f32::Fixed>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp,
+                                                bf16_exp, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mdu_flash_attention_f32_wide(const void* q, const void* k, const void* v,
+                                            void* o, int bh, int Lq, int Lk, int D,
+                                            float scale, void* stream) {
+  return mdu::f32::launch_wide<mdu::f32::Online>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0, 0,
+                                                 static_cast<cudaStream_t>(stream));
 }

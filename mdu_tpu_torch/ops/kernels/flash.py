@@ -29,6 +29,23 @@ failure), each counted also under ``LAUNCHES["<name>.<form>"]``:
 * ``mma``: the ``mma.sync`` kernels for any other D <= 160;
 * ``wide`` (``flash_attention_fm`` only): 160 < D <= 512, the fixed shift on
   ``flash_attention``'s split-D kernel.
+
+In fp32, ``flash_attention_fm`` and ``flash_attention`` (and through it
+``flash_attention_t``) have three forms each, chosen by ``f32_form`` in the
+same way and counted under ``LAUNCHES["flash_attention_fm_f32.<form>"]`` and
+``LAUNCHES["flash_attention_f32.<form>"]``; the two tensor-core forms run
+every product as three TF32 products (big.small + small.big + big.big), which
+keeps fp32's precision (``csrc/flash_attention_f32_sm90.cuh``):
+
+* ``sm90``: wgmma and TMA, for D % 4 == 0, D <= 160 and 16-byte aligned q,
+  k, v (a tensor map needs 16-byte strides and bases);
+* ``wide``: mma.sync in TF32 on a split-D layout, the same alignment with
+  160 < D <= 512;
+* ``simt``: anything else, on the CUDA cores (``csrc/flash_attention_f32.cu``).
+
+PyTorch's own fp32 matmuls stay out of TF32 in the parity runs (a reference
+sets ``allow_tf32`` False); these kernels are held to 1e-4 of the fp32 plain
+version instead.
 """
 from __future__ import annotations
 
@@ -41,7 +58,8 @@ from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
            "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
-           "flash_attention_t_plain", "bf16_form", "launch_form"]
+           "flash_attention_t_plain", "bf16_form", "launch_form", "f32_form",
+           "launch_f32_form"]
 
 MAX_D = {"flash_attention_fm": 512, "flash_attention": 512, "flash_attention_t": 512,
          "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
@@ -57,6 +75,16 @@ FORMS = {
         "sm90": ("flash_attention_t", "mdu_flash_attention_t_sm90"),
         "mma": ("flash_attention_t", "mdu_flash_attention_t")},
 }
+# C function of each fp32 form of the two fp32 kernels (library flash_attention_f32)
+F32_FORMS = {
+    "flash_attention_fm_f32": {"sm90": "mdu_flash_attention_fm_f32_sm90",
+                               "wide": "mdu_flash_attention_fm_f32_wide",
+                               "simt": "mdu_flash_attention_fm_f32"},
+    "flash_attention_f32": {"sm90": "mdu_flash_attention_f32_sm90",
+                            "wide": "mdu_flash_attention_f32_wide",
+                            "simt": "mdu_flash_attention_f32"},
+}
+F32_SM90_MAX_D = 160  # widest head of the fp32 warpgroup form
 _ROWS = 1024     # query rows per chunk of the plain versions (bounds memory)
 
 
@@ -182,33 +210,59 @@ def launch_form(name: str, form: str, q, k, v, scale: Optional[float] = None,
     return _launch(name, library, fn_name, q, k, v, *args, form=form)
 
 
+def f32_form(name: str, q, k, v) -> str:
+    """The form of fp32 kernel ``name`` (``flash_attention_fm_f32`` or
+    ``flash_attention_f32``) that takes q, k, v: ``sm90`` for D % 4 == 0, D <=
+    160 and 16-byte aligned bases; ``wide`` for the same with D > 160; else
+    ``simt``."""
+    D = q.shape[-1]
+    if D % 4 == 0 and aligned16(q, k, v):
+        return "sm90" if D <= F32_SM90_MAX_D else "wide"
+    return "simt"
+
+
+def launch_f32_form(name: str, form: str, q, k, v, scale: Optional[float] = None,
+                    smax: float = 30.0, clamp: bool = False, bf16_exp: bool = False):
+    """Launch one form of fp32 kernel ``name`` on checked inputs (the wrappers
+    pass ``f32_form``'s choice; a benchmark may time another form that takes
+    the same inputs, such as ``simt``)."""
+    args = [ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)]
+    if name == "flash_attention_fm_f32":
+        args += [ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
+                 ctypes.c_int(int(bool(bf16_exp)))]
+    if form == "simt":
+        args.append(_vec_ok(q, k, v))
+    return _launch(name, "flash_attention_f32", F32_FORMS[name][form], q, k, v, *args,
+                   form=form)
+
+
 def flash_attention_fm(q, k, v, scale: Optional[float] = None,
                        smax: float = 30.0, clamp: bool = False,
                        bf16_exp: bool = False):
     """Fixed-shift flash attention on [B, H, L, D] (non-causal), D <= 512.
-    bf16 launches the form ``bf16_form`` picks; fp32 the fp32 kernel."""
+    bf16 launches the form ``bf16_form`` picks; fp32 the form ``f32_form``
+    picks."""
     if q.device.type == "cpu":
         return flash_attention_fm_plain(q, k, v, scale, smax, clamp, bf16_exp)
     _check("flash_attention_fm", q, k, v)
     if q.dtype == torch.float32:
-        scale = q.shape[-1] ** -0.5 if scale is None else scale
-        return _launch("flash_attention_fm_f32", "flash_attention_f32",
-                       "mdu_flash_attention_fm_f32", q, k, v, ctypes.c_float(scale),
-                       ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
-                       ctypes.c_int(int(bool(bf16_exp))), _vec_ok(q, k, v))
+        name = "flash_attention_fm_f32"
+        return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale, smax, clamp,
+                               bf16_exp)
     return launch_form("flash_attention_fm", bf16_form("flash_attention_fm", q, k, v),
                        q, k, v, scale, smax, clamp, bf16_exp)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
-    """Online-softmax flash attention on [B, H, L, D] (non-causal)."""
+    """Online-softmax flash attention on [B, H, L, D] (non-causal). bf16
+    launches ``csrc/flash_attention.cu``; fp32 the form ``f32_form`` picks."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _check("flash_attention", q, k, v)
-    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.dtype == torch.float32:
-        return _launch("flash_attention_f32", "flash_attention_f32",
-                       "mdu_flash_attention_f32", q, k, v, scale, _vec_ok(q, k, v))
+        name = "flash_attention_f32"
+        return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale)
+    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
     return _launch("flash_attention", "flash_attention", "mdu_flash_attention",
                    q, k, v, scale, _vec_ok(q, k, v))
 
@@ -222,8 +276,8 @@ def flash_attention_t(q, k, v, scale: Optional[float] = None):
     to kernels that compute the very same function, and count under their
     names: bf16 with 160 < D <= 512
     (the VAE's D = 512, where padding to 16 and to 128 coincide) launches
-    ``flash_attention``'s kernel; fp32 launches ``csrc/flash_attention_f32.cu``
-    (``flash_attention_f32``)."""
+    ``flash_attention``'s kernel; fp32 launches the fp32 form of
+    ``flash_attention`` that ``f32_form`` picks (``flash_attention_f32``)."""
     if q.device.type == "cpu":
         return flash_attention_t_plain(q, k, v, scale)
     _check("flash_attention_t", q, k, v)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one config-2 image goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_config2.py [--out PATH]
+    python3 scripts/profile_torch_config2.py [--dtype bfloat16|float32] [--out PATH]
 
-Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 bf16 random weights,
+Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 random weights, in
+bf16 unless ``--dtype float32`` asks for an fp32 model, as the JAX CLI's
+default dtype gives;
 MultiDiffusion 2048 x 512, Euler 20 steps at CFG 7, exact tiled decode),
 runs one warm-up image, one image timed on the host clock (ending in a
 synchronize), then one image under ``torch.profiler``. Prints one JSON line:
@@ -12,7 +14,8 @@ without the profiler, the device time summed over kernels, the device busy
 share of the profiled image, and the device time by kernel family and by the
 20 largest kernels (also written to PATH with --out). TF32 is off. The
 kernel flags (MDU_FLASH, MDU_FUSED_GN, MDU_FUSED_CONV, MDU_FUSED_BLEND) are
-taken from the environment as they are, and echoed in the result.
+taken from the environment as they are, and echoed in the result, as is
+the dtype.
 """
 from __future__ import annotations
 
@@ -28,6 +31,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
+    # the fp32 kernels (csrc/flash_attention_f32.cu): the tensor-core forms
+    # by their policy, the CUDA-core form by FIXED (demangled or not)
+    ("flash_attention_fm (fp32)", r"flash_f32_(sm90|wide)_kernel.*Fixed"
+                                  r"|flash_f32_kernel<\d+, true|flash_f32_kernelILi\d+ELb1"),
+    ("flash_attention (fp32)", r"flash_f32_"),
     # the warpgroup kernel by its policy; #1's wide form is #2's kernel with
     # FIXED = true (demangled or not)
     ("flash_attention_fm", r"flash_fm_kernel|flash_sm90_kernel.*FixedShift"
@@ -55,6 +63,8 @@ def family(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result as JSON to this file")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the models' dtype (default bfloat16, as config 2 runs)")
     args = ap.parse_args()
 
     import torch
@@ -71,7 +81,7 @@ def main() -> int:
     from mdu_tpu_torch.ops.kernels import build
 
     build.build_all()
-    pipe, cond, uncond, sp, td, tv = chip_smoke.build_config2()
+    pipe, cond, uncond, sp, td, tv = chip_smoke.build_config2(getattr(torch, args.dtype))
 
     def image(seed):
         pipe.txt2img(cond, uncond, width=2048, height=512, sampler=sp, seed=seed,
@@ -107,6 +117,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
     result = {
         "device": torch.cuda.get_device_name(0),
+        "dtype": args.dtype,
         "flags": {k: os.environ[k] for k in sorted(chip_smoke.FLAGS) if k in os.environ},
         "nvidia_smi": chip_smoke.nvidia_smi_line(),
         "image_wall_s": wall_s,

@@ -268,6 +268,46 @@ def test_unaligned_bf16_goes_to_the_mma_form():
         assert flash_mod.bf16_form(name, ok, ok, q) == "mma"
 
 
+@pytest.mark.parametrize("name", ["flash_attention_fm_f32", "flash_attention_f32"])
+@pytest.mark.parametrize("D,unaligned,form", [
+    (40, False, "sm90"), (80, False, "sm90"), (4, False, "sm90"), (16, False, "sm90"),
+    (160, False, "sm90"), (164, False, "wide"), (512, False, "wide"), (13, False, "simt"),
+    (42, False, "simt"), (162, False, "simt"), (508, False, "wide"), (40, True, "simt"),
+    (512, True, "simt")])
+def test_f32_form_rule(monkeypatch, name, D, unaligned, form):
+    """fp32 with D % 4 == 0 and 16-byte aligned q, k, v goes to the
+    tensor-core forms, sm90 up to D = 160 and wide above; anything else to
+    the CUDA-core form. A form's launch calls its own C function, counted
+    under it, with ``vec`` for simt only; the wrappers launch the form the
+    rule picks."""
+    calls = _recording_launch(monkeypatch)
+    x = _off16((1, 1, 8, D), torch.float32, unaligned)
+    ok = torch.zeros(1, 1, 8, D)
+    assert flash_mod.f32_form(name, ok, ok, x) == form
+    assert flash_mod.f32_form(name, x, ok, ok) == form
+    assert flash_mod.launch_f32_form(name, form, x, ok, ok).shape == x.shape
+    # (q, k, v, out, bh, Lq, Lk, D, scale) + (smax, clamp, bf16_exp) + (vec)
+    n_args = 9 + (3 if name == "flash_attention_fm_f32" else 0) + (form == "simt")
+    assert [(c[:4], len(c[4])) for c in calls] == [
+        ((name, "flash_attention_f32", flash_mod.F32_FORMS[name][form], form), n_args)]
+    if not unaligned:                       # meta tensors count as aligned
+        m = torch.zeros(1, 1, 8, D, device="meta")
+        fn = flash_attention_fm if name == "flash_attention_fm_f32" else flash_attention
+        assert fn(m, m, m).shape == m.shape
+        assert calls[-1][:4] == calls[0][:4]
+
+
+def test_flash_t_fp32_takes_flash_attention_f32_forms(monkeypatch):
+    """fp32 under MDU_FLASH=trans runs flash_attention's fp32 forms (the
+    same function), counted under flash_attention_f32."""
+    calls = _recording_launch(monkeypatch)
+    for D, form in ((40, "sm90"), (512, "wide"), (13, "simt")):
+        q = torch.zeros(1, 1, 8, D, device="meta")
+        flash_attention_t(q, q, q)
+        assert calls[-1][:4] == ("flash_attention_f32", "flash_attention_f32",
+                                 flash_mod.F32_FORMS["flash_attention_f32"][form], form)
+
+
 def _off16(shape, dtype, unaligned):
     """A contiguous tensor of ``shape`` whose base is (or is not) on a
     16-byte boundary."""

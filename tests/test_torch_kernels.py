@@ -135,3 +135,55 @@ def test_flash_variant_follows_head_dim():
     assert port_attention._flash_variant(512) is flash_attention
     assert port_attention._flash_variant(40) is flash_attention_fm
     assert port_attention._flash_variant(80) is flash_attention_fm
+
+
+# ------------------------------------------- the fp32 kernels' three TF32 passes
+
+
+def _tf32_rna(x):
+    """x rounded to tf32 (10 mantissa bits), to the nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds the big part."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """x as the tensor cores read an fp32 word in tf32: the low 13 mantissa
+    bits dropped."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the tensor-core forms run it: big = tf32(x), small = x - big,
+    small.big + big.small + big.big with fp32 sums (a product of two tf32
+    values is exact in fp32)."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    sa, sb = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    return (sa @ bb + ab @ sb) + ab @ bb
+
+
+def _emulated_attention(q, k, v, mm, online):
+    scale = np.float32(q.shape[-1] ** -0.5)
+    s = mm(q, np.swapaxes(k, -1, -2)) * scale
+    shift = s.max(-1, keepdims=True) if online else np.float32(30.0)
+    p = np.exp(s - shift).astype(np.float32)
+    den = np.maximum(p.sum(-1, keepdims=True), np.float32(1e-30))
+    return mm(p, v) / den
+
+
+@pytest.mark.parametrize("shape,online", [((1, 2, 256, 40), False),
+                                          ((1, 1, 256, 512), True)])
+def test_three_tf32_passes_keep_fp32_precision(rng, shape, online):
+    """The split of the fp32 tensor-core forms (csrc/flash_attention_f32_sm90.cuh),
+    emulated in numpy on #1's fixed shift at config 2's D = 40 and #2's online
+    softmax at the VAE's D = 512: within the kernels' 1e-4 bar of the fp32
+    plain version, where one TF32 pass is not."""
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    plain = flash_attention_plain if online else flash_attention_fm_plain
+    want = plain(*_t(q, k, v)).numpy()
+    got = _emulated_attention(q, k, v, _mm3, online)
+    assert np.abs(got - want).max() <= 1e-4
+    one_pass = _emulated_attention(q, k, v, lambda a, b: _tf32_trunc(a) @ _tf32_trunc(b),
+                                   online)
+    assert np.abs(one_pass - want).max() > 1e-4

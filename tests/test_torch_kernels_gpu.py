@@ -42,13 +42,27 @@ CASES = [
     ("flash_attention_t", (1, 1, 70, 90, 13), "mma"),
     ("flash_attention_t", (1, 1, 40, 40, 4), "mma"),         # DP = 16
 ]
+# (kernel, (B, H, Lq, Lk, D), the fp32 form the wrapper must pick)
 CASES_F32 = [
-    ("flash_attention_fm", (1, 2, 513, 513, 40)),
-    ("flash_attention_fm", (1, 1, 70, 90, 13)),
-    ("flash_attention_fm", (1, 1, 300, 300, 160)),
-    ("flash_attention", (1, 1, 1000, 1000, 512)),
-    ("flash_attention", (1, 2, 200, 77, 128)),
-    ("flash_attention", (1, 1, 100, 130, 300)),
+    ("flash_attention_fm", (1, 2, 513, 513, 40), "sm90"),
+    ("flash_attention_fm", (2, 8, 1536, 1536, 80), "sm90"),
+    ("flash_attention_fm", (1, 1, 300, 300, 160), "sm90"),
+    ("flash_attention_fm", (1, 2, 77, 513, 80), "sm90"),     # Lq < Lk, both ragged
+    ("flash_attention_fm", (1, 1, 260, 64, 16), "sm90"),     # one kv tile
+    ("flash_attention_fm", (1, 1, 70, 90, 4), "sm90"),
+    ("flash_attention_fm", (1, 1, 100, 130, 164), "wide"),
+    ("flash_attention_fm", (1, 1, 1000, 1000, 512), "wide"),
+    ("flash_attention_fm", (1, 1, 70, 90, 13), "simt"),      # D % 4 != 0
+    ("flash_attention", (1, 2, 513, 513, 40), "sm90"),
+    ("flash_attention", (1, 2, 200, 77, 128), "sm90"),
+    ("flash_attention", (1, 1, 300, 300, 160), "sm90"),
+    ("flash_attention", (1, 2, 77, 513, 80), "sm90"),
+    ("flash_attention", (1, 1, 260, 32, 96), "sm90"),        # one kv tile, one consumer
+    ("flash_attention", (1, 1, 70, 90, 4), "sm90"),
+    ("flash_attention", (1, 1, 100, 130, 164), "wide"),
+    ("flash_attention", (1, 1, 100, 130, 300), "wide"),
+    ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
+    ("flash_attention", (1, 1, 70, 90, 13), "simt"),
 ]
 
 
@@ -86,8 +100,8 @@ def test_kernel_matches_plain(name, shape, form):
     assert err <= 2 * err_bf16 + 1e-3
 
 
-@pytest.mark.parametrize("name,shape", CASES_F32)
-def test_f32_kernel_matches_plain(name, shape):
+@pytest.mark.parametrize("name,shape,form", CASES_F32)
+def test_f32_kernel_matches_plain(name, shape, form):
     dev = _card()
     B, H, Lq, Lk, D = shape
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -95,11 +109,57 @@ def test_f32_kernel_matches_plain(name, shape):
     k = torch.randn(B, H, Lk, D, generator=gen, device=dev)
     v = torch.randn(B, H, Lk, D, generator=gen, device=dev)
     kernel, plain = _fns(name)
-    before = flash.LAUNCHES[name + "_f32"]
+    before = dict(flash.LAUNCHES)
     out = kernel(q, k, v)
     torch.cuda.synchronize()
-    assert flash.LAUNCHES[name + "_f32"] == before + 1
+    assert flash.LAUNCHES[name + "_f32"] == before[name + "_f32"] + 1
+    assert flash.LAUNCHES[f"{name}_f32.{form}"] == before[f"{name}_f32.{form}"] + 1
     assert out.dtype == torch.float32
+    assert (out - plain(q, k, v)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("D,form", [(40, "sm90"), (80, "sm90"), (512, "wide")])
+@pytest.mark.parametrize("kw,qscale", [
+    (dict(smax=5.0, clamp=True), 4.0),            # scores above smax flattened
+    (dict(smax=60.0, clamp=True), 1.0),
+    (dict(bf16_exp=True), 1.0),
+    (dict(bf16_exp=True, smax=5.0, clamp=True), 4.0),
+])
+def test_f32_fm_options_match_plain(D, form, kw, qscale):
+    """clamp and bf16_exp on the fp32 tensor-core forms, within 1e-4 of the
+    fp32 plain version. With bf16_exp, q and k are small integers: q.k is
+    then exact in both (the split of an integer is exact), so no score can
+    round to another bf16 on one side than on the other."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(1, 2, 600, D, generator=gen, device=dev) for _ in range(3))
+    if kw.get("bf16_exp"):
+        q, k = (torch.randint(-2, 3, (1, 2, 600, D), generator=gen, device=dev).float()
+                for _ in range(2))
+    q = q * qscale
+    before = LAUNCHES[f"flash_attention_fm_f32.{form}"]
+    out = flash.flash_attention_fm(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"flash_attention_fm_f32.{form}"] == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - flash.flash_attention_fm_plain(q, k, v, **kw)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fm", "flash_attention"])
+def test_unaligned_f32_takes_the_simt_form(name):
+    """fp32 inputs off a 16-byte boundary cannot carry a tensor map: the
+    CUDA-core form takes them, by the wrapper's rule."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 1 * 2 * 300 * 40
+    q, k, v = (torch.randn(n + 1, generator=gen, device=dev)[1:].view(1, 2, 300, 40)
+               for _ in range(3))
+    assert flash.f32_form(name + "_f32", q, k, v) == "simt"
+    kernel, plain = _fns(name)
+    before = LAUNCHES[f"{name}_f32.simt"]
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"{name}_f32.simt"] == before + 1
     assert (out - plain(q, k, v)).abs().max().item() <= 1e-4
 
 
