@@ -76,23 +76,23 @@
 //
 // ---------------------------------------------------------------- wide form
 // For 160 < D <= 512, the same alignment (the VAE's single head at D = 512,
-// [2, 1, 9600, 512]: 4.5e12 flops x 3 = 2.29 ms at the TF32 rate): the
-// split-D layout of flash_attention.cu with mma.sync m16n8k8 in tf32, three
-// passes, the split made as the fragments are loaded. Why not wgmma: O for
-// 64 rows at D = 512 is 256 fp32 registers a thread, so D splits across
-// warpgroups; Q.K^T then splits along D too and its partial scores have to
-// be summed through shared memory, and Q in big and small (256 KB for 64
-// rows) does not fit shared memory, so it would stream through the ring
-// with every kv tile. Here a block takes 32 query rows and 8 warps: warp
-// (r, c) owns rows 16r.. and D-quarter c of Q.K^T's sum and of O (64
-// registers at D = 512); the four partial score tiles of a row group are
-// summed through shared memory and each of its warps runs the softmax on
-// the full tile. Q, a 32-row K tile and a 32-row V tile take 200 KB at DP =
-// 512, one stage: each tile's K lands while the previous tile's softmax and
-// P.V run, its V while its own Q.K^T runs. The same
-// permutation of each 8 columns of the fragments (here of d for Q.K^T and of
-// kv for P.V) makes the accumulator the A fragment of P.V and lets Q and K
-// fragments load as 8-byte pairs. 600 blocks at one an SM are 4.5 waves.
+// [2, 1, 9600, 512]: 4.5e12 flops x 3 = 2.29 ms at the TF32 rate):
+// mma.sync m16n8k8 in tf32, three passes, the split made as the fragments
+// are loaded. Why not wgmma: O for 64 rows at D = 512 is 256 fp32 registers
+// a thread, so D splits across warpgroups; Q.K^T then splits along D too,
+// and Q in big and small (256 KB for 64 rows) does not fit shared memory,
+// so it would stream from L2 with every kv tile, beside K and V.
+// A block takes 32 query rows and 8 warps. Warp w owns the D slice w of
+// Q.K^T's sum and of O for all 32 rows (two m16 tiles, so that each K and V
+// fragment serves both: 64 registers of O at D = 512). The 8 partial score
+// tiles go through shared memory; 256 threads sum them, 4 scores each, and
+// run the softmax there (a row's 32 columns in 8 lanes), writing P and each
+// row's rescale factor back for the P.V products. Q, a 32-row K tile, a
+// 32-row V tile and the partial tiles take 227 KB at DP = 512, one stage
+// (V's copy overlaps Q.K^T); P lives where K was. The permutation of each 8
+// columns of the fragments (here of d for Q.K^T and of kv for P.V) lets Q,
+// K and P fragments load as 8-byte pairs. 600 blocks at one an SM are 4.5
+// waves.
 #pragma once
 
 #include "mma_bf16.cuh"
@@ -120,13 +120,22 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
+// 1 / the denominator of a row whose partial sums are in 8 aligned lanes
+__device__ __forceinline__ float inv_of_row8(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return 1.f / fmaxf(x, 1e-30f);
+}
+
 // ----------------------------------------------------------------- policies
 //
 // A policy turns the scores of a thread, s[i] = row g + 8 ((i >> 1) & 1),
-// column 8 (i / 4) + 2t + (i & 1) of a kv tile (the accumulator layout of
-// both forms), into p in place. Columns at or past ``kvalid`` do not count.
-// ``corr`` is the factor O's rows take before the tile's P.V (RESCALES).
-// ``finish`` gives each row's 1 / denominator.
+// column 8 (i / 4) + 2t + (i & 1) of a kv tile (the accumulator layout),
+// into p in place (``exps``; the wide form's row layout: ``row4``). Columns
+// at or past ``kvalid`` do not count. ``corr`` is the factor O's rows take
+// before the tile's P.V (RESCALES). ``finish`` gives each row's
+// 1 / denominator.
 
 struct Fixed {
   static constexpr bool RESCALES = false;
@@ -139,6 +148,27 @@ struct Fixed {
         bf16_exp(bf16_exp_) {
     l[0] = l[1] = 0.f;
   }
+
+  // p of one score, before the kv mask
+  __device__ __forceinline__ float p_of(float x) const {
+    if (bf16_exp) {
+      const float xs = x * scale;
+      return round_bf16(expf(round_bf16((clamp ? fminf(xs, smax) : xs) - smax)));
+    }
+    return clamp ? ex2(fminf(x * sc, sh) - sh) : ex2(fmaf(x, sc, -sh));
+  }
+
+  // the wide form's layout: columns c0..c0 + 3 of one row, whose other
+  // columns are in the 8 lanes of an aligned group
+  __device__ __forceinline__ void row4(float (&s)[4], int c0, int kvalid, float&) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i] = c0 + i < kvalid ? p_of(s[i]) : 0.f;
+      l[0] += s[i];
+    }
+  }
+
+  __device__ __forceinline__ float finish_row4() const { return inv_of_row8(l[0]); }
 
   template <int N>
   __device__ __forceinline__ void exps(float (&s)[N], int kvalid, int t, float (&)[2]) {
@@ -178,6 +208,30 @@ struct Fixed {
 
 struct Online {
   static constexpr bool RESCALES = true;
+  // (the wide form's row layout, as in Fixed)
+  __device__ __forceinline__ void row4(float (&s)[4], int c0, int kvalid, float& corr) {
+    float mx = NEG;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i] = c0 + i < kvalid ? s[i] * sc : NEG;
+      mx = fmaxf(mx, s[i]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float mn = fmaxf(m[0], mx);
+    corr = ex2(m[0] - mn);
+    m[0] = mn;
+    l[0] *= corr;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i] = s[i] == NEG ? 0.f : ex2(s[i] - mn);
+      l[0] += s[i];
+    }
+  }
+
+  __device__ __forceinline__ float finish_row4() const { return inv_of_row8(l[0]); }
+
   float sc;
   float m[2];     // running max of rows g, g + 8 (log2 domain)
   float l[2];     // this lane's share of their denominators
@@ -576,8 +630,7 @@ namespace wide {
 
 constexpr int BQ = 32;
 constexpr int BK = 32;
-constexpr int NDQ = 4;                // D slices: warps of a row group
-constexpr int NWARPS = 2 * NDQ;
+constexpr int NWARPS = 8;
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -588,10 +641,48 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x as (big, small) register operands of the tf32 products
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = small_of(x, big);
+// An A fragment (four elements) and a B fragment (two) split into their big
+// and small parts
+struct Split4 {
+  uint32_t big[4], small[4];
+  Split4() = default;
+  __device__ __forceinline__ Split4(float x0, float x1, float x2, float x3) {
+    const float x[4] = {x0, x1, x2, x3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      big[i] = to_tf32(x[i]);
+      small[i] = small_of(x[i], big[i]);
+    }
+  }
+};
+struct Split2 {
+  uint32_t big[2], small[2];
+  Split2() = default;
+  __device__ __forceinline__ Split2(float x0, float x1) {
+    big[0] = to_tf32(x0);
+    small[0] = small_of(x0, big[0]);
+    big[1] = to_tf32(x1);
+    small[1] = small_of(x1, big[1]);
+  }
+};
+
+// c[m][n0 + n] += a[m] b[n] in three passes (small.big, big.small,
+// big.big), each pass over the M x N independent accumulators in turn
+template <int M, int N, int NC>
+__device__ __forceinline__ void mma3(float (&c)[M][NC][4], int n0, const Split4 (&a)[M],
+                                     const Split2 (&b)[N]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[m][n0 + n], a[m].small, b[n].big[0], b[n].big[1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[m][n0 + n], a[m].big, b[n].small[0], b[n].small[1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[m][n0 + n], a[m].big, b[n].big[0], b[n].big[1]);
 }
 
 template <int DP>
@@ -599,9 +690,15 @@ struct WCfg {
   static constexpr int LDQ = DP + 8;   // 8-byte fragment loads: 8 rows, 8 banks apart
   static constexpr int LDK = DP + 8;
   static constexpr int LDV = DP + 4;   // 4-byte loads of rows 2t, 2t + 1: 4 banks apart
-  static constexpr int DQ = DP / NDQ;  // D slice of one warp
-  static constexpr int BYTES = (BQ * LDQ + BK * LDK + BK * LDV) * 4 + NWARPS * (BK / 8) * 128 * 4;
+  static constexpr int DQ = DP / NWARPS;   // the D slice of one warp
+  static constexpr int TILE = BQ * BK;     // one 32 x 32 score tile (floats)
+  static constexpr int BYTES = (BQ * LDQ + BK * LDK + BK * LDV + NWARPS * TILE) * 4;
 };
+
+// Element (r, c) of a 32 x 32 score tile in shared memory. The pairs and
+// quads of a row that the products and the softmax move stay together, and
+// the xor spreads the rows g = 0..3 that a half warp writes over all banks.
+__device__ __forceinline__ int sidx(int r, int c) { return r * BK + (c ^ ((r & 3) << 3)); }
 
 // Rows [row0, row0 + ROWS) of a row-major [L, D] fp32 matrix into a shared
 // tile of ROWS x DP (row stride ld) with 16-byte cp.async copies; rows past L
@@ -618,27 +715,6 @@ __device__ __forceinline__ void load_async(float* sm, int ld, const float* g, in
   }
 }
 
-// c[n] += a b[n] for N products, in three passes (small.big, big.small,
-// big.big), each pass over the N independent accumulators in turn
-template <int N>
-__device__ __forceinline__ void mma3(float (&c)[N][4], const float (&a)[4],
-                                     const float (&b)[N][2]) {
-  uint32_t ab[4], as[4], bb[N][2], bs[N][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    split(b[n][0], bb[n][0], bs[n][0]);
-    split(b[n][1], bb[n][1], bs[n][1]);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], as, bb[n][0], bb[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bs[n][0], bs[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bb[n][0], bb[n][1]);
-}
-
 template <int DP, class Policy>
 __global__ void __launch_bounds__(NWARPS * 32, 1)
 flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -646,14 +722,18 @@ flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float scale, float smax, int clamp, int bf16_exp) {
   using C = WCfg<DP>;
   constexpr int DQ = C::DQ;
+  constexpr int NJ = DQ / 8;            // k-steps of Q.K^T and 8-column tiles of O, a warp
   constexpr int NT = BK / 8;            // 8-column tiles of a score tile
-  constexpr int NJ = DQ / 8;            // 8-column tiles of this warp's O
+  static_assert(BQ == 32 && BK == 32 && NWARPS * 32 == BQ * BK / 4,
+                "the softmax takes 4 scores a thread; sidx a 32-column tile");
   constexpr int JG = NJ % 4 == 0 ? 4 : 2;  // O tiles per group of products
   extern __shared__ float4 wide_smem[];
   float* Qs = reinterpret_cast<float*>(wide_smem);
   float* Ks = Qs + BQ * C::LDQ;
   float* Vs = Ks + BK * C::LDK;
-  float* Sp = Vs + BK * C::LDV;         // [NWARPS][NT][32][4] partial scores
+  float* Sp = Vs + BK * C::LDV;         // [NWARPS] partial score tiles
+  float* Ps = Ks;                       // P of the tile, once Q.K^T is done with K
+  float* rows_s = Ks + C::TILE;         // a factor per row: corr, then 1 / den
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -661,123 +741,142 @@ flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int rg = warp / NDQ;            // row group
-  const int dq = warp % NDQ;            // D slice
+  const int d0 = warp * DQ;
+  const int rr = threadIdx.x / 8;       // softmax: row rr, columns cc .. cc + 3
+  const int cc = (threadIdx.x % 8) * 4;
   const float* kb = k + (size_t)bh * Lk * D;
   const float* vb = v + (size_t)bh * Lk * D;
 
-  // Q and the first K tile, then the first V tile, in two groups
   load_async<BQ, DP>(Qs, C::LDQ, q + (size_t)bh * Lq * D, q0, Lq, D);
-  load_async<BK, DP>(Ks, C::LDK, kb, 0, Lk, D);
-  cp_async_commit();
-  load_async<BK, DP>(Vs, C::LDV, vb, 0, Lk, D);
   cp_async_commit();
 
   Policy pol(scale, smax, clamp, bf16_exp);
-  float acc[NJ][4];
+  float acc[2][NJ][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float corr[2] = {1.f, 1.f};
-  const float* qw = Qs + rg * 16 * C::LDQ + dq * DQ + 2 * t;
-  const float* kw = Ks + g * C::LDK + dq * DQ + 2 * t;
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  // Within each 8 columns of d (Q.K^T) and of kv (P.V), fragment position k
+  // holds column 2 (k % 4) + k / 4, so a thread's a and b elements are the
+  // pairs (2t, 2t + 1), and the score accumulator's {s0, s2, s1, s3} is an
+  // A fragment as it stands.
+  const float* qw = Qs + g * C::LDQ + d0 + 2 * t;
+  const float* kw = Ks + g * C::LDK + d0 + 2 * t;
 
-  // Each tile's K lands while the previous tile's softmax and P.V run, and
-  // its V while its own Q.K^T runs: three barriers a tile, one stage.
   for (int k0 = 0; k0 < Lk; k0 += BK) {
-    cp_async_wait<1>();                 // K of this tile has landed; V is in flight
+    __syncthreads();                    // the previous tile is no longer read
+    load_async<BK, DP>(Ks, C::LDK, kb, k0, Lk, D);
+    cp_async_commit();
+    load_async<BK, DP>(Vs, C::LDV, vb, k0, Lk, D);
+    cp_async_commit();
+    cp_async_wait<1>();                 // Q and K have landed; V is in flight
     __syncthreads();
 
-    // partial scores over this warp's slice of D. Within each 8 columns of
-    // d, fragment position k holds d 2 (k % 4) + k / 4, so a thread's a and
-    // b elements are the pairs (2t, 2t + 1)
-    float sp[NT][4];
+    // partial scores of all 32 rows over this warp's slice of d
+    float sp[2][NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.f;
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) sp[m][n][0] = sp[m][n][1] = sp[m][n][2] = sp[m][n][3] = 0.f;
 #pragma unroll 2
-    for (int kk = 0; kk < DQ / 8; ++kk) {
-      const float2 x0 = *reinterpret_cast<const float2*>(qw + g * C::LDQ + 8 * kk);
-      const float2 x1 = *reinterpret_cast<const float2*>(qw + (g + 8) * C::LDQ + 8 * kk);
-      const float a[4] = {x0.x, x1.x, x0.y, x1.y};
-      float b[NT][2];
+    for (int kk = 0; kk < NJ; ++kk) {
+      Split4 a[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qw + 16 * m * C::LDQ + 8 * kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(qw + (16 * m + 8) * C::LDQ + 8 * kk);
+        a[m] = Split4(x0.x, x1.x, x0.y, x1.y);
+      }
+      Split2 b[NT];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const float2 y = *reinterpret_cast<const float2*>(kw + n * 8 * C::LDK + 8 * kk);
-        b[n][0] = y.x;
-        b[n][1] = y.y;
+        const float2 y = *reinterpret_cast<const float2*>(kw + 8 * n * C::LDK + 8 * kk);
+        b[n] = Split2(y.x, y.y);
       }
-      mma3<NT>(sp, a, b);
+      mma3(sp, 0, a, b);
     }
-    float* mine = Sp + warp * NT * 128;
+    float* mine = Sp + warp * C::TILE;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float4*>(mine + (n * 32 + lane) * 4) =
-          make_float4(sp[n][0], sp[n][1], sp[n][2], sp[n][3]);
-    __syncthreads();                    // K is no longer read; Sp is written
-    if (k0 + BK < Lk) load_async<BK, DP>(Ks, C::LDK, kb, k0 + BK, Lk, D);
-    cp_async_commit();                  // (an empty group after the last tile)
-    cp_async_wait<1>();                 // V of this tile has landed
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(mine + sidx(16 * m + g, 8 * n + 2 * t)) =
+            make_float2(sp[m][n][0], sp[m][n][1]);
+        *reinterpret_cast<float2*>(mine + sidx(16 * m + g + 8, 8 * n + 2 * t)) =
+            make_float2(sp[m][n][2], sp[m][n][3]);
+      }
+    cp_async_wait<0>();                 // V, visible to all after the barrier
     __syncthreads();
 
-    // full scores of the row group, summed in a fixed order
-    float s[BK / 2];
+    // the full scores of row rr, columns cc.., summed over the warps in a
+    // fixed order; the softmax; P and the row's factor into shared memory
+    {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int w = 0; w < NDQ; ++w) {
-        const float4 p4 = *reinterpret_cast<const float4*>(
-            Sp + ((rg * NDQ + w) * NT * 32 + n * 32 + lane) * 4);
-        a4.x += p4.x; a4.y += p4.y; a4.z += p4.z; a4.w += p4.w;
+      for (int w = 0; w < NWARPS; ++w) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Sp + w * C::TILE + sidx(rr, cc));
+        s4[0] += p4.x; s4[1] += p4.y; s4[2] += p4.z; s4[3] += p4.w;
       }
-      s[4 * n] = a4.x; s[4 * n + 1] = a4.y; s[4 * n + 2] = a4.z; s[4 * n + 3] = a4.w;
+      float corr = 1.f;
+      pol.row4(s4, cc, Lk - k0, corr);
+      *reinterpret_cast<float4*>(Ps + sidx(rr, cc)) = make_float4(s4[0], s4[1], s4[2], s4[3]);
+      if (cc == 0) rows_s[rr] = corr;
     }
-    pol.exps(s, Lk - k0, t, corr);
+    __syncthreads();
+
     if constexpr (Policy::RESCALES) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        acc[j][0] *= corr[0]; acc[j][1] *= corr[0];
-        acc[j][2] *= corr[1]; acc[j][3] *= corr[1];
+      for (int m = 0; m < 2; ++m) {
+        const float c0 = rows_s[16 * m + g], c1 = rows_s[16 * m + g + 8];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[m][j][0] *= c0; acc[m][j][1] *= c0;
+          acc[m][j][2] *= c1; acc[m][j][3] *= c1;
+        }
       }
     }
-
-    // O += P V over this warp's D slice; kv position k of each 8 holds kv
-    // 2 (k % 4) + k / 4, so the accumulator's {s0, s2, s1, s3} is the A
-    // fragment and a thread's b elements are V's rows 2t and 2t + 1
+    // O += P V over this warp's slice of d, 8 kv at a time
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const float a[4] = {s[4 * n], s[4 * n + 2], s[4 * n + 1], s[4 * n + 3]};
-      const float* v0 = Vs + (8 * n + 2 * t) * C::LDV + dq * DQ + g;
+      Split4 a[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float2 x0 = *reinterpret_cast<const float2*>(Ps + sidx(16 * m + g, 8 * n + 2 * t));
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(Ps + sidx(16 * m + g + 8, 8 * n + 2 * t));
+        a[m] = Split4(x0.x, x1.x, x0.y, x1.y);
+      }
+      const float* v0 = Vs + (8 * n + 2 * t) * C::LDV + d0 + g;
 #pragma unroll
       for (int j0 = 0; j0 < NJ; j0 += JG) {
-        float b[JG][2];
+        Split2 b[JG];
 #pragma unroll
-        for (int j = 0; j < JG; ++j) {
-          b[j][0] = v0[8 * (j0 + j)];
-          b[j][1] = v0[C::LDV + 8 * (j0 + j)];
-        }
-        mma3<JG>(*reinterpret_cast<float(*)[JG][4]>(&acc[j0]), a, b);
+        for (int j = 0; j < JG; ++j) b[j] = Split2(v0[8 * (j0 + j)], v0[C::LDV + 8 * (j0 + j)]);
+        mma3(acc, j0, a, b);
       }
     }
-    __syncthreads();                    // V and Sp are no longer read
-    if (k0 + BK < Lk) load_async<BK, DP>(Vs, C::LDV, vb, k0 + BK, Lk, D);
-    cp_async_commit();
   }
 
-  float inv[2];
-  pol.finish(inv);
-  const int r0 = q0 + rg * 16 + g;
-  const int r1 = r0 + 8;
+  __syncthreads();                      // P and the factors are no longer read
+  const float inv = pol.finish_row4();
+  if (cc == 0) rows_s[rr] = inv;
+  __syncthreads();
   float* ob = o + (size_t)bh * Lq * D;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = dq * DQ + 8 * j + 2 * t;   // D % 4 == 0: col < D covers col + 1
-    if (col < D) {
-      if (r0 < Lq)
-        *reinterpret_cast<float2*>(ob + (size_t)r0 * D + col) =
-            make_float2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-      if (r1 < Lq)
-        *reinterpret_cast<float2*>(ob + (size_t)r1 * D + col) =
-            make_float2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+  for (int m = 0; m < 2; ++m) {
+    const int r0 = 16 * m + g;
+    const float i0 = rows_s[r0], i1 = rows_s[r0 + 8];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = d0 + 8 * j + 2 * t;      // D % 4 == 0: col < D covers col + 1
+      if (col < D) {
+        if (q0 + r0 < Lq)
+          *reinterpret_cast<float2*>(ob + (size_t)(q0 + r0) * D + col) =
+              make_float2(acc[m][j][0] * i0, acc[m][j][1] * i0);
+        if (q0 + r0 + 8 < Lq)
+          *reinterpret_cast<float2*>(ob + (size_t)(q0 + r0 + 8) * D + col) =
+              make_float2(acc[m][j][2] * i1, acc[m][j][3] * i1);
+      }
     }
   }
 }
