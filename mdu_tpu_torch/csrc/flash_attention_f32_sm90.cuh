@@ -56,12 +56,15 @@
 //   same products.
 //
 // Sizes. Consumers hold S (BK / 2 registers), P's small part (BK / 2), O
-// (DP / 2) and Q (DP, or DP / 2 above DP = 80). DP <= 80: two consumers
-// (232 registers each; the producer warpgroup gives its own up, to 40);
-// BK = 128 up to DP = 48 (200 registers at DP = 48; a stage of Kb, Ks and
-// V^T big and small is 80 KB at DP = 40: two stages), else 64 (up to 80 KB:
-// two stages at DP = 80). DP > 80: one consumer, BK = 32, Q's big part up to
-// 40 KB, two stages of up to 80 KB.
+// (DP / 2) and Q (DP, or DP / 2 above DP = 80). DP <= 40: three consumers
+// (152 registers each; the producer warpgroup gives its own up, to 56), BK
+// = 64, four stages of Kb, Ks and V^T big and small (40 KB at DP = 40).
+// DP <= 80: two consumers (232 registers; the producer keeps 40), BK = 128
+// at DP = 48 (200 registers), else 64; two stages of up to 80 KB at DP = 80.
+// DP > 80: one consumer, BK = 32, Q's big part up to 40 KB, two stages of up
+// to 80 KB. (Three consumers at DP = 48 spill. At config 2's D = 40 they
+// took 4.6 ms against 5.7 for two consumers at BK = 128, on an H100 80GB
+// HBM3 at 700 W.)
 //
 // What bounds it, at config 2's shapes (H100 SXM, 495 TFLOP/s dense TF32):
 // [10, 8, 6144, 40]: 3 passes x 4 L^2 D flops x 80 heads = 3.62e13 flops =
@@ -282,9 +285,9 @@ struct Online {
 
 template <int DP>
 struct Cfg {
-  static constexpr int NCONS = DP <= 80 ? 2 : 1;
+  static constexpr int NCONS = DP <= 40 ? 3 : DP <= 80 ? 2 : 1;
   static constexpr int BQ = 64 * NCONS;
-  static constexpr int BK = DP <= 48 ? 128 : DP <= 80 ? 64 : 32;
+  static constexpr int BK = DP == 48 ? 128 : DP <= 80 ? 64 : 32;
   // Q in registers, big and small, as the A fragments of all three passes
   // (DP <= 80); above, its big part in shared memory
   static constexpr bool Q_REGS = DP <= 80;
@@ -354,6 +357,7 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   if (wg == 0) {
     // ------------------------------------------------ producer warpgroup
     if constexpr (C::NCONS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (C::NCONS == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (threadIdx.x == 0) {
       if constexpr (!C::Q_REGS) {
         mbar_arrive_expect_tx(bars, C::Q_BYTES);
@@ -422,6 +426,7 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   } else {
     // --------------------------------------------------------- consumers
     if constexpr (C::NCONS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (C::NCONS == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
     const int cw = wg - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
