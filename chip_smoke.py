@@ -769,11 +769,11 @@ def kernel_rows(checks, launches, f32_launches):
     takes it (the flagged run for the flagged kernels). #1, #3 and #6 also
     list every config-2 shape with the earlier form's time (#1 and #3 with
     the MUFU floor); #1's wide form has its own row (launches from the
-    MDU_FLASH=fm run). The fp32 attention kernels, which config 2 in bf16
-    does not run, take their launches from the reference phase's fp32 runs
-    of the tiny pipeline (no flag for #1, the four flags for #2) and list
-    every config-2-sized shape with the simt form's time, both bounds and
-    SDPA under both backends."""
+    MDU_FLASH=fm run). The fp32 kernels, which config 2 in bf16 does not
+    run, take their launches from the reference phase's fp32 runs of the
+    tiny pipeline (no flag for #1, the four flags for #2 and #6); #1 and #2
+    list every config-2-sized shape with the simt form's time, both bounds
+    and SDPA under both backends."""
     rows = []
     names = list(KERNELS) + list(F32_KERNELS)
     c2_fields = ("shape", "form", "fuse_act", "ms", "device_ms", "earlier_ms",
@@ -820,6 +820,8 @@ def kernel_rows(checks, launches, f32_launches):
                          form_launches={f: f32_launches.get(run.split(" ")[-1], {})
                                         .get(f"{name}.{f}", 0) for f in ("sm90", "wide", "simt")},
                          config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
+        elif name == "fused_conv3x3_f32":
+            run = "reference fp32 flagged"
         elif name in ("flash_attention_fm", "flash_attention_t"):
             c2 = [c for c in checks[name] if tuple(c["shape"]) in KERNELS[name]["shapes"][:2]]
             extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
