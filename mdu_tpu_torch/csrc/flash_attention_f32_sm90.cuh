@@ -123,12 +123,17 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
-// 1 / the denominator of a row whose partial sums are in 8 aligned lanes
-__device__ __forceinline__ float inv_of_row8(float x) {
+// 1 / the denominator of a row whose partial sums are in the 4 lanes of a
+// quad (the accumulator layout)
+__device__ __forceinline__ float inv_of_quad(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
   return 1.f / fmaxf(x, 1e-30f);
+}
+
+// ... and in 8 aligned lanes (the wide form's row layout)
+__device__ __forceinline__ float inv_of_row8(float x) {
+  return inv_of_quad(x + __shfl_xor_sync(0xffffffffu, x, 4));
 }
 
 // ----------------------------------------------------------------- policies
@@ -152,13 +157,17 @@ struct Fixed {
     l[0] = l[1] = 0.f;
   }
 
-  // p of one score, before the kv mask
+  // p of one score, before the kv mask: with bf16_exp the shifted score
+  // rounded to bf16 and its exp rounded to bf16, as the TPU kernel and the
+  // plain version compute them; else in the log2 domain
+  __device__ __forceinline__ float p_bf16(float x) const {
+    const float xs = x * scale;
+    return round_bf16(expf(round_bf16((clamp ? fminf(xs, smax) : xs) - smax)));
+  }
+  __device__ __forceinline__ float p_clamp(float x) const { return ex2(fminf(x * sc, sh) - sh); }
+  __device__ __forceinline__ float p_plain(float x) const { return ex2(fmaf(x, sc, -sh)); }
   __device__ __forceinline__ float p_of(float x) const {
-    if (bf16_exp) {
-      const float xs = x * scale;
-      return round_bf16(expf(round_bf16((clamp ? fminf(xs, smax) : xs) - smax)));
-    }
-    return clamp ? ex2(fminf(x * sc, sh) - sh) : ex2(fmaf(x, sc, -sh));
+    return bf16_exp ? p_bf16(x) : clamp ? p_clamp(x) : p_plain(x);
   }
 
   // the wide form's layout: columns c0..c0 + 3 of one row, whose other
@@ -175,21 +184,16 @@ struct Fixed {
 
   template <int N>
   __device__ __forceinline__ void exps(float (&s)[N], int kvalid, int t, float (&)[2]) {
+    // the choice of formula taken once for the tile, not per score
     if (bf16_exp) {
-      // the shifted score rounded to bf16, its exp rounded to bf16, as the
-      // TPU kernel and the plain version compute them
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float x = s[i] * scale;
-        const float e = round_bf16((clamp ? fminf(x, smax) : x) - smax);
-        s[i] = round_bf16(expf(e));
-      }
+      for (int i = 0; i < N; ++i) s[i] = p_bf16(s[i]);
     } else if (clamp) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) s[i] = ex2(fminf(s[i] * sc, sh) - sh);
+      for (int i = 0; i < N; ++i) s[i] = p_clamp(s[i]);
     } else {
 #pragma unroll
-      for (int i = 0; i < N; ++i) s[i] = ex2(fmaf(s[i], sc, -sh));
+      for (int i = 0; i < N; ++i) s[i] = p_plain(s[i]);
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -198,14 +202,9 @@ struct Fixed {
     }
   }
 
-  __device__ __forceinline__ void finish(float (&inv)[2]) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = l[r];
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      inv[r] = 1.f / fmaxf(x, 1e-30f);
-    }
+  __device__ __forceinline__ void finish(float (&inv)[2]) const {
+    inv[0] = inv_of_quad(l[0]);
+    inv[1] = inv_of_quad(l[1]);
   }
 };
 
@@ -270,14 +269,9 @@ struct Online {
     }
   }
 
-  __device__ __forceinline__ void finish(float (&inv)[2]) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = l[r];
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      inv[r] = 1.f / fmaxf(x, 1e-30f);
-    }
+  __device__ __forceinline__ void finish(float (&inv)[2]) const {
+    inv[0] = inv_of_quad(l[0]);
+    inv[1] = inv_of_quad(l[1]);
   }
 };
 
