@@ -173,8 +173,8 @@ __device__ __forceinline__ void named_arrive(int id) {
 // x rounded to the nearest tf32 (ties away from zero, as cvt.rna.tf32.f32
 // rounds, in two integer operations: the conversion measured slower), as
 // the bits of an fp32 whose low 13 mantissa bits are zero, so that the
-// tensor cores read it exactly and x - tf32(x) is exact in fp32. (The
-// tensor cores truncate an fp32 word to tf32: 1 + 2^-11 + 2^-12 reads as 1.)
+// tensor cores read it exactly, however they read the low bits of an fp32
+// word, and x - tf32(x) is exact in fp32.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
