@@ -16,24 +16,29 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  same inputs: the kernel's max abs error must stay within 2x
                  the bf16 plain version's error + 1e-3. The fp32 kernels of
                  #1 and #2 (and #1 with ``bf16_exp``) at config 2's shapes,
-                 the VAE's, a ragged one and an odd D, #6 in fp32 at its
-                 first shape, each within 1e-4 of its plain version (with
-                 ``bf16_exp`` plus the order ambiguity below); each fp32
-                 attention line names its form (sm90, wide or simt, which
-                 must be the one its shape calls for), and at the
-                 config-2-sized shapes the CUDA-core simt form runs on the
-                 same inputs, held to the same bar and timed. Its bound is
-                 three TF32 passes at 495 TFLOP/s (``fma_bound_ms``: fp32 on
-                 the CUDA cores), and SDPA is timed also under the
-                 efficient-attention backend, with the default call's backend
-                 named. #1 and #3 also at D = 13 (their mma.sync forms), #1 and its
+                 the VAE's, a ragged one and an odd D, each within 1e-4 of
+                 its plain version (with ``bf16_exp`` plus the order
+                 ambiguity below); each fp32 line names its form (sm90, wide
+                 or simt, which must be the one its shape calls for), and at
+                 the config-2-sized shapes the CUDA-core simt form runs on
+                 the same inputs, held to the same bar and timed. Its bound
+                 is three TF32 passes at 495 TFLOP/s (``fma_bound_ms``: fp32
+                 on the CUDA cores); for attention SDPA is timed also under
+                 the efficient-attention backend, with the default call's
+                 backend named. #6 in fp32 at config 2's four shapes with
+                 ``fuse_act``, the first without, a ragged shape off its
+                 tile (sm90) and C = 12 (simt), in the same way. #1 and #3
+                 also at D = 13 (their mma.sync forms), #1 and its
                  ``bf16_exp`` at the VAE's [2, 1, 9600, 512] (the wide form),
-                 ``bf16_exp`` also at D = 13; each line names the form the
-                 wrapper took, which must be the one its shape calls for. At
-                 config 2's shapes #1 and #3 take their warpgroup (sm90) form,
-                 and the earlier mma.sync form runs on the same inputs too,
-                 held to the same bar and timed (``earlier_ms``); the line
-                 adds the MUFU exp floor
+                 #1 with ``clamp`` there too, ``bf16_exp`` also at D = 13; #1
+                 and #2 at D = 200 (wide) and 300 (D % 8 != 0: the split-D
+                 mma.sync kernel); each line names the form the wrapper
+                 took, which must be the one its shape calls for. At config
+                 2's shapes #1 and #3 take their warpgroup (sm90) form, #2
+                 and #1 at D = 512 their warpgroup (wide) form, and the
+                 earlier mma.sync form runs on the same inputs too, held to
+                 the same bar and timed (``earlier_ms``); the line adds the
+                 MUFU exp floor
                  (``mufu_floor_ms``: one ex2 per score at 16 a clock per SM
                  on 132 SMs, at the ``clocks.max.sm`` nvidia-smi reads).
                  #6 at config 2's four shapes takes its warpgroup (sm90)
@@ -67,10 +72,13 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
                  exact tiled decode (tile 128); 1 warm and 2 timed images,
                  with no flag, with the four flags and with MDU_FLASH=fm
-                 (the VAE's D = 512 through #1's wide form). Launch counts are
-                 set to 0 just before each image and read just after; each
-                 kernel's launches per image must equal the pinned count
-                 (and a kernel of the path launched 0 times fails the run).
+                 (the VAE's D = 512 through #1's wide form). Then one image
+                 of config 2 built in fp32 (the JAX CLI's default dtype)
+                 under MDU_FUSED_CONV=1: #6 in fp32, #1 and #2 in fp32.
+                 Launch counts are set to 0 just before each image and read
+                 just after; each kernel's launches per image must equal the
+                 pinned count (and a kernel of the path launched 0 times
+                 fails the run).
 
 Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
 (every kernel of the port), the nvidia-smi line, and as the last line
@@ -101,14 +109,19 @@ FLAGS = {"MDU_FLASH": "trans", "MDU_FUSED_GN": "1", "MDU_FUSED_CONV": "1",
 # launches per config-2 image; every other kernel must launch 0 times
 # ("name.form" counts the launches of one form of a kernel)
 EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
-                     "flash_attention": 1}
+                     "flash_attention": 1, "flash_attention.wide": 1}
 EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
-                    "flash_attention": 1, "fused_group_norm": 340, "fused_conv3x3": 320,
-                    "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
+                    "flash_attention": 1, "flash_attention.wide": 1, "fused_group_norm": 340,
+                    "fused_conv3x3": 320, "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
 EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
                "flash_attention_fm.wide": 1}
 CONFIG2_RUNS = (("default", {}, EXPECTED_LAUNCHES), ("flagged", FLAGS, EXPECTED_FLAGGED),
                 ("fm", {"MDU_FLASH": "fm"}, EXPECTED_FM))
+# one image of config 2 built in fp32, under MDU_FUSED_CONV=1
+F32_RUN = ("fp32 conv", {"MDU_FUSED_CONV": "1"},
+           {"fused_conv3x3_f32": 320, "fused_conv3x3_f32.sm90": 320,
+            "flash_attention_fm_f32": 200, "flash_attention_fm_f32.sm90": 200,
+            "flash_attention_f32": 1, "flash_attention_f32.wide": 1})
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
 N_SMS = 132
 KERNELS = {
@@ -116,17 +129,19 @@ KERNELS = {
         source="mdu_tpu_torch/csrc/flash_attention_fm.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:215",
         # UNet self-attention of config 2, levels 0 and 1; a ragged shape; the
-        # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync)
+        # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync);
+        # D = 200 (wide, off 64); D = 300 (wide_mma: D % 8 != 0)
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
-                (1, 1, 700, 13)],
+                (1, 1, 700, 13), (1, 2, 1000, 200), (1, 1, 500, 300)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
     "flash_attention": dict(
         source="mdu_tpu_torch/csrc/flash_attention.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:335",
-        # VAE mid-block attention of config 2's decode; then a ragged shape
-        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512)],
+        # VAE mid-block attention of config 2's decode; a ragged shape; D =
+        # 200 (off 64); D = 300 (D % 8 != 0: the split-D mma.sync form)
+        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300)],
         # fp32: the VAE's (wide form), ragged, config 2's level 0 as
         # MDU_FLASH=trans sends it (sm90), an odd D (simt)
         f32_shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (10, 8, 6144, 40), (1, 1, 700, 13)]),
@@ -156,7 +171,11 @@ KERNELS = {
         # mma.sync form, no 16-byte vectors)
         shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
-                (2, 7, 9, 12, 20)]),
+                (2, 7, 9, 12, 20)],
+        # fp32: config 2's four shapes (sm90); H, W and Co off the 32 x 8 x 80
+        # tile (sm90); C = 12 (simt)
+        f32_shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
+                    (10, 32, 48, 320, 640), (2, 45, 21, 320, 200), (2, 7, 9, 12, 20)]),
 }
 # config-2-sized fp32 attention shapes, where the CUDA-core (simt) form runs
 # beside the tensor-core form on the same inputs
@@ -166,7 +185,7 @@ F32_KERNELS = {
     "flash_attention_fm_f32": ("flash_attention_fm",
                                "mdu_tpu_torch/csrc/flash_attention_f32_sm90.cuh"),
     "flash_attention_f32": ("flash_attention", "mdu_tpu_torch/csrc/flash_attention_f32_sm90.cuh"),
-    "fused_conv3x3_f32": ("fused_conv3x3", "mdu_tpu_torch/csrc/conv3x3.cu"),
+    "fused_conv3x3_f32": ("fused_conv3x3", "mdu_tpu_torch/csrc/conv3x3_f32_sm90.cuh"),
 }
 
 
@@ -260,19 +279,31 @@ def device_ms(fn, iters: int):
     return None
 
 
+def excess(out, ref, ambiguity=None):
+    """max |out - ref| over the elements, less each element's allowance."""
+    diff = (out.float() - ref.float()).abs()
+    return (diff if ambiguity is None else diff - ambiguity).max().item()
+
+
 def _record(name, shape, dtype, out, ref, err_plain, kernel_fn, plain_fn, lib_fn,
-            bound_ms, bound_by, iters, plain_iters=3, **extra):
+            bound_ms, bound_by, iters, plain_iters=3, ambiguity=None, **extra):
     """Check one kernel output against the fp32 plain version, time kernel,
     plain version and yardstick (CUDA events around a loop of calls; the
     kernel and the yardstick also on the device alone), emit a
-    ``kernel_check`` line."""
+    ``kernel_check`` line. ``ambiguity`` (bf16_exp): an allowance per output
+    element (``flash.bf16_exp_ambiguity``), added to the bar."""
     import torch
 
-    err = (out.float() - ref.float()).abs().max().item()
-    # fp32: err_plain is 0, or the order ambiguity of bf16_exp
-    tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL + err_plain
+    err = excess(out, ref)
+    tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL
     require(bool(torch.isfinite(out).all()), f"{name} {shape}: non-finite output")
-    require(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
+    if ambiguity is None:
+        require(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
+    else:
+        over = excess(out, ref, ambiguity)
+        require(over <= tol, f"{name} {shape}: max abs err beyond the bf16_exp ambiguity "
+                             f"{over} > {tol}")
+        extra.update(order_ambiguity=ambiguity.max().item(), err_beyond_ambiguity=over)
     ms = cuda_ms(kernel_fn, iters)
     dev_ms = device_ms(kernel_fn, iters)
     plain_ms = cuda_ms(plain_fn, plain_iters, warmup=1)
@@ -330,6 +361,9 @@ def check_attention(gen, summary):
             variants.append((torch.bfloat16, name + "_bf16_exp",
                              [shapes[0], (2, 1, 9600, 512), (1, 1, 700, 13)],
                              {"bf16_exp": True}))
+            # scores above smax = 2 (a few % of them) flattened
+            variants.append((torch.bfloat16, name + "_clamp", [(2, 1, 9600, 512)],
+                             {"smax": 2.0, "clamp": True}))
             variants.append((torch.float32, name + "_f32_bf16_exp", f32_shapes[:1],
                              {"bf16_exp": True}))
         for dtype, key, var_shapes, kw in variants:
@@ -347,37 +381,39 @@ def check_attention(gen, summary):
                              if dtype == torch.bfloat16 else 0.0)
                 extra = {}
                 if kw.get("bf16_exp"):
-                    # rounding the shifted score to bf16 (an ulp of 0.125 near
-                    # -30) makes the function ambiguous wherever an fp32 score
-                    # sits near a rounding boundary; the fp32 plain version
-                    # with q.k summed in the reverse order of d measures that,
-                    # and adds to the bar
-                    rev = pl(q.float().flip(-1).contiguous(), k.float().flip(-1).contiguous(),
-                             v.float())
-                    amb = (rev - ref).abs().max().item()
-                    err_plain += amb
-                    extra["order_ambiguity"] = amb
-                    del rev
+                    # rounding the shifted score to bf16 makes the function
+                    # ambiguous near a rounding boundary: each output element
+                    # gets the allowance that such roundings may move it by
+                    extra["ambiguity"] = flash.bf16_exp_ambiguity(
+                        q, k, v, **{n: x for n, x in kw.items() if n != "bf16_exp"})
                 big = L * L * B * H > 1e8
                 iters = (20 if big else 50) if dtype == torch.bfloat16 else (3 if big else 10)
                 lib_fn = lambda: F.scaled_dot_product_attention(q, k, v)
                 mufu = B * H * L * L / (N_SMS * MUFU_PER_SM_CLOCK * clock_hz) * 1e3
                 if dtype == torch.bfloat16 and name in flash.FORMS:
                     form = flash.bf16_form(name, q, k, v)
-                    want = "wide" if D > flash.MMA_MAX_D else "mma" if D % 8 else "sm90"
+                    if D > flash.MMA_MAX_D:
+                        want = ("wide" if D % 8 == 0 else
+                                "wide_mma" if name == "flash_attention_fm" else "mma")
+                    else:
+                        want = "mma" if D % 8 or name == "flash_attention" else "sm90"
                     require(form == want, f"{key} {shape}: form {form}, expected {want}")
                     extra["form"] = form
-                    if form == "sm90" and shape in shapes[:2]:
+                    earlier = {"sm90": "mma",
+                               "wide": "wide_mma" if name == "flash_attention_fm" else "mma"}
+                    if (form == "sm90" and shape in shapes[:2]) or (
+                            form == "wide" and shape == (2, 1, 9600, 512)):
                         # the mma.sync form that config 2 took before, on the
                         # same inputs: held to the same bar, and timed
-                        early = functools.partial(flash.launch_form, name, "mma", q, k, v, **kw)
-                        early_err = (early().float() - ref).abs().max().item()
+                        early = functools.partial(flash.launch_form, name, earlier[form],
+                                                  q, k, v, **kw)
+                        early_err = excess(early(), ref, extra.get("ambiguity"))
                         require(early_err <= 2.0 * err_plain + 1e-3,
-                                f"{key} {shape} mma form: max abs err {early_err}")
+                                f"{key} {shape} {earlier[form]} form: max abs err {early_err}")
                         extra["earlier_max_abs_err"] = early_err
                         extra["earlier_ms"] = cuda_ms(early, iters)
                         extra["earlier_device_ms"] = device_ms(early, iters)
-                        extra["earlier_form"] = "mma"
+                        extra["earlier_form"] = earlier[form]
                     extra["mufu_floor_ms"] = mufu
                     extra["sm_clock_max_mhz"] = clock_hz / 1e6
                 if dtype == torch.float32:
@@ -392,8 +428,8 @@ def check_attention(gen, summary):
                         # same inputs: held to the same bar, and timed
                         early = functools.partial(flash.launch_f32_form, fname, "simt", q, k, v,
                                                   **kw)
-                        early_err = (early() - ref).abs().max().item()
-                        require(early_err <= F32_TOL + err_plain,
+                        early_err = excess(early(), ref, extra.get("ambiguity"))
+                        require(early_err <= F32_TOL,
                                 f"{key} {shape} simt form: max abs err {early_err}")
                         extra.update(earlier_form="simt", earlier_max_abs_err=early_err,
                                      earlier_ms=cuda_ms(early, iters),
@@ -498,12 +534,14 @@ def check_tile_blend(gen, summary):
 
 
 def check_conv(gen, summary):
-    """bf16 at every shape of KERNELS with and without fuse_act; fp32 at the
-    first shape with fuse_act. Each bf16 line names the form the wrapper
-    took, which must be the one its shape calls for; at config 2's four
-    shapes the earlier mma.sync form runs on the same inputs too, held to the
-    same bar and timed (``earlier_ms``). The yardstick is cuDNN's conv alone,
-    on the pre-activated channels-last input."""
+    """bf16 at every shape of KERNELS with and without fuse_act; fp32 at every
+    ``f32_shapes`` with fuse_act and at the first without. Each line names
+    the form the wrapper took, which must be the one its shape calls for; at
+    config 2's four shapes the earlier form (bf16: mma.sync; fp32: the
+    CUDA-core simt form) runs on the same inputs too, held to the same bar
+    and timed (``earlier_ms``). fp32 lines bound the kernel by three TF32
+    passes and give the fp32 FMA bound beside it. The yardstick is cuDNN's
+    conv alone, on the pre-activated channels-last input (TF32 off)."""
     import torch
     import torch.nn.functional as F
 
@@ -512,10 +550,13 @@ def check_conv(gen, summary):
     from mdu_tpu_torch.ops.kernels import conv3x3 as conv_mod
 
     shapes = KERNELS["fused_conv3x3"]["shapes"]
+    f32_shapes = KERNELS["fused_conv3x3"]["f32_shapes"]
     runs = [(s, torch.bfloat16, act, "fused_conv3x3") for s in shapes for act in (True, False)]
-    runs.append((shapes[0], torch.float32, True, "fused_conv3x3_f32"))
+    runs += [(s, torch.float32, True, "fused_conv3x3_f32") for s in f32_shapes]
+    runs.append((f32_shapes[0], torch.float32, False, "fused_conv3x3_f32"))
     checks = {"fused_conv3x3": [], "fused_conv3x3_f32": []}
     for (B, H, W, C, Co), dtype, act, key in runs:
+        bf16 = dtype == torch.bfloat16
         x = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(3, 3, C, Co, generator=gen, device="cuda") / (9 * C) ** 0.5).to(dtype)
         a = 1 + 0.5 * torch.randn(B, C, generator=gen, device="cuda")
@@ -525,24 +566,31 @@ def check_conv(gen, summary):
         torch.cuda.synchronize()
         ref = fused_conv3x3_plain(x.float(), w.float(), a, sh, fuse_act=act)
         err_plain = ((fused_conv3x3_plain(x, w, a, sh, fuse_act=act).float() - ref)
-                     .abs().max().item() if dtype == torch.bfloat16 else 0.0)
-        iters = 20 if dtype == torch.bfloat16 else 5
+                     .abs().max().item() if bf16 else 0.0)
+        tol = 2.0 * err_plain + 1e-3 if bf16 else F32_TOL
+        iters = 20 if bf16 else 5
         extra = {}
-        if dtype == torch.bfloat16:
-            form = conv_mod.conv_form(x, packed, a, sh)
+        ops = (x, packed, a, sh) if act else (x, packed)
+        if bf16:
+            form = conv_mod.conv_form(*ops)
             want = "sm90" if C % conv_mod.SM90_CHUNK == 0 and Co % 8 == 0 else "mma"
-            require(form == want, f"{key} {(B, H, W, C, Co)}: form {form}, expected {want}")
-            extra["form"] = form
-            if (B, H, W, C, Co) in shapes[:4]:
-                # the mma.sync form that config 2 took before, on the same
-                # inputs: held to the same bar, and timed
-                early = lambda: conv_mod.launch_form("mma", x, packed, a, sh, act)
-                early_err = (early().float() - ref).abs().max().item()
-                require(early_err <= 2.0 * err_plain + 1e-3,
-                        f"{key} {(B, H, W, C, Co)} mma form: max abs err {early_err}")
-                extra.update(earlier_form="mma", earlier_max_abs_err=early_err,
-                             earlier_ms=cuda_ms(early, iters),
-                             earlier_device_ms=device_ms(early, iters))
+            earlier = "mma"
+        else:
+            form = conv_mod.conv_f32_form(*ops)
+            want = "sm90" if C % conv_mod.F32_SM90_CHUNK == 0 and Co % 8 == 0 else "simt"
+            earlier = "simt"
+        require(form == want, f"{key} {(B, H, W, C, Co)}: form {form}, expected {want}")
+        extra["form"] = form
+        if (B, H, W, C, Co) in shapes[:4] and form != earlier:
+            # the form that config 2 took before, on the same inputs: held to
+            # the same bar, and timed
+            launch = conv_mod.launch_form if bf16 else conv_mod.launch_f32_form
+            early = lambda: launch(earlier, x, packed, a, sh, act)
+            early_err = (early().float() - ref).abs().max().item()
+            require(early_err <= tol,
+                    f"{key} {(B, H, W, C, Co)} {earlier} form: max abs err {early_err}")
+            extra.update(earlier_form=earlier, earlier_max_abs_err=early_err,
+                         earlier_ms=cuda_ms(early, iters), earlier_device_ms=device_ms(early, iters))
         if act:
             xf = x.float() * a[:, None, None, :] + sh[:, None, None, :]
             xa = (xf * torch.sigmoid(xf)).to(dtype)
@@ -553,13 +601,18 @@ def check_conv(gen, summary):
         isz = x.element_size()
         flops = 2.0 * B * H * W * 9 * C * Co
         nbytes = (x.numel() + w.numel() + B * H * W * Co) * isz + (2 * B * C * 4 if act else 0)
-        bound_ms, bound_by = bound(flops, nbytes, isz)
+        if bf16:
+            bound_ms, bound_by = bound(flops, nbytes, isz)
+        else:
+            extra["fma_bound_ms"] = bound(flops, nbytes, isz)[0]
+            extra["bound_basis"] = "3 TF32 passes at 495 TFLOP/s"
+            bound_ms, bound_by = bound(3 * flops, nbytes, isz, PEAK_TF32_FLOPS)
         checks[key].append(_record(
             key, (B, H, W, C, Co), dtype, out, ref, err_plain,
             lambda: fused_conv3x3(x, w, a, sh, fuse_act=act, packed=packed),
             lambda: fused_conv3x3_plain(x, w, a, sh, fuse_act=act),
-            lambda: F.conv2d(xa, w_oihw, padding=1), bound_ms, bound_by, iters,
-            fuse_act=act, library="F.conv2d on the pre-activated input (conv alone)", **extra))
+            lambda: F.conv2d(xa, w_oihw, padding=1), bound_ms, bound_by, iters, fuse_act=act,
+            library="F.conv2d on the pre-activated input (conv alone)", **extra))
         del x, w, packed, out, ref, xa, w_oihw
     summary.update(checks)
 
@@ -629,7 +682,7 @@ def phase_reference():
     within 2x the CPU bf16 run's own error against the CPU fp32 run plus
     1e-3 of the largest value. With no flag each card run must launch its fm
     kernel (in fp32 its sm90 form: the heads are D = 4 and 16); with the four
-    flags, each flagged kernel. Returns the launches of each fp32 run."""
+    flags, each flagged kernel."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -641,7 +694,6 @@ def phase_reference():
                                      "fused_tile_blend"],
                      torch.bfloat16: ["flash_attention_t", "fused_group_norm",
                                       "fused_conv3x3", "fused_tile_blend"]})]
-    f32_launches = {}
     for flags, must_launch in runs:
         with flags_set(flags):
             ref = _tiny_run("cpu", torch.float32)
@@ -654,8 +706,6 @@ def phase_reference():
                     require(launches[key] > 0,
                             f"tiny {dtype} pipeline (flags {flags}) launched no {key}")
                 fields = {"flags": flags, "launches": launches}
-                if dtype == torch.float32:
-                    f32_launches["flagged" if flags else "default"] = launches
                 for i, part in enumerate(("latent", "image")):
                     scale = ref[i].abs().max().item()
                     err = (got[i] - ref[i]).abs().max().item()
@@ -669,7 +719,6 @@ def phase_reference():
                                         f"err {err} > {tol}")
                     fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
                 emit("reference", dtype=_dtype_name(dtype), **fields)
-    return f32_launches
 
 
 def build_config2(dtype=None):
@@ -745,102 +794,100 @@ def run_config2(pipe, cond, uncond, sp, td, tv, expected, label, n=2):
 
 
 def phase_txt2img():
-    """Config 2 with no flag, with the four flags and with MDU_FLASH=fm:
-    returns the launches per image of each run."""
-    t0 = time.perf_counter()
-    pipe, cond, uncond, sp, td, tv = build_config2()
-    setup_s = time.perf_counter() - t0
+    """Config 2 with no flag, with the four flags and with MDU_FLASH=fm; then
+    config 2 built in fp32 under MDU_FUSED_CONV=1 (1 warm and 1 timed
+    image): returns the launches per image of each run."""
+    import torch
+
     out = {}
-    for label, flags, expected in CONFIG2_RUNS:
-        with flags_set(flags):
-            launches, fields = run_config2(pipe, cond, uncond, sp, td, tv, expected, label)
-        emit("txt2img", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16",
-             run=label, flags=flags, sampler=sp.name, steps=sp.steps,
-             cfg_scale=sp.cfg_scale, tile=[td.tile_h, td.tile_w], overlap=td.overlap,
-             tile_bs=td.tile_bs, decoder_tile=tv.decoder_tile_size, setup_s=setup_s,
-             expected_launches=expected, **fields)
-        out[label] = launches
+    runs = [(None, CONFIG2_RUNS, 2), (torch.float32, (F32_RUN,), 1)]
+    for dtype, config_runs, n in runs:
+        t0 = time.perf_counter()
+        pipe, cond, uncond, sp, td, tv = build_config2(dtype)
+        setup_s = time.perf_counter() - t0
+        for label, flags, expected in config_runs:
+            with flags_set(flags):
+                launches, fields = run_config2(pipe, cond, uncond, sp, td, tv, expected, label,
+                                               n)
+            emit("txt2img", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 "
+                                   + ("fp32" if dtype == torch.float32 else "bf16"),
+                 run=label, flags=flags, sampler=sp.name, steps=sp.steps,
+                 cfg_scale=sp.cfg_scale, tile=[td.tile_h, td.tile_w], overlap=td.overlap,
+                 tile_bs=td.tile_bs, decoder_tile=tv.decoder_tile_size, setup_s=setup_s,
+                 expected_launches=expected, **fields)
+            out[label] = launches
+        del pipe, cond, uncond
+        torch.cuda.empty_cache()
     return out
 
 
-def kernel_rows(checks, launches, f32_launches):
+def kernel_rows(checks, launches):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
-    takes it (the flagged run for the flagged kernels). #1, #3 and #6 also
-    list every config-2 shape with the earlier form's time (#1 and #3 with
-    the MUFU floor); #1's wide form has its own row (launches from the
-    MDU_FLASH=fm run). The fp32 kernels, which config 2 in bf16 does not
-    run, take their launches from the reference phase's fp32 runs of the
-    tiny pipeline (no flag for #1, the four flags for #2 and #6); #1 and #2
-    list every config-2-sized shape with the simt form's time, both bounds
-    and SDPA under both backends."""
+    takes it (the flagged run for the flagged kernels, the fp32 image for the
+    fp32 kernels). A kernel with forms also lists the forms checked, the
+    launches of each form in that run, and every config-2 shape with the
+    earlier form's time (attention with the MUFU floor, fp32 with the FMA
+    bound and, for attention, SDPA under both backends); #1's wide form has
+    its own row (launches from the MDU_FLASH=fm run)."""
     rows = []
-    names = list(KERNELS) + list(F32_KERNELS)
-    c2_fields = ("shape", "form", "fuse_act", "ms", "device_ms", "earlier_ms",
+    c2_fields = ("shape", "form", "fuse_act", "ms", "device_ms", "earlier_form", "earlier_ms",
                  "earlier_device_ms", "bound_ms", "fma_bound_ms", "mufu_floor_ms",
                  "library_ms", "library_device_ms", "library_backend", "library_efficient_ms",
                  "library_efficient_device_ms", "plain_ms", "max_abs_err",
                  "earlier_max_abs_err")
+    conv_c2 = KERNELS["fused_conv3x3"]["shapes"][:4]
+    # kernel -> (config-2 run that takes it, its config-2 shapes)
+    where = {"flash_attention_fm": ("default", KERNELS["flash_attention_fm"]["shapes"][:2]),
+             "flash_attention": ("default", [(2, 1, 9600, 512)]),
+             "flash_attention_t": ("flagged", KERNELS["flash_attention_t"]["shapes"][:2]),
+             "fused_group_norm": ("flagged", []), "fused_tile_blend": ("flagged", []),
+             "fused_conv3x3": ("flagged", conv_c2),
+             "flash_attention_fm_f32": ("fp32 conv", F32_CONFIG2[:2]),
+             "flash_attention_f32": ("fp32 conv", F32_CONFIG2[2:]),
+             "fused_conv3x3_f32": ("fp32 conv", conv_c2)}
+    templates = {"flash_attention_fm": "mdu_tpu_torch/csrc/flash_attention_sm90.cuh",
+                 "flash_attention_t": "mdu_tpu_torch/csrc/flash_attention_sm90.cuh",
+                 "flash_attention": "mdu_tpu_torch/csrc/flash_attention_wide_sm90.cuh"}
 
-    def row(name, key, main, run, launch_key, source, checked, **extra):
-        runs = f32_launches if run.startswith("reference") else launches
-        run_key = run.split(" ")[-1] if run.startswith("reference") else run
+    def row(name, key, checked, run, c2, source, launch_key=None, **extra):
+        main = checked[0]
+        got = launches.get(run, {})
+        forms = sorted({c["form"] for c in checked if c.get("form")})
+        if forms:
+            extra.update(forms=forms,
+                         form_launches={k.split(".", 1)[1]: v for k, v in got.items()
+                                        if k.startswith(key + ".")})
+        c2_checks = [c for c in checked if tuple(c["shape"]) in c2 and c.get("fuse_act", True)]
+        if c2_checks:
+            extra["config2_shapes"] = [{f: c.get(f) for f in c2_fields if f in c}
+                                       for c in c2_checks]
         return dict(name=name, route="cuda", source=source,
-                    replaces=KERNELS[key]["replaces"],
-                    launches=runs.get(run_key, {}).get(launch_key, 0), launches_run=run,
+                    replaces=KERNELS[F32_KERNELS[key][0] if key in F32_KERNELS else key]
+                    ["replaces"], launches=got.get(launch_key or key, 0), launches_run=run,
                     max_abs_err=max(c["max_abs_err"] for c in checked),
                     ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                    library_ms=main["library_ms"],
-                    library_device_ms=main["library_device_ms"], shape=main["shape"],
-                    dtype=main["dtype"], **extra)
+                    library_ms=main["library_ms"], library_device_ms=main["library_device_ms"],
+                    shape=main["shape"], dtype=main["dtype"],
+                    **{f: main[f] for f in ("form", "earlier_form", "earlier_ms",
+                                            "earlier_device_ms", "fma_bound_ms",
+                                            "mufu_floor_ms", "bound_basis", "library_backend",
+                                            "library_efficient_ms") if f in main},
+                    **extra)
 
-    for name in names:
+    for name in list(KERNELS) + list(F32_KERNELS):
         if name not in checks:
             continue
-        base = F32_KERNELS[name][0] if name in F32_KERNELS else name
+        run, c2 = where[name]
         source = F32_KERNELS[name][1] if name in F32_KERNELS else KERNELS[name]["source"]
-        main = checks[name][0]
-        run = "default" if base in ("flash_attention_fm", "flash_attention") else "flagged"
-        extra = {}
-        if name in ("flash_attention_fm_f32", "flash_attention_f32"):
-            run = "reference fp32 " + ("default" if name == "flash_attention_fm_f32"
-                                       else "flagged")
-            c2 = [c for c in checks[name] if tuple(c["shape"]) in F32_CONFIG2]
-            extra = dict(form=main.get("form"), earlier_form="simt",
-                         earlier_ms=main.get("earlier_ms"),
-                         earlier_device_ms=main.get("earlier_device_ms"),
-                         fma_bound_ms=main.get("fma_bound_ms"),
-                         mufu_floor_ms=main.get("mufu_floor_ms"),
-                         bound_basis=main.get("bound_basis"),
-                         library_backend=main.get("library_backend"),
-                         library_efficient_ms=main.get("library_efficient_ms"),
-                         library_efficient_device_ms=main.get("library_efficient_device_ms"),
-                         forms=sorted({c.get("form") for c in checks[name]}),
-                         form_launches={f: f32_launches.get(run.split(" ")[-1], {})
-                                        .get(f"{name}.{f}", 0) for f in ("sm90", "wide", "simt")},
-                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
-        elif name == "fused_conv3x3_f32":
-            run = "reference fp32 flagged"
-        elif name in ("flash_attention_fm", "flash_attention_t"):
-            c2 = [c for c in checks[name] if tuple(c["shape"]) in KERNELS[name]["shapes"][:2]]
-            extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
-                         mufu_floor_ms=main.get("mufu_floor_ms"),
-                         template="mdu_tpu_torch/csrc/flash_attention_sm90.cuh",
-                         form_launches=launches.get(run, {}).get(name + ".sm90", 0),
-                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
-        elif name == "fused_conv3x3":
-            c2 = [c for c in checks[name]
-                  if tuple(c["shape"]) in KERNELS[name]["shapes"][:4] and c["fuse_act"]]
-            extra = dict(form=main.get("form"), earlier_ms=main.get("earlier_ms"),
-                         form_launches=launches.get(run, {}).get(name + ".sm90", 0),
-                         config2_shapes=[{f: c.get(f) for f in c2_fields} for c in c2])
-        rows.append(row(name, base, main, run, name, source, checks[name], **extra))
+        extra = {"template": templates[name]} if name in templates else {}
+        rows.append(row(name, name, checks[name], run, c2, source, **extra))
         wide = [c for c in checks[name] if c.get("form") == "wide"]
         if wide and name == "flash_attention_fm":
-            rows.append(row(name + ".wide", base, wide[0], "fm", name + ".wide",
-                            "mdu_tpu_torch/csrc/flash_attention.cu", wide, form="wide",
-                            entry="mdu_flash_attention_fm_wide"))
+            rows.append(row(name + ".wide", name, wide, "fm", [(2, 1, 9600, 512)],
+                            "mdu_tpu_torch/csrc/flash_attention_wide_sm90.cuh",
+                            launch_key=name + ".wide", entry="mdu_flash_attention_fm_wide"))
     return rows
 
 
@@ -881,19 +928,19 @@ def main() -> int:
          libraries={k: v["path"].rsplit("/", 1)[-1] for k, v in report.items()},
          ptxas={k: v["ptxas"] for k, v in report.items()})
 
-    checks, launches, f32_launches = {}, {}, {}
+    checks, launches = {}, {}
     if "kernels" in phases:
         checks = phase_kernels()
         emit("kernels", kernels={k: [dict(shape=c["shape"], dtype=c["dtype"],
                                           max_abs_err=c["max_abs_err"], tol=c["tol"])
                                      for c in v] for k, v in checks.items()})
     if "reference" in phases:
-        f32_launches = phase_reference()
+        phase_reference()
     if "txt2img" in phases:
         launches = phase_txt2img()
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
-    print(json.dumps({"kernels": kernel_rows(checks, launches, f32_launches)}))
+    print(json.dumps({"kernels": kernel_rows(checks, launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,5 +1,6 @@
 // Fused (GroupNorm affine -> SiLU ->) 3x3 convolution for Hopper (sm_90a),
-// NHWC, stride 1, 'same' padding; bf16 on the tensor cores, fp32 on the CUDA
+// NHWC, stride 1, 'same' padding; bf16 on the tensor cores, fp32 on the
+// tensor cores as three TF32 products (conv3x3_f32_sm90.cuh) or on the CUDA
 // cores.
 //
 // Replaces the TPU kernel mdu_tpu/ops/pallas/conv3x3.py::fused_conv3x3 (body
@@ -14,7 +15,8 @@
 //
 // As an implicit GEMM: M = B*H*W output pixels, N = Co, K = 9*C. The weight
 // arrives re-laid out once per module as [Co][9][Cp] (tap-major K, C padded
-// to Cp, a multiple of 32, with zeros). What bounds it on an H100: at config
+// to Cp, a multiple of 32, with zeros); in fp32 as [2][Co][9][Cp], its
+// tf32-rounded big part and the small rest, which sum to it exactly. What bounds it on an H100: at config
 // 2's ResBlock shapes (C, Co of 320 and 640 on 64x96 and 32x48 latents,
 // batch 10) 2*M*9*C*Co flops against a few tens of MB, far above the ridge,
 // so the tensor cores at 989 TFLOP/s: 0.1145 ms at [10, 64, 96, 320] -> 320
@@ -77,10 +79,17 @@
 // tap (ldmatrix takes a row address per lane). Single-staged (loads,
 // barrier, products, barrier), two blocks an SM.
 //
-// The fp32 form (a model built in fp32) is a plain shared-memory tiled
-// product: 64 pixels x 64 channels a block, 4 x 4 outputs a thread.
+// Two fp32 forms (a model built in fp32), chosen by the wrapper
+// (ops/kernels/conv3x3.py::conv_f32_form) on shape and alignment alone:
+// mdu_conv3x3_f32_sm90, the warpgroup form in three TF32 products, for C %
+// 16 == 0, Co % 8 == 0 and 16-byte aligned operands (all of config 2;
+// conv3x3_f32_sm90.cuh has its design), and the CUDA-core form (any other
+// fp32 input: the tiny UNet's C = 12, 24, unaligned operands), a plain
+// shared-memory tiled product: 64 pixels x 64 channels a block, 4 x 4
+// outputs a thread, the weight read as big + small.
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
+#include "conv3x3_f32_sm90.cuh"
 
 namespace {
 
@@ -605,7 +614,8 @@ conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = ty + 16 * j;
-        Bs[tx][n] = n0 + n < Co ? w[(size_t)(n0 + n) * K + tap * Cp + c0 + tx] : 0.f;
+        const size_t at = (size_t)(n0 + n) * K + tap * Cp + c0 + tx;
+        Bs[tx][n] = n0 + n < Co ? w[at] + w[(size_t)Co * K + at] : 0.f;   // big + small
       }
       __syncthreads();
 #pragma unroll
@@ -640,7 +650,8 @@ conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace
 
 // x: contiguous NHWC [B, H, W, C]; w: contiguous [Co, 9 * Cp] (Cp = C rounded
-// up to a multiple of 32, zero-filled), the dtype of x; scale, shift: fp32
+// up to a multiple of 32, zero-filled), the dtype of x, in fp32 [2, Co, 9 *
+// Cp] (big, small); scale, shift: fp32
 // [B, C], read only with ``fuse_act``; y: contiguous NHWC [B, H, W, Co], the
 // dtype of x. ``is_bf16`` selects bf16 (tensor cores) or fp32; ``vec`` allows
 // 16-byte loads of x (C % 8 == 0, 16-byte aligned x, scale and shift).
@@ -736,4 +747,16 @@ extern "C" int mdu_conv3x3_sm90(const void* x, const void* w, const void* scale,
       mx, mw, my, static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<__nv_bfloat16*>(y), H, W, C, Cp, Co);
   return (int)cudaGetLastError();
+}
+
+// The fp32 warpgroup form (conv3x3_f32_sm90.cuh). x: contiguous NHWC [B, H,
+// W, C] fp32 with C % 16 == 0; w: the packed [2, Co, 9 * Cp] fp32 weight
+// (big, small); scale, shift: fp32 [B, C], read only with ``fuse_act``; y:
+// contiguous NHWC [B, H, W, Co] fp32, Co % 8 == 0; every base 16-byte
+// aligned. Returns a cudaError_t (0 on a successful launch).
+extern "C" int mdu_conv3x3_f32_sm90(const void* x, const void* w, const void* scale,
+                                    const void* shift, void* y, int B, int H, int W, int C,
+                                    int Cp, int Co, int fuse_act, void* stream) {
+  return (int)mdu::conv_f32::launch(x, w, scale, shift, y, B, H, W, C, Cp, Co, fuse_act,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,15 @@
 // (199 KB at D = 512, set with cudaFuncSetAttribute), so there is room for
 // one stage only: K and V arrive by cp.async in two groups, and V's copy
 // overlaps the Q.K^T products and the softmax. Fragments come from shared
-// memory through ldmatrix. Still to do toward the bound: wgmma, TMA, and a
-// second stage (a smaller kv tile).
+// memory through ldmatrix.
+//
+// Two forms, chosen by the wrapper (ops/kernels/flash.py::bf16_form) on
+// shape and alignment alone: the warpgroup form (wgmma and TMA, two
+// consumer warpgroups splitting D; flash_attention_wide_sm90.cuh) for D % 8
+// == 0, 160 < D <= 512 and 16-byte aligned inputs, entry points
+// mdu_flash_attention_wide and mdu_flash_attention_fm_wide; this mma.sync
+// kernel for any other bf16 input up to D = 512, entry points
+// mdu_flash_attention and mdu_flash_attention_fm_wide_mma.
 //
 // With the template flag FIXED the same layout computes kernel #1's function
 // (flash_attention_fm.cu, TPU kernel flash_attention_t_fm) for bf16 heads
@@ -30,8 +37,9 @@
 // fixed shift smax in place of the running max (no rescale), p =
 // bf16(exp(min(s * scale, smax) - smax)) (BF16_EXP: the shifted score rounded
 // to bf16 first), and a denominator that sums the rounded p over the real kv
-// columns, floored at 1e-30 (entry point mdu_flash_attention_fm_wide).
+// columns, floored at 1e-30 (entry point mdu_flash_attention_fm_wide_mma).
 #include "mma_bf16.cuh"
+#include "flash_attention_wide_sm90.cuh"
 
 namespace {
 
@@ -295,11 +303,36 @@ extern "C" int mdu_flash_attention(const void* q, const void* k, const void* v,
 // Kernel #1's fixed-shift function on the same split-D layout: q, k, v, o
 // contiguous bf16 [bh, L, D]; 1 <= D <= 512. Returns a cudaError_t (0 on a
 // successful launch).
-extern "C" int mdu_flash_attention_fm_wide(const void* q, const void* k, const void* v,
-                                           void* o, int bh, int Lq, int Lk, int D,
-                                           float scale, float smax, int clamp,
-                                           int bf16_exp, int vec, void* stream) {
+extern "C" int mdu_flash_attention_fm_wide_mma(const void* q, const void* k, const void* v,
+                                               void* o, int bh, int Lq, int Lk, int D,
+                                               float scale, float smax, int clamp,
+                                               int bf16_exp, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_exp) return launch_fixed<true>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
   return launch_fixed<false>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, vec, s);
+}
+
+// The warpgroup form (flash_attention_wide_sm90.cuh), online softmax: q, k,
+// v, o contiguous bf16 [bh, L, D], D % 8 == 0, 160 < D <= 512, 16-byte
+// aligned bases. Returns a cudaError_t (0 on a successful launch).
+extern "C" int mdu_flash_attention_wide(const void* q, const void* k, const void* v, void* o,
+                                        int bh, int Lq, int Lk, int D, float scale,
+                                        void* stream) {
+  return (int)mdu::wide::launch<mdu::wide::Online>(q, k, v, o, bh, Lq, Lk, D, scale, 0.f, 0,
+                                                   static_cast<cudaStream_t>(stream));
+}
+
+// The warpgroup form with kernel #1's fixed shift, the same inputs. Returns
+// a cudaError_t (0 on a successful launch).
+extern "C" int mdu_flash_attention_fm_wide(const void* q, const void* k, const void* v,
+                                           void* o, int bh, int Lq, int Lk, int D,
+                                           float scale, float smax, int clamp, int bf16_exp,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using mdu::wide::FixedShift;
+  if (bf16_exp)
+    return (int)mdu::wide::launch<FixedShift<true>>(q, k, v, o, bh, Lq, Lk, D, scale, smax,
+                                                    clamp, s);
+  return (int)mdu::wide::launch<FixedShift<false>>(q, k, v, o, bh, Lq, Lk, D, scale, smax,
+                                                   clamp, s);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's warpgroup kernels
-// (flash_attention_sm90.cuh, flash_attention_f32_sm90.cuh, conv3x3.cu):
+// (flash_attention_sm90.cuh, flash_attention_f32_sm90.cuh,
+// flash_attention_wide_sm90.cuh, conv3x3.cu, conv3x3_f32_sm90.cuh):
 // mbarriers, TMA loads of 2-, 3- and 4-d tensor maps and stores to 4-d ones,
 // wgmma shared-memory descriptors, the wgmma fence, commit and wait, the tf32
 // wgmma products, named barriers, and the host's cuTensorMapEncodeTiled.
@@ -168,7 +169,8 @@ __device__ __forceinline__ void named_arrive(int id) {
 // shared memory, K-major, too. D is m64nN's accumulator: d[4j + i] is row
 // g + 8 (i / 2), column 8j + 2t + i % 2 of the warp's 16 rows. ``acc`` 0
 // overwrites D. N = 8, 16, 24, 32, 40, 48, 64, 80 and 128, the widths that
-// flash_attention_f32_sm90.cuh uses.
+// flash_attention_f32_sm90.cuh uses; Tf32<80>::ss (both operands from shared
+// memory) for conv3x3_f32_sm90.cuh.
 
 // x rounded to the nearest tf32 (ties away from zero, as cvt.rna.tf32.f32
 // rounds, in two integer operations: the conversion measured slower), as
@@ -332,6 +334,24 @@ struct Tf32<80> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+  __device__ __forceinline__ static void ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39}, %40, %41, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 

@@ -19,16 +19,22 @@ wrapper launches a kernel for a CUDA tensor and raises on anything the
 kernels do not take; it runs the plain version only for a CPU tensor. Every
 kernel launch adds one to ``LAUNCHES[name]``.
 
-In bf16, ``flash_attention_fm`` and ``flash_attention_t`` have more than one
-form, chosen by ``bf16_form`` on shape and alignment alone (never on a
-failure), each counted also under ``LAUNCHES["<name>.<form>"]``:
+In bf16, each of the three has more than one form, chosen by ``bf16_form``
+on shape and alignment alone (never on a failure), each counted also under
+``LAUNCHES["<name>.<form>"]``:
 
-* ``sm90``: the warpgroup kernel (``csrc/flash_attention_sm90.cuh``: wgmma,
-  TMA, ping-pong consumers) for D % 8 == 0, 16 <= D <= 160 and 16-byte
-  aligned q, k, v (a tensor map needs 16-byte strides and bases);
-* ``mma``: the ``mma.sync`` kernels for any other D <= 160;
-* ``wide`` (``flash_attention_fm`` only): 160 < D <= 512, the fixed shift on
-  ``flash_attention``'s split-D kernel.
+* ``sm90`` (``flash_attention_fm``, ``flash_attention_t``): the warpgroup
+  kernel (``csrc/flash_attention_sm90.cuh``: wgmma, TMA, ping-pong
+  consumers) for D % 8 == 0, 16 <= D <= 160 and 16-byte aligned q, k, v (a
+  tensor map needs 16-byte strides and bases);
+* ``wide`` (``flash_attention_fm``, ``flash_attention``): the warpgroup
+  kernel of wide heads (``csrc/flash_attention_wide_sm90.cuh``: wgmma, TMA,
+  two consumers splitting D) for D % 8 == 0, 160 < D <= 512 and 16-byte
+  aligned q, k, v;
+* ``mma``: the ``mma.sync`` kernels for any other input: of #1 and #3 up to
+  D = 160, and ``flash_attention``'s split-D kernel up to D = 512;
+* ``wide_mma`` (``flash_attention_fm``): the fixed shift on that split-D
+  kernel, for any other input with 160 < D <= 512.
 
 In fp32, ``flash_attention_fm`` and ``flash_attention`` (and through it
 ``flash_attention_t``) have three forms each, chosen by ``f32_form`` in the
@@ -58,23 +64,28 @@ from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
            "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
-           "flash_attention_t_plain", "bf16_form", "launch_form", "f32_form",
-           "launch_f32_form"]
+           "flash_attention_t_plain", "bf16_exp_ambiguity", "bf16_form", "launch_form",
+           "f32_form", "launch_f32_form"]
 
 MAX_D = {"flash_attention_fm": 512, "flash_attention": 512, "flash_attention_t": 512,
          "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
          "flash_attention_t_f32": 512}
 MMA_MAX_D = 160  # widest head of the mma.sync and warpgroup forms of #1 and #3
-# (library, C function) of each bf16 form of the two kernels that have forms
+# (library, C function) of each bf16 form of each kernel
 FORMS = {
     "flash_attention_fm": {
         "sm90": ("flash_attention_fm", "mdu_flash_attention_fm_sm90"),
         "mma": ("flash_attention_fm", "mdu_flash_attention_fm"),
-        "wide": ("flash_attention", "mdu_flash_attention_fm_wide")},
+        "wide": ("flash_attention", "mdu_flash_attention_fm_wide"),
+        "wide_mma": ("flash_attention", "mdu_flash_attention_fm_wide_mma")},
+    "flash_attention": {
+        "wide": ("flash_attention", "mdu_flash_attention_wide"),
+        "mma": ("flash_attention", "mdu_flash_attention")},
     "flash_attention_t": {
         "sm90": ("flash_attention_t", "mdu_flash_attention_t_sm90"),
         "mma": ("flash_attention_t", "mdu_flash_attention_t")},
 }
+WARPGROUP_FORMS = ("sm90", "wide")  # the forms that take no ``vec`` argument
 # C function of each fp32 form of the two fp32 kernels (library flash_attention_f32)
 F32_FORMS = {
     "flash_attention_fm_f32": {"sm90": "mdu_flash_attention_fm_f32_sm90",
@@ -112,6 +123,41 @@ def flash_attention_fm_plain(q, k, v, scale: Optional[float] = None,
         p = p.to(v.dtype).float()
         den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
         outs.append((torch.matmul(p, vf) / den).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def bf16_exp_ambiguity(q, k, v, scale: Optional[float] = None, smax: float = 30.0,
+                       clamp: bool = False):
+    """How far, element by element, a right kernel with ``bf16_exp`` may be
+    from ``flash_attention_fm_plain`` in fp32 (a check's aid; the port never
+    calls it). Rounding the shifted score e to bf16 (an ulp of 0.125 near
+    -30) makes the function ambiguous wherever e sits near a rounding
+    boundary: q.k summed in another order (any fp32 evaluation is within D *
+    2^-24 * sum_d |q_d k_d| of the exact value) may round it the other way.
+    For each such score, |dp| is the change of its p when e moves by that
+    bound up or down before the rounding; to first order the output moves
+    by sum_j dp_j (v_j - o) / den, so the allowance is sum_j |dp_j| (|v_j| +
+    |o|) / den, which bounds any set of such roundings."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    kf, vf = k.float(), v.float()
+    gamma = q.shape[-1] * 2.0 ** -24 * abs(scale)
+
+    def p_of(e):
+        return torch.exp(e.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+
+    outs = []
+    for i in range(0, q.shape[2], _ROWS):
+        qi = q[:, :, i:i + _ROWS].float()
+        s = torch.matmul(qi, kf.transpose(-1, -2)) * scale
+        if clamp:
+            s = s.clamp(max=smax)
+        e = s - smax
+        reach = gamma * torch.matmul(qi.abs(), kf.abs().transpose(-1, -2))
+        p = p_of(e)
+        dp = (p_of(e + reach) - p).abs() + (p_of(e - reach) - p).abs()
+        den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+        o = torch.matmul(p, vf) / den
+        outs.append((torch.matmul(dp, vf.abs()) + dp.sum(-1, keepdim=True) * o.abs()) / den)
     return torch.cat(outs, dim=2)
 
 
@@ -184,28 +230,30 @@ def _launch(name: str, library: str, fn_name: str, q, k, v, *extra,
 
 
 def bf16_form(name: str, q, k, v) -> str:
-    """The form of kernel ``name`` that takes bf16 q, k, v: ``sm90`` for D % 8
-    == 0, 16 <= D <= 160 and 16-byte aligned bases; else ``mma`` up to D =
-    160; else ``wide`` (``flash_attention_fm``)."""
+    """The form of kernel ``name`` that takes bf16 q, k, v. With D % 8 == 0
+    and 16-byte aligned bases: ``sm90`` for 16 <= D <= 160 (#1, #3), ``wide``
+    for 160 < D <= 512 (#1, #2). Otherwise ``mma``, which for #1 above D =
+    160 is ``wide_mma``."""
     D = q.shape[-1]
-    if D > MMA_MAX_D:
-        return "wide"
-    if D % 8 == 0 and 16 <= D and aligned16(q, k, v):
-        return "sm90"
-    return "mma"
+    if D % 8 == 0 and aligned16(q, k, v):
+        if D > MMA_MAX_D:
+            return "wide"
+        if D >= 16 and name != "flash_attention":
+            return "sm90"
+    return "wide_mma" if name == "flash_attention_fm" and D > MMA_MAX_D else "mma"
 
 
 def launch_form(name: str, form: str, q, k, v, scale: Optional[float] = None,
                 smax: float = 30.0, clamp: bool = False, bf16_exp: bool = False):
-    """Launch one bf16 form of ``flash_attention_fm`` or ``flash_attention_t``
-    on checked inputs (the wrappers pass ``bf16_form``'s choice; a benchmark
-    may time another form that takes the same inputs)."""
+    """Launch one bf16 form of ``name`` on checked inputs (the wrappers pass
+    ``bf16_form``'s choice; a benchmark may time another form that takes the
+    same inputs)."""
     library, fn_name = FORMS[name][form]
     args = [ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)]
     if name == "flash_attention_fm":
         args += [ctypes.c_float(smax), ctypes.c_int(int(bool(clamp))),
                  ctypes.c_int(int(bool(bf16_exp)))]
-    if form != "sm90":
+    if form not in WARPGROUP_FORMS:
         args.append(_vec_ok(q, k, v))
     return _launch(name, library, fn_name, q, k, v, *args, form=form)
 
@@ -255,16 +303,16 @@ def flash_attention_fm(q, k, v, scale: Optional[float] = None,
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
     """Online-softmax flash attention on [B, H, L, D] (non-causal). bf16
-    launches ``csrc/flash_attention.cu``; fp32 the form ``f32_form`` picks."""
+    launches the form ``bf16_form`` picks; fp32 the form ``f32_form``
+    picks."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _check("flash_attention", q, k, v)
     if q.dtype == torch.float32:
         name = "flash_attention_f32"
         return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale)
-    scale = ctypes.c_float(q.shape[-1] ** -0.5 if scale is None else scale)
-    return _launch("flash_attention", "flash_attention", "mdu_flash_attention",
-                   q, k, v, scale, _vec_ok(q, k, v))
+    return launch_form("flash_attention", bf16_form("flash_attention", q, k, v),
+                       q, k, v, scale)
 
 
 def flash_attention_t(q, k, v, scale: Optional[float] = None):
@@ -276,8 +324,9 @@ def flash_attention_t(q, k, v, scale: Optional[float] = None):
     to kernels that compute the very same function, and count under their
     names: bf16 with 160 < D <= 512
     (the VAE's D = 512, where padding to 16 and to 128 coincide) launches
-    ``flash_attention``'s kernel; fp32 launches the fp32 form of
-    ``flash_attention`` that ``f32_form`` picks (``flash_attention_f32``)."""
+    the form of ``flash_attention`` that ``bf16_form`` picks; fp32 launches
+    the fp32 form of ``flash_attention`` that ``f32_form`` picks
+    (``flash_attention_f32``)."""
     if q.device.type == "cpu":
         return flash_attention_t_plain(q, k, v, scale)
     _check("flash_attention_t", q, k, v)

@@ -7,10 +7,13 @@ A run resets the counts with ``reset_launches()`` and reads ``LAUNCHES``
 after it, to show which kernels its path went through. Where a kernel has
 more than one form, ``LAUNCHES["<name>.<form>"]`` also counts the launches of
 that form (``.sm90``: the warpgroup kernels; ``.mma``: the mma.sync kernels,
-of #1, #3 and #6; ``flash_attention_fm.wide``: the fixed shift at D > 160;
-``flash_attention_fm_f32`` and ``flash_attention_f32`` (the fp32 kernels of
-#1 and #2): ``.sm90`` (wgmma, three TF32 passes), ``.wide`` (mma.sync in
-TF32 at D > 160) and ``.simt`` (the CUDA cores)).
+of #1, #2, #3 and #6; ``flash_attention.wide`` and
+``flash_attention_fm.wide``: the bf16 warpgroup kernel of heads wider than
+160, and ``flash_attention_fm.wide_mma``: the fixed shift on #2's split-D
+mma.sync kernel; ``flash_attention_fm_f32``, ``flash_attention_f32`` and
+``fused_conv3x3_f32`` (the fp32 kernels of #1, #2 and #6): ``.sm90`` (wgmma,
+three TF32 passes), ``.wide`` (mma.sync in TF32 at D > 160) and ``.simt``
+(the CUDA cores)).
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ LAUNCHES = {
     "flash_attention_fm_f32.sm90": 0, "flash_attention_fm_f32.wide": 0,
     "flash_attention_fm_f32.simt": 0, "flash_attention_f32.sm90": 0,
     "flash_attention_f32.wide": 0, "flash_attention_f32.simt": 0,
+    "flash_attention.wide": 0, "flash_attention.mma": 0, "flash_attention_fm.wide_mma": 0,
+    "fused_conv3x3_f32.sm90": 0, "fused_conv3x3_f32.simt": 0,
 }
 
 

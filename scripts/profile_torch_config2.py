@@ -36,15 +36,15 @@ FAMILIES = [
     ("flash_attention_fm (fp32)", r"flash_f32_(sm90|wide)_kernel.*Fixed"
                                   r"|flash_f32_kernel<\d+, true|flash_f32_kernelILi\d+ELb1"),
     ("flash_attention (fp32)", r"flash_f32_"),
-    # the warpgroup kernel by its policy; #1's wide form is #2's kernel with
-    # FIXED = true (demangled or not)
-    ("flash_attention_fm", r"flash_fm_kernel|flash_sm90_kernel.*FixedShift"
+    # the warpgroup kernels by their policy; #1's wide forms are #2's kernels
+    # with the fixed shift (FIXED = true in the mma.sync one; demangled or not)
+    ("flash_attention_fm", r"flash_fm_kernel|flash_(wide_)?sm90_kernel.*FixedShift"
                            r"|flash_kernel<\d+, true|flash_kernelILi\d+ELb1"),
     ("flash_attention_t", r"flash_t_kernel|flash_sm90_kernel.*Online"),
-    ("flash_attention", r"flash_kernel"),
+    ("flash_attention", r"flash_kernel|flash_wide_sm90_kernel"),
     ("fused_group_norm", r"gn_kernel"),
     ("fused_tile_blend", r"blend_kernel"),
-    ("fused_conv3x3", r"conv_bf16_kernel|conv_sm90_kernel|conv_f32_kernel"),
+    ("fused_conv3x3", r"conv_bf16_kernel|conv_sm90_kernel|conv_f32_kernel|conv_f32_sm90_kernel"),
     ("conv (cuDNN / implicit GEMM)", r"conv|implicit|cudnn|xmma_fprop|sm90_xmma|winograd|fprop"),
     ("matmul (cuBLAS)", r"gemm|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),

@@ -225,9 +225,10 @@ def _recording_launch(monkeypatch):
 
 
 def test_fm_at_wide_bf16_heads_takes_the_wide_form(monkeypatch):
-    """fm / fm16 on the VAE's D = 512 in bf16 launch the fixed shift on
-    flash_attention's split-D kernel (mdu_flash_attention_fm_wide), counted
-    under flash_attention_fm, with no raise."""
+    """fm / fm16 on the VAE's D = 512 in bf16 launch the fixed shift on the
+    wide warpgroup kernel of flash_attention's library
+    (mdu_flash_attention_fm_wide), counted under flash_attention_fm, with no
+    raise."""
     calls = _recording_launch(monkeypatch)
     q = torch.zeros(1, 1, 8, 512, dtype=torch.bfloat16, device="meta")
     for kw in ({}, {"bf16_exp": True}):
@@ -240,32 +241,55 @@ def test_fm_at_wide_bf16_heads_takes_the_wide_form(monkeypatch):
     assert flash_mod.MAX_D["flash_attention_fm"] == 512
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fm", "flash_attention_t"])
-@pytest.mark.parametrize("D,form", [(40, "sm90"), (64, "sm90"), (80, "sm90"),
-                                    (160, "sm90"), (16, "sm90"), (4, "mma"),
-                                    (13, "mma"), (72, "sm90"), (100, "mma")])
-def test_bf16_form_rule(monkeypatch, name, D, form):
-    """Aligned bf16 with D % 8 == 0 and 16 <= D <= 160 go to the warpgroup
-    form, other heads to the mma.sync form; the wrapper launches the C
-    function of the form the rule picks."""
+_NARROW = [(40, "sm90"), (64, "sm90"), (80, "sm90"), (160, "sm90"), (16, "sm90"), (4, "mma"),
+           (13, "mma"), (72, "sm90"), (100, "mma")]
+# above D = 160: #1 and #2 take the wide warpgroup form for D % 8 == 0, else
+# the split-D mma.sync kernel (#1's wide_mma); #3 runs #2's form there
+_WIDE = [(168, "wide", "wide"), (200, "wide", "wide"), (512, "wide", "wide"),
+         (164, "wide_mma", "mma"), (300, "wide_mma", "mma"), (508, "wide_mma", "mma")]
+
+
+@pytest.mark.parametrize("D,form,name", [
+    *[(D, form, name) for D, form in _NARROW
+      for name in ("flash_attention_fm", "flash_attention_t")],
+    *[(D, "mma", "flash_attention") for D, _ in _NARROW],
+    *[(D, fm, "flash_attention_fm") for D, fm, _ in _WIDE],
+    *[(D, other, name) for D, _, other in _WIDE
+      for name in ("flash_attention", "flash_attention_t")]])
+def test_bf16_form_rule(monkeypatch, D, form, name):
+    """Aligned bf16 with D % 8 == 0 goes to a warpgroup form, sm90 for 16 <=
+    D <= 160 (#1, #3) and wide for 160 < D <= 512 (#1, #2); other heads, and
+    every #2 head up to 160, to an mma.sync form (#1's split-D one above 160
+    is wide_mma). #3 above 160 runs #2's form, counted under #2. The
+    wrapper launches the C function of the form the rule picks."""
     calls = _recording_launch(monkeypatch)
     q = torch.zeros(1, 1, 8, D, dtype=torch.bfloat16, device="meta")
-    assert flash_mod.bf16_form(name, q, q, q) == form
-    fn = flash_attention_fm if name == "flash_attention_fm" else flash_attention_t
+    fn = {"flash_attention_fm": flash_attention_fm, "flash_attention_t": flash_attention_t,
+          "flash_attention": flash_attention}[name]
     fn(q, q, q)
-    assert calls[0][:4] == (name, name, flash_mod.FORMS[name][form][1], form)
+    runs = "flash_attention" if name == "flash_attention_t" and D > 160 else name
+    assert flash_mod.bf16_form(runs, q, q, q) == form
+    assert calls[0][:4] == (runs, *flash_mod.FORMS[runs][form], form)
+    # (q, k, v, out, bh, Lq, Lk, D, scale) + (smax, clamp, bf16_exp) + (vec)
+    n_args = (9 + 3 * (runs == "flash_attention_fm")
+              + (form not in flash_mod.WARPGROUP_FORMS))
+    assert len(calls[0][4]) == n_args
 
 
 def test_unaligned_bf16_goes_to_the_mma_form():
-    """A base off a 16-byte boundary cannot carry a tensor map."""
-    base = torch.zeros(8 * 40 + 1, dtype=torch.bfloat16)
-    q = base[1:].view(1, 1, 8, 40)
-    ok = torch.zeros(1, 1, 8, 40, dtype=torch.bfloat16)
-    assert q.is_contiguous() and q.data_ptr() % 16 != 0
-    for name in ("flash_attention_fm", "flash_attention_t"):
-        assert flash_mod.bf16_form(name, ok, ok, ok) == "sm90"
-        assert flash_mod.bf16_form(name, q, ok, ok) == "mma"
-        assert flash_mod.bf16_form(name, ok, ok, q) == "mma"
+    """A base off a 16-byte boundary cannot carry a tensor map: at D = 40
+    (#1, #3) and at D = 512 (#1, #2: the split-D mma.sync kernel)."""
+    for D, names, aligned_form, mma_form in (
+            (40, ("flash_attention_fm", "flash_attention_t"), "sm90", "mma"),
+            (512, ("flash_attention_fm",), "wide", "wide_mma"),
+            (512, ("flash_attention",), "wide", "mma")):
+        q = _off16((1, 1, 8, D), torch.bfloat16, True)
+        ok = torch.zeros(1, 1, 8, D, dtype=torch.bfloat16)
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+        for name in names:
+            assert flash_mod.bf16_form(name, ok, ok, ok) == aligned_form
+            assert flash_mod.bf16_form(name, q, ok, ok) == mma_form
+            assert flash_mod.bf16_form(name, ok, ok, q) == mma_form
 
 
 @pytest.mark.parametrize("name", ["flash_attention_fm_f32", "flash_attention_f32"])
@@ -347,6 +371,104 @@ def test_conv_form_rule(monkeypatch, C, Co, off, form):
     # (x, packed, scale, shift, y, B, H, W, C, Cp, Co, fuse_act) + (is_bf16, vec)
     assert calls == [("fused_conv3x3", "conv3x3", conv_mod.FORMS[form], form,
                       12 if form == "sm90" else 14)]
+
+
+@pytest.mark.parametrize("C,Co,off,form", [
+    (320, 320, None, "sm90"), (640, 320, None, "sm90"), (320, 640, None, "sm90"),
+    (16, 40, None, "sm90"), (48, 200, None, "sm90"),
+    (24, 40, None, "simt"), (12, 40, None, "simt"), (40, 40, None, "simt"),  # C % 16
+    (320, 20, None, "simt"),                                               # Co % 8
+    (320, 40, "x", "simt"), (320, 40, "packed", "simt"), (320, 40, "scale", "simt"),
+    (320, 40, "shift", "simt")])
+def test_conv_f32_form_rule(monkeypatch, C, Co, off, form):
+    """fp32 with C % 16 == 0, Co % 8 == 0 and every operand on a 16-byte
+    boundary goes to the warpgroup form (three TF32 products), anything else
+    to the CUDA-core form; the launch takes the C function of the form it is
+    given and counts it under it."""
+    from mdu_tpu_torch.ops.kernels import conv3x3 as conv_mod
+
+    B, H, W = 1, 4, 8
+    Cp = -(-C // conv_mod.K_CHUNK) * conv_mod.K_CHUNK
+    f32 = torch.float32
+    x = _off16((B, H, W, C), f32, off == "x")
+    packed = _off16((2, Co, 9 * Cp), f32, off == "packed")
+    scale = _off16((B, C), f32, off == "scale")
+    shift = _off16((B, C), f32, off == "shift")
+    assert conv_mod.packed_shape(C, Co, f32) == tuple(packed.shape)
+    assert conv_mod.conv_f32_form(x, packed, scale, shift) == form
+    calls = []
+    monkeypatch.setattr(conv_mod, "launch", lambda name, lib, fn, dev, *args, form=None:
+                        calls.append((name, lib, fn, form, [getattr(a, "value", None)
+                                                            for a in args])))
+    y = conv_mod.launch_f32_form(form, x, packed, scale, shift, True)
+    assert y.shape == (B, H, W, Co) and y.dtype == f32
+    # (x, packed, scale, shift, y, B, H, W, C, Cp, Co, fuse_act) + (is_bf16, vec)
+    assert [c[:4] for c in calls] == [("fused_conv3x3_f32", "conv3x3",
+                                       conv_mod.F32_FORMS[form], form)]
+    assert calls[0][4][5:] == [B, H, W, C, Cp, Co, 1] + ([0, 0] if form == "simt" else [])
+
+
+def _tf32_rna(x):
+    """x rounded to tf32, to the nearest with ties away from zero."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """x as the tensor cores read an fp32 word in tf32: the low 13 mantissa
+    bits dropped."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_conv_f32_three_tf32_passes_keep_fp32_precision(rng):
+    """The fp32 warpgroup conv's arithmetic (csrc/conv3x3_f32_sm90.cuh),
+    emulated in numpy on a [1, 6, 10, 32] -> 16 fused conv: the weight split
+    at pack time (big + small is the weight, big a tf32 value), the
+    activated and zero-padded input split the same way, small read as the
+    tensor cores read it, As.Bb + Ab.Bs + Ab.Bb with each 16-channel chunk
+    summed on its own and then added in fp32: within the kernel's 1e-4 bar of
+    the fp32 plain version, where one TF32 pass is not."""
+    from mdu_tpu_torch.ops.kernels import conv3x3 as conv_mod
+
+    B, H, W, C, Co = 1, 6, 10, 32, 16
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, C, Co)) / np.sqrt(9 * C)).astype(np.float32)
+    scale = (1 + 0.5 * rng.normal(size=(B, C))).astype(np.float32)
+    shift = (0.2 * rng.normal(size=(B, C))).astype(np.float32)
+    want = fused_conv3x3_plain(*_t(x, w, scale, shift), fuse_act=True).numpy()
+
+    packed = conv_mod.pack_conv3x3_weight(torch.from_numpy(w)).numpy()
+    Cp = packed.shape[-1] // 9
+    assert packed.shape == (2, Co, 9 * Cp)
+    big, small = packed
+    assert np.array_equal(big, _tf32_rna(big)) and np.array_equal(big, _tf32_rna(big + small))
+    assert np.array_equal(big + small, conv_mod.pack_conv3x3_weight(
+        torch.from_numpy(w).double()).float().numpy())
+    wb = big.reshape(Co, 3, 3, Cp)[..., :C]
+    ws = _tf32_trunc(small).reshape(Co, 3, 3, Cp)[..., :C]
+
+    xf = x * scale[:, None, None, :] + shift[:, None, None, :]
+    a = np.pad(xf / (1 + np.exp(-xf)), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    ab = _tf32_rna(a)
+    as_ = _tf32_trunc(a - ab)
+
+    def conv(av, wv, c0):
+        """sum over the 9 taps and the channels c0 .. c0 + 15, in fp32"""
+        out = np.zeros((B, H, W, Co), np.float32)
+        for dy in range(3):
+            for dx in range(3):
+                win = av[:, dy:dy + H, dx:dx + W, c0:c0 + 16]
+                out += np.einsum("bhwc,oc->bhwo", win, wv[:, dy, dx, c0:c0 + 16])
+        return out
+
+    got = np.zeros((B, H, W, Co), np.float32)
+    one_pass = np.zeros((B, H, W, Co), np.float32)
+    for c0 in range(0, C, 16):
+        got += conv(as_, wb, c0) + conv(ab, ws, c0) + conv(ab, wb, c0)
+        one_pass += conv(ab, _tf32_rna(wb + ws), c0)
+    assert np.abs(got - want).max() <= 1e-4
+    assert np.abs(one_pass - want).max() > 1e-4
 
 
 def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):

@@ -11,6 +11,7 @@ from mdu_tpu.ops.attention import sdpa as jax_sdpa
 from mdu_tpu.ops.pallas import flash_attention as jax_flash
 from mdu_tpu.ops.pallas import flash_attention_t_fm as jax_flash_fm
 from mdu_tpu_torch.ops import attention as port_attention
+from mdu_tpu_torch.ops import kernels as port_kernels
 from mdu_tpu_torch.ops.kernels import (LAUNCHES, flash_attention, flash_attention_fm,
                                        flash_attention_fm_plain, flash_attention_plain)
 
@@ -187,3 +188,35 @@ def test_three_tf32_passes_keep_fp32_precision(rng, shape, online):
     one_pass = _emulated_attention(q, k, v, lambda a, b: _tf32_trunc(a) @ _tf32_trunc(b),
                                    online)
     assert np.abs(one_pass - want).max() > 1e-4
+
+
+def test_bf16_exp_ambiguity_bounds_each_other_rounding(rng):
+    """``bf16_exp_ambiguity`` (the allowance of the bf16_exp checks) bounds,
+    element by element, the change of the fp32 plain version when any one
+    score within the fp32 error bound D 2^-24 sum |q_d k_d| of a bf16
+    rounding boundary rounds the other way, and is 0 in the rows where no
+    score can."""
+    D, L = 16, 400
+    q, k, v = (rng.normal(size=(1, 1, L, D)).astype(np.float32) for _ in range(3))
+    tq, tk, tv = _t(q, k, v)
+    ref = flash_attention_fm_plain(tq, tk, tv, bf16_exp=True)
+    allow = port_kernels.bf16_exp_ambiguity(tq, tk, tv)
+    scale = D ** -0.5
+    e = torch.matmul(tq, tk.transpose(-1, -2)) * scale - 30.0
+    reach = D * 2.0 ** -24 * scale * torch.matmul(tq.abs(), tk.abs().transpose(-1, -2))
+    e16 = e.to(torch.bfloat16).float()
+    up, down = ((e + reach).to(torch.bfloat16).float(), (e - reach).to(torch.bfloat16).float())
+    p = torch.exp(e16).to(torch.bfloat16).float()
+    flips = 0
+    for i, j in zip(*torch.nonzero((up != e16) | (down != e16), as_tuple=True)[2:]):
+        for alt in (up, down):
+            if alt[0, 0, i, j] == e16[0, 0, i, j]:
+                continue
+            pa = p[0, 0, i].clone()
+            pa[j] = torch.exp(alt[0, 0, i, j]).to(torch.bfloat16).float()
+            moved = (pa @ tv[0, 0]) / pa.sum() - ref[0, 0, i]
+            assert (moved.abs() <= allow[0, 0, i] * 1.01 + 1e-7).all()
+            flips += 1
+    assert flips > 0
+    ambiguous_rows = ((up != e16) | (down != e16)).any(-1)
+    assert (allow[~ambiguous_rows] == 0).all()
