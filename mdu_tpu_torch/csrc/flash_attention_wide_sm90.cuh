@@ -419,11 +419,9 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (threadIdx.x == 0) {
       // the slices of rows row.. of one operand: D / 16 whole ones in one
       // box, the rest one box each (zero past D)
-      const int nfull = D / SLICE;
       auto load = [&](uint32_t dst, const CUtensorMap* m4, const CUtensorMap* m3, uint32_t bar,
                       int row, int slice_bytes) {
-        tma_load_4d(dst, m4, bar, 0, row, 0, bh);
-        for (int c = nfull; c < L::NS; ++c)
+        for (int c = 0; c < L::NS; ++c)
           tma_load_3d(dst + c * slice_bytes, m3, bar, c * SLICE, row, bh);
       };
       mbar_arrive_expect_tx(bars, L::Q_BYTES);
