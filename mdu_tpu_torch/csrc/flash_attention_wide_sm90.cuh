@@ -419,9 +419,11 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (threadIdx.x == 0) {
       // the slices of rows row.. of one operand: D / 16 whole ones in one
       // box, the rest one box each (zero past D)
+      const int nfull = D / SLICE;
       auto load = [&](uint32_t dst, const CUtensorMap* m4, const CUtensorMap* m3, uint32_t bar,
                       int row, int slice_bytes) {
-        for (int c = 0; c < L::NS; ++c)
+        tma_load_4d(dst, m4, bar, 0, row, 0, bh);
+        for (int c = nfull; c < L::NS; ++c)
           tma_load_3d(dst + c * slice_bytes, m3, bar, c * SLICE, row, bh);
       };
       mbar_arrive_expect_tx(bars, L::Q_BYTES);
@@ -464,11 +466,9 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
       const uint32_t ks = kstage(st);
 #pragma unroll
-      for (int c = 0; c < HALF; ++c) {
-        const int cc = cw * HALF + c;
-        wgmma_ss_n32(s, desc_b32(sq + cc * L::Q_SLICE, 16, 256),
-                     desc_b32(ks + cc * L::KV_SLICE, 16, 256), c > 0);
-      }
+      for (int c = 0; c < L::NS; ++c)
+        wgmma_ss_n32(s, desc_b32(sq + c * L::Q_SLICE, 16, 256),
+                     desc_b32(ks + c * L::KV_SLICE, 16, 256), c > 0);
       wgmma_commit();
     };
     auto issue_pv = [&](int st) {
@@ -528,7 +528,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     issue_qk(0);
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(kempty(0));
-    exchange(0);
     pol.exps(s, kvalid, t, ragged && ntiles == 1, corr);
     pack(s, p);
 
@@ -546,7 +545,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<1>();                      // S of tile it + 1 has landed
       if (lane == 0) mbar_arrive(kempty(sn));
       // its exchange and exps run while P.V of tile it is in flight
-      exchange((it + 1) & 1);
       pol.exps(s, kvalid, t, ragged && it + 2 == ntiles, corr);
       wgmma_wait<0>();
 #pragma unroll
