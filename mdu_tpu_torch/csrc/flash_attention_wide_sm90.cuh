@@ -466,9 +466,11 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
       const uint32_t ks = kstage(st);
 #pragma unroll
-      for (int c = 0; c < L::NS; ++c)
-        wgmma_ss_n32(s, desc_b32(sq + c * L::Q_SLICE, 16, 256),
-                     desc_b32(ks + c * L::KV_SLICE, 16, 256), c > 0);
+      for (int c = 0; c < HALF; ++c) {
+        const int cc = cw * HALF + c;
+        wgmma_ss_n32(s, desc_b32(sq + cc * L::Q_SLICE, 16, 256),
+                     desc_b32(ks + cc * L::KV_SLICE, 16, 256), c > 0);
+      }
       wgmma_commit();
     };
     auto issue_pv = [&](int st) {
@@ -528,6 +530,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     issue_qk(0);
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(kempty(0));
+    exchange(0);
     pol.exps(s, kvalid, t, ragged && ntiles == 1, corr);
     pack(s, p);
 
@@ -545,6 +548,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<1>();                      // S of tile it + 1 has landed
       if (lane == 0) mbar_arrive(kempty(sn));
       // its exchange and exps run while P.V of tile it is in flight
+      exchange((it + 1) & 1);
       pol.exps(s, kvalid, t, ragged && it + 2 == ntiles, corr);
       wgmma_wait<0>();
 #pragma unroll
