@@ -109,7 +109,7 @@ constexpr int PLANE_BYTES = 5504;         // ... rounded up to 128 (a TMA destin
 constexpr int PART_BYTES = NPL * PLANE_BYTES;     // big or small of a chunk
 constexpr int HALO_BYTES = 2 * PART_BYTES;        // big, then small
 constexpr int NH = 3;                     // halo buffers
-constexpr int BN = 160;                   // output channels of a block
+constexpr int BN = 80;                    // output channels of a block
 constexpr int NACC = BN / 2;              // accumulator registers of one m64 tile
 constexpr int W_BOX = BN * 8 * 4;         // 8 K columns of 80 rows: one k-step, 2560 bytes
 constexpr int W_STAGE = 2 * (BKC / 8) * W_BOX;    // one tap of a chunk, both parts: 10240
@@ -265,12 +265,12 @@ conv_f32_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     const int warp = tid / 32;
     const int lane = tid % 32;
 
-    float acc[2][NACC];                   // the output's products, over all of K
+    float acc[2][NACC];                   // the chunk's products
+    float out[2][NACC];                   // the output's sum, in fp32 on the CUDA cores
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int r = 0; r < NACC; ++r) acc[i][r] = 0.f;
-    int k0 = 0;                           // the chunk being issued
+      for (int r = 0; r < NACC; ++r) acc[i][r] = out[i][r] = 0.f;
 
     const int orow = 16 * cw;             // this consumer's first output row
     // the products of one tap of chunk k (stage st, halo buffer h); the
@@ -285,7 +285,7 @@ conv_f32_sm90_kernel(const __grid_constant__ CUtensorMap mx,
       for (int s = 0; s < BKC / 8; ++s) {
         const uint64_t bb = desc_b32(wstage(st) + s * W_BOX, 16, 256);
         const uint64_t bs = desc_b32(wstage(st) + (BKC / 8 + s) * W_BOX, 16, 256);
-        const int keep = k0 > 0 || tap > 0 || s > 0;
+        const int keep = tap > 0 || s > 0;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const uint32_t ai = a0 + 2 * s * PLANE_BYTES + i * 8 * HW * 16;
@@ -301,7 +301,6 @@ conv_f32_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     int it = 0;                           // chunk * 9 + tap
     for (int k = 0; k < nchunks; ++k) {
       const int h = k % NH;
-      k0 = k;
       mbar_wait(hready(h), (k / NH) & 1);
 #pragma unroll 1
       for (int tap = 0; tap < 8; ++tap, ++it) {
@@ -323,11 +322,14 @@ conv_f32_sm90_kernel(const __grid_constant__ CUtensorMap mx,
         mbar_arrive(hempty(h));
       }
       ++it;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < NACC; ++r) {
+          fence_reg(acc[i][r]);
+          out[i][r] += acc[i][r];
+        }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < NACC; ++r) fence_reg(acc[i][r]);
 
     // out[i][4j + 2hh + e]: m64 row 16 warp + g + 8 hh = row r = 8 i + 2 warp
     // + hh of this consumer's 16 x 8 pixels, column g; output channel n0 + 8 j
@@ -347,7 +349,7 @@ conv_f32_sm90_kernel(const __grid_constant__ CUtensorMap mx,
           const int co = n0 + 8 * j + 2 * t;
           if (co < Co)
             *reinterpret_cast<float2*>(yr + co) =
-                make_float2(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+                make_float2(out[i][4 * j + 2 * hh], out[i][4 * j + 2 * hh + 1]);
         }
       }
     }
