@@ -113,7 +113,7 @@ constexpr int BN = 80;                    // output channels of a block
 constexpr int NACC = BN / 2;              // accumulator registers of one m64 tile
 constexpr int W_BOX = BN * 8 * 4;         // 8 K columns of 80 rows: one k-step, 2560 bytes
 constexpr int W_STAGE = 2 * (BKC / 8) * W_BOX;    // one tap of a chunk, both parts: 10240
-constexpr int STAGES = 4;                 // the weight ring
+constexpr int STAGES = 8;                 // the weight ring
 constexpr int OFF_HALO = STAGES * W_STAGE;
 constexpr int OFF_BAR = OFF_HALO + NH * HALO_BYTES;
 constexpr int SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 3 * NH) + 1024;
