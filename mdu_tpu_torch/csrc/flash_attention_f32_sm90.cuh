@@ -116,13 +116,6 @@ __device__ __forceinline__ uint32_t small_of(float x, uint32_t big) {
   return __float_as_uint(x - __uint_as_float(big));
 }
 
-// A finite float rounded to the nearest bf16 (ties to even), as a float.
-__device__ __forceinline__ float round_bf16(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
 // 1 / the denominator of a row whose partial sums are in the 4 lanes of a
 // quad (the accumulator layout)
 __device__ __forceinline__ float inv_of_quad(float x) {

@@ -72,30 +72,6 @@ constexpr int THREE_CONSUMERS_MAX_DP = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
 
-// ------------------------------------------------------------ helpers
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// p of one tile, rounded to bf16, as the A fragments of P.V
-__device__ __forceinline__ void pack(const float (&s)[64], uint32_t (&p)[32]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    p[2 * j] = pack2(s[4 * j], s[4 * j + 1]);
-    p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3]);
-  }
-}
-
-// A finite float rounded to the nearest bf16 (ties to even), as a float, in
-// integer operations (a conversion would share the exp's quarter-rate pipe).
-__device__ __forceinline__ float round_bf16(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
 // ------------------------------------------------------- wgmma instructions
 
 // S (+)= A B^T, m64n128k16: A and B from shared memory, both K-major.
@@ -573,28 +549,13 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 
 // --------------------------------------------------------------------- host
 
-// A contiguous [bh, L, D] bf16 tensor as a 3-d tensor map whose box is one
-// 16-column slice of ``rows`` rows, 32-byte swizzled; the TMA fills columns
-// past D and rows past L with zeros.
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int L, int D, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)SLICE, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP, class Policy>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, int bh, int Lq,
                       int Lk, int D, float scale, float smax, int clamp, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   constexpr int BQ = Smem<DP>::BQ;
-  if (!tensor_map(&mq, q, bh, Lq, D, BQ) || !tensor_map(&mk, k, bh, Lk, D, BK) ||
-      !tensor_map(&mv, v, bh, Lk, D, BK))
+  if (!slice_map_bf16(&mq, q, bh, Lq, D, BQ) || !slice_map_bf16(&mk, k, bh, Lk, D, BK) ||
+      !slice_map_bf16(&mv, v, bh, Lk, D, BK))
     return cudaErrorInvalidValue;
   const int smem = Smem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<DP, Policy>,

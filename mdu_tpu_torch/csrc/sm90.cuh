@@ -3,10 +3,12 @@
 // flash_attention_wide_sm90.cuh, conv3x3.cu, conv3x3_f32_sm90.cuh):
 // mbarriers, TMA loads of 2-, 3- and 4-d tensor maps and stores to 4-d ones,
 // wgmma shared-memory descriptors, the wgmma fence, commit and wait, the tf32
-// wgmma products, named barriers, and the host's cuTensorMapEncodeTiled.
+// wgmma products, named barriers, bf16 packing and rounding, and on the host
+// cuTensorMapEncodeTiled and the bf16 16-column slice map of the flash kernels.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -155,6 +157,33 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// ------------------------------------------------------------ bf16 values
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// p of one score tile, rounded to bf16, as the A fragments of P.V: the
+// accumulator of m64nN (s[4j + i] is row g + 8 (i / 2), column 8j + 2t + i %
+// 2 of each warp's 16 rows) packed to bf16x2, two registers per 8 columns.
+template <int N>
+__device__ __forceinline__ void pack(const float (&s)[N], uint32_t (&p)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    p[2 * j] = pack2(s[4 * j], s[4 * j + 1]);
+    p[2 * j + 1] = pack2(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+// A finite float rounded to the nearest bf16 (ties to even), as a float, in
+// integer operations (a conversion would share the exp's quarter-rate pipe).
+__device__ __forceinline__ float round_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
 }
 
 // ------------------------------------------------------ tf32 wgmma products
@@ -409,6 +438,21 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(entry);
   }
   return fn;
+}
+
+// A contiguous [bh, L, D] bf16 tensor as a 3-d tensor map whose box is one
+// 16-column slice of ``rows`` rows, 32-byte swizzled; the TMA fills columns
+// past D and rows past L with zeros.
+inline bool slice_map_bf16(CUtensorMap* map, const void* ptr, int bh, int L, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {16, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90
