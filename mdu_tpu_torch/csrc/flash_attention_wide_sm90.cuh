@@ -84,51 +84,6 @@ constexpr int SLICE = 16;        // columns of one shared-memory slice (32 bytes
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
 
-// ------------------------------------------------------ the block pair
-//
-// The two blocks of a cluster (adjacent query blocks of one head) share each
-// K and V tile: each loads half of its slices and multicasts them to both.
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of both blocks that has not exited
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// an arrival on the mbarrier at the same offset in block ``rank``
-__device__ __forceinline__ void mbar_arrive_in(uint32_t bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-               :: "r"(remote) : "memory");
-}
-
-// tma_load_3d / tma_load_4d (sm90.cuh) into the same offset of both blocks,
-// completing on the mbarrier at the same offset in each
-__device__ __forceinline__ void tma_load_3d_pair(uint32_t dst, const CUtensorMap* map,
-                                                 uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar), "h"((uint16_t)3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d_pair(uint32_t dst, const CUtensorMap* map,
-                                                 uint32_t bar, int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(c3), "r"(bar), "h"((uint16_t)3)
-      : "memory");
-}
-
 // ------------------------------------------------------- wgmma instructions
 
 // S (+)= A B^T, m64n32k16: A and B from shared memory, both K-major.
@@ -397,7 +352,7 @@ struct Smem {
 };
 
 template <int DP, class Policy>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(384, 1)
 flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mk,
                        const __grid_constant__ CUtensorMap mv,
@@ -423,54 +378,43 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   const int q0 = blockIdx.x * BQ;
   const int ntiles = (Lk + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
-  const uint32_t rank = cluster_rank();
 
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(kfull(st), 1);
       mbar_init(vfull(st), 1);
-      mbar_init(kempty(st), 16);            // one arrival per consumer warp of both blocks
-      mbar_init(vempty(st), 16);
+      mbar_init(kempty(st), 8);             // one arrival per consumer warp
+      mbar_init(vempty(st), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();                           // the peer's barriers are ready too
+  __syncthreads();
 
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      // Q's slices: the D / 16 whole ones in one box, the rest one box each
-      // (zero past D)
+      // the slices of rows row.. of one operand: D / 16 whole ones in one
+      // box, the rest one box each (zero past D)
       const int nfull = D / SLICE;
-      mbar_arrive_expect_tx(bars, L::Q_BYTES);
-      tma_load_4d(sq, &mq4, bars, 0, q0, 0, bh);
-      for (int c = nfull; c < L::NS; ++c)
-        tma_load_3d(sq + c * L::Q_SLICE, &mq, bars, c * SLICE, q0, bh);
-      // this block's half of a K or V tile's slices, to both blocks: in one
-      // box where they are whole, else one box each
-      const int c0 = rank * HALF;
-      const bool whole = c0 + HALF <= nfull;
-      auto load_half = [&](uint32_t dst, const CUtensorMap* m4, const CUtensorMap* m3,
-                           uint32_t bar, int row) {
-        if (whole) {
-          tma_load_4d_pair(dst + c0 * L::KV_SLICE, m4, bar, 0, row, c0, bh);
-        } else {
-          for (int c = c0; c < c0 + HALF; ++c)
-            tma_load_3d_pair(dst + c * L::KV_SLICE, m3, bar, c * SLICE, row, bh);
-        }
+      auto load = [&](uint32_t dst, const CUtensorMap* m4, const CUtensorMap* m3, uint32_t bar,
+                      int row, int slice_bytes) {
+        tma_load_4d(dst, m4, bar, 0, row, 0, bh);
+        for (int c = nfull; c < L::NS; ++c)
+          tma_load_3d(dst + c * slice_bytes, m3, bar, c * SLICE, row, bh);
       };
+      mbar_arrive_expect_tx(bars, L::Q_BYTES);
+      load(sq, &mq4, &mq, bars, q0, L::Q_SLICE);
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % STAGES;
         const uint32_t ks = kstage(st);
-        // a slot is refilled when the consumers of both blocks are done with it
         if (it >= STAGES) mbar_wait(kempty(st), ((it / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);       // both halves land here
-        load_half(ks, &mk4, &mk, kfull(st), it * BK);
+        mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);
+        load(ks, &mk4, &mk, kfull(st), it * BK, L::KV_SLICE);
         if (it >= STAGES) mbar_wait(vempty(st), ((it / STAGES) - 1) & 1);
         mbar_arrive_expect_tx(vfull(st), L::KV_BYTES);
-        load_half(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK);
+        load(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK, L::KV_SLICE);
       }
     }
   } else {
@@ -547,13 +491,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         s[4 * q + 3] += v.w;
       }
     };
-    // a slot of K or V goes back to the producers of both blocks
-    auto release = [&](uint32_t bar) {
-      if (lane == 0) {
-        mbar_arrive(bar);
-        mbar_arrive_in(bar, rank ^ 1);
-      }
-    };
     // O's rows take the factor of their new max, unless no row of the warp
     // has a new one (a factor of exactly 1)
     auto rescale = [&]() {
@@ -573,7 +510,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     mbar_wait(kfull(0), 0);
     issue_qk(0);
     wgmma_wait<0>();
-    release(kempty(0));
+    if (lane == 0) mbar_arrive(kempty(0));
     exchange(0);
     pol.exps(s, kvalid, t, ragged && ntiles == 1, corr);
     pack(s, p);
@@ -590,7 +527,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_wait(vfull(st), (it / STAGES) & 1);
       issue_pv(st);                         // ... then O += P V of tile it
       wgmma_wait<1>();                      // S of tile it + 1 has landed
-      release(kempty(sn));
+      if (lane == 0) mbar_arrive(kempty(sn));
       // its exchange and exps run while P.V of tile it is in flight
       exchange((it + 1) & 1);
       pol.exps(s, kvalid, t, ragged && it + 2 == ntiles, corr);
@@ -599,7 +536,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       for (int i = 0; i < NA; ++i) fence_reg(acc[i]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) fence_reg(p[i]);
-      release(vempty(st));
+      if (lane == 0) mbar_arrive(vempty(st));
       pack(s, p);
     }
     const int sl = (ntiles - 1) % STAGES;
@@ -628,8 +565,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
   }
-  // neither block leaves while the other may still arrive on its barriers
-  cluster_sync();
 }
 
 // --------------------------------------------------------------------- host
@@ -638,15 +573,14 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 // 4-d map {column, row, slice, head} (slice stride 32 bytes) whose box is
 // every slice of ``rows`` rows: shared memory receives [slice][row][16],
 // 32-byte swizzled, as slice_map_bf16 (sm90.cuh) would one box at a time.
-inline bool slices_map(CUtensorMap* map, const void* ptr, int bh, int L, int D, int rows,
-                       int slices) {
+inline bool slices_map(CUtensorMap* map, const void* ptr, int bh, int L, int D, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)SLICE, (cuuint64_t)L, (cuuint64_t)(D / SLICE),
                               (cuuint64_t)bh};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)SLICE * 2,
                                  (cuuint64_t)L * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)SLICE, (cuuint32_t)rows, (cuuint32_t)slices, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)SLICE, (cuuint32_t)rows, (cuuint32_t)(D / SLICE), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
@@ -657,17 +591,15 @@ template <int DP, class Policy>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, int bh, int Lq,
                       int Lk, int D, float scale, float smax, int clamp, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mq4, mk4, mv4;
-  constexpr int HALF = Smem<DP>::HALF;
-  const int halves = D / SLICE < HALF ? D / SLICE : HALF;   // a whole half's box, if any
   if (!slice_map_bf16(&mq, q, bh, Lq, D, BQ) || !slice_map_bf16(&mk, k, bh, Lk, D, BK) ||
-      !slice_map_bf16(&mv, v, bh, Lk, D, BK) || !slices_map(&mq4, q, bh, Lq, D, BQ, D / SLICE) ||
-      !slices_map(&mk4, k, bh, Lk, D, BK, halves) || !slices_map(&mv4, v, bh, Lk, D, BK, halves))
+      !slice_map_bf16(&mv, v, bh, Lk, D, BK) || !slices_map(&mq4, q, bh, Lq, D, BQ) ||
+      !slices_map(&mk4, k, bh, Lk, D, BK) || !slices_map(&mv4, v, bh, Lk, D, BK))
     return cudaErrorInvalidValue;
   const int smem = Smem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_wide_sm90_kernel<DP, Policy>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(((Lq + BQ - 1) / BQ + 1) / 2 * 2, bh);      // whole pairs of query blocks
+  dim3 grid((Lq + BQ - 1) / BQ, bh);
   flash_wide_sm90_kernel<DP, Policy><<<grid, 384, smem, stream>>>(
       mq, mk, mv, mq4, mk4, mv4, static_cast<__nv_bfloat16*>(o), Lq, Lk, D, scale, smax, clamp);
   return cudaGetLastError();
