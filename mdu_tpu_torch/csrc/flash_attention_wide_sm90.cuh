@@ -491,11 +491,8 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         s[4 * q + 3] += v.w;
       }
     };
-    // O's rows take the factor of their new max, unless no row of the warp
-    // has a new one (a factor of exactly 1)
     auto rescale = [&]() {
       if constexpr (Policy::RESCALES) {
-        if (!__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) return;
 #pragma unroll
         for (int j = 0; j < NA / 4; ++j) {
           acc[4 * j] *= corr[0];
