@@ -431,7 +431,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
     Policy pol(scale, smax, clamp);
     float s[16];
-    float s2[16];                           // the odd slices' partial scores
     uint32_t p[8];
     float acc[NA];
 #pragma unroll
@@ -441,17 +440,14 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     // S of tile ``it`` over this consumer's half of D
     auto issue_qk = [&](int st) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        fence_reg(s[i]);
-        fence_reg(s2[i]);
-      }
+      for (int i = 0; i < 16; ++i) fence_reg(s[i]);
       wgmma_fence();
       const uint32_t ks = kstage(st);
 #pragma unroll
       for (int c = 0; c < HALF; ++c) {
         const int cc = cw * HALF + c;
-        wgmma_ss_n32(c % 2 ? s2 : s, desc_b32(sq + cc * L::Q_SLICE, 16, 256),
-                     desc_b32(ks + cc * L::KV_SLICE, 16, 256), c > 1);
+        wgmma_ss_n32(s, desc_b32(sq + cc * L::Q_SLICE, 16, 256),
+                     desc_b32(ks + cc * L::KV_SLICE, 16, 256), c > 0);
       }
       wgmma_commit();
     };
@@ -479,11 +475,7 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     // shared memory; thread tid of either consumer holds the same scores
     auto exchange = [&](int parity) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        fence_reg(s[i]);
-        fence_reg(s2[i]);
-        s[i] += s2[i];
-      }
+      for (int i = 0; i < 16; ++i) fence_reg(s[i]);
       float4* mine = reinterpret_cast<float4*>(xs + (2 * parity + cw) * BQ * BK);
       const float4* theirs = reinterpret_cast<const float4*>(xs + (2 * parity + 1 - cw) * BQ * BK);
 #pragma unroll
