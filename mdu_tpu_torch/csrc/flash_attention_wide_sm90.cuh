@@ -102,24 +102,6 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// S (+)= A B^T, m64n32k16: A (Q) from registers, B (K) from shared memory,
-// K-major.
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4], uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 // D += A B, m64n128k16: A (P) from registers, B (V) from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -427,12 +409,22 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % STAGES;
         const uint32_t ks = kstage(st);
+        // diagnostic: K and V are loaded for the first STAGES tiles only, and
+        // every later tile reuses what its slot holds (the output is wrong)
         if (it >= STAGES) mbar_wait(kempty(st), ((it / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);
-        load(ks, &mk4, &mk, kfull(st), it * BK, L::KV_SLICE);
+        if (it < STAGES) {
+          mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);
+          load(ks, &mk4, &mk, kfull(st), it * BK, L::KV_SLICE);
+        } else {
+          mbar_arrive(kfull(st));
+        }
         if (it >= STAGES) mbar_wait(vempty(st), ((it / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(vfull(st), L::KV_BYTES);
-        load(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK, L::KV_SLICE);
+        if (it < STAGES) {
+          mbar_arrive_expect_tx(vfull(st), L::KV_BYTES);
+          load(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK, L::KV_SLICE);
+        } else {
+          mbar_arrive(vfull(st));
+        }
       }
     }
   } else {
@@ -448,7 +440,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const bool ragged = kvalid < BK;
 
     Policy pol(scale, smax, clamp);
-    uint32_t qa[HALF][4];                   // this consumer's half of Q: A fragments
     float s[16];
     uint32_t p[8];
     float acc[NA];
@@ -463,8 +454,11 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
       const uint32_t ks = kstage(st);
 #pragma unroll
-      for (int c = 0; c < HALF; ++c)
-        wgmma_rs_n32(s, qa[c], desc_b32(ks + (cw * HALF + c) * L::KV_SLICE, 16, 256), c > 0);
+      for (int c = 0; c < HALF; ++c) {
+        const int cc = cw * HALF + c;
+        wgmma_ss_n32(s, desc_b32(sq + cc * L::Q_SLICE, 16, 256),
+                     desc_b32(ks + cc * L::KV_SLICE, 16, 256), c > 0);
+      }
       wgmma_commit();
     };
     auto issue_pv = [&](int st) {
@@ -520,19 +514,6 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     };
 
     mbar_wait(bars, 0);
-    // Q's A fragments, once: matrix mi of ldmatrix.x4 is rows 8 (mi % 2).. and
-    // columns 8 (mi / 2).. of the warp's 16 rows of a slice; in a slice's
-    // 32-byte swizzle the two 16-byte halves of a row swap in rows 4-7 of 8
-    {
-      const int mi = lane / 8;
-      const int row = warp * 16 + (mi % 2) * 8 + lane % 8;
-      const uint32_t off = row * 32 + (((mi / 2) ^ ((row >> 2) & 1)) << 4);
-#pragma unroll
-      for (int c = 0; c < HALF; ++c)
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(qa[c][0]), "=r"(qa[c][1]), "=r"(qa[c][2]), "=r"(qa[c][3])
-                     : "r"(sq + (cw * HALF + c) * L::Q_SLICE + off));
-    }
     mbar_wait(kfull(0), 0);
     issue_qk(0);
     wgmma_wait<0>();
