@@ -409,22 +409,12 @@ flash_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % STAGES;
         const uint32_t ks = kstage(st);
-        // diagnostic: K and V are loaded for the first STAGES tiles only, and
-        // every later tile reuses what its slot holds (the output is wrong)
         if (it >= STAGES) mbar_wait(kempty(st), ((it / STAGES) - 1) & 1);
-        if (it < STAGES) {
-          mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);
-          load(ks, &mk4, &mk, kfull(st), it * BK, L::KV_SLICE);
-        } else {
-          mbar_arrive(kfull(st));
-        }
+        mbar_arrive_expect_tx(kfull(st), L::KV_BYTES);
+        load(ks, &mk4, &mk, kfull(st), it * BK, L::KV_SLICE);
         if (it >= STAGES) mbar_wait(vempty(st), ((it / STAGES) - 1) & 1);
-        if (it < STAGES) {
-          mbar_arrive_expect_tx(vfull(st), L::KV_BYTES);
-          load(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK, L::KV_SLICE);
-        } else {
-          mbar_arrive(vfull(st));
-        }
+        mbar_arrive_expect_tx(vfull(st), L::KV_BYTES);
+        load(ks + L::KV_BYTES, &mv4, &mv, vfull(st), it * BK, L::KV_SLICE);
       }
     }
   } else {
