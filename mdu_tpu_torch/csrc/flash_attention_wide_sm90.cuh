@@ -63,11 +63,17 @@
 // TFLOP/s; the exps, L^2 * bh = 1.8e8 ex2 (run twice, once per consumer) at
 // 16 a clock per SM, 0.09 ms; device memory 39 MB, 0.012 ms. With 64 query
 // rows a block, each K and V row read from L2 serves 64 rows' products: the
-// blocks read 300 x 19.7 MB = 5.9 GB from L2, which at the L2's few TB/s is
-// about 1 ms, above the tensor bound. The grid is 150 x 2 = 300 blocks on
-// 132 SMs, 2.27 waves: the design leaves the last wave 27 % full (a kv split
-// with a combine would need a second pass and scratch; with the L2 the
-// limit, the blocks of a short last wave each get more of it).
+// blocks read 300 x 19.7 MB = 5.9 GB from L2. A tile's products take about
+// 1000 clocks of tensor time; its shared-memory traffic (Q and K read by
+// Q.K^T 96 KB, V 32 KB, the exchange 32 KB, the TMA's writes 64 KB) about
+// 1750 at 128 bytes a clock. It runs at 1.65 ms, and at 1.15 ms with K and V
+// loaded for the first stages only (a diagnostic version), so the loads
+// cost a third. What measured slower (PERF.md has the numbers): a pair of
+// blocks in a cluster that multicasts K and V (each block then waits for the
+// slower one), every consumer computing all of S, Q held in registers. The
+// grid is 150 x 2 = 300 blocks on 132 SMs, 2.27 waves: the design leaves the
+// last wave 27 % full (a kv split with a combine would need a second pass
+// and scratch).
 #pragma once
 
 #include "mma_bf16.cuh"
