@@ -590,7 +590,8 @@ def check_conv(gen, summary):
             require(early_err <= tol,
                     f"{key} {(B, H, W, C, Co)} {earlier} form: max abs err {early_err}")
             extra.update(earlier_form=earlier, earlier_max_abs_err=early_err,
-                         earlier_ms=cuda_ms(early, iters), earlier_device_ms=device_ms(early, iters))
+                         earlier_ms=cuda_ms(early, iters),
+                         earlier_device_ms=device_ms(early, iters))
         if act:
             xf = x.float() * a[:, None, None, :] + sh[:, None, None, :]
             xa = (xf * torch.sigmoid(xf)).to(dtype)

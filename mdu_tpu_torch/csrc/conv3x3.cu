@@ -16,11 +16,11 @@
 // As an implicit GEMM: M = B*H*W output pixels, N = Co, K = 9*C. The weight
 // arrives re-laid out once per module as [Co][9][Cp] (tap-major K, C padded
 // to Cp, a multiple of 32, with zeros); in fp32 as [2][Co][9][Cp], its
-// tf32-rounded big part and the small rest, which sum to it exactly. What bounds it on an H100: at config
-// 2's ResBlock shapes (C, Co of 320 and 640 on 64x96 and 32x48 latents,
-// batch 10) 2*M*9*C*Co flops against a few tens of MB, far above the ridge,
-// so the tensor cores at 989 TFLOP/s: 0.1145 ms at [10, 64, 96, 320] -> 320
-// and at [10, 32, 48, 640] -> 640.
+// tf32-rounded big part and the small rest, which sum to it exactly. What
+// bounds it on an H100: at config 2's ResBlock shapes (C, Co of 320 and 640
+// on 64x96 and 32x48 latents, batch 10) 2*M*9*C*Co flops against a few tens
+// of MB, far above the ridge, so the tensor cores at 989 TFLOP/s: 0.1145 ms
+// at [10, 64, 96, 320] -> 320 and at [10, 32, 48, 640] -> 640.
 //
 // Two bf16 forms, chosen by the wrapper (ops/kernels/conv3x3.py::conv_form)
 // on shape and alignment alone:

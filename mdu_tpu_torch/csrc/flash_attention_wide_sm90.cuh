@@ -614,8 +614,10 @@ template <class Policy>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int Lq,
                    int Lk, int D, float scale, float smax, int clamp, cudaStream_t stream) {
   if (D % 8 != 0 || D <= 160 || D > 512) return cudaErrorInvalidValue;
-  if (D <= 256) return launch_dp<256, Policy>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, stream);
-  if (D <= 384) return launch_dp<384, Policy>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, stream);
+  if (D <= 256)
+    return launch_dp<256, Policy>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, stream);
+  if (D <= 384)
+    return launch_dp<384, Policy>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, stream);
   return launch_dp<512, Policy>(q, k, v, o, bh, Lq, Lk, D, scale, smax, clamp, stream);
 }
 

@@ -11,7 +11,7 @@ from .tile_blend import BlendTable, fused_tile_blend, fused_tile_blend_plain
 
 __all__ = ["LAUNCHES", "reset_launches", "bf16_exp_ambiguity", "flash_attention",
            "flash_attention_fm", "flash_attention_fm_plain", "flash_attention_plain",
-           "flash_attention_t", "flash_attention_t_plain", "fused_group_norm", "fused_group_norm_plain",
-           "BlendTable", "fused_tile_blend", "fused_tile_blend_plain",
+           "flash_attention_t", "flash_attention_t_plain", "fused_group_norm",
+           "fused_group_norm_plain", "BlendTable", "fused_tile_blend", "fused_tile_blend_plain",
            "conv3x3_plan_fits", "fused_conv3x3", "fused_conv3x3_plain",
            "pack_conv3x3_weight"]
