@@ -130,9 +130,10 @@ KERNELS = {
         replaces="mdu_tpu/ops/pallas/flash_attention.py:215",
         # UNet self-attention of config 2, levels 0 and 1; a ragged shape; the
         # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync);
-        # D = 200 (wide, off 64); D = 300 (wide_mma: D % 8 != 0)
+        # the wide form ragged, and at D = 200 (off 64); D = 300 (wide_mma:
+        # D % 8 != 0)
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
-                (1, 1, 700, 13), (1, 2, 1000, 200), (1, 1, 500, 300)],
+                (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
