@@ -64,8 +64,8 @@ from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
            "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
-           "flash_attention_t_plain", "bf16_exp_ambiguity", "bf16_form", "launch_form",
-           "f32_form", "launch_f32_form"]
+           "flash_attention_t_plain", "bf16_form", "launch_form", "f32_form",
+           "launch_f32_form"]
 
 MAX_D = {"flash_attention_fm": 512, "flash_attention": 512, "flash_attention_t": 512,
          "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
@@ -123,41 +123,6 @@ def flash_attention_fm_plain(q, k, v, scale: Optional[float] = None,
         p = p.to(v.dtype).float()
         den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
         outs.append((torch.matmul(p, vf) / den).to(q.dtype))
-    return torch.cat(outs, dim=2)
-
-
-def bf16_exp_ambiguity(q, k, v, scale: Optional[float] = None, smax: float = 30.0,
-                       clamp: bool = False):
-    """How far, element by element, a right kernel with ``bf16_exp`` may be
-    from ``flash_attention_fm_plain`` in fp32 (a check's aid; the port never
-    calls it). Rounding the shifted score e to bf16 (an ulp of 0.125 near
-    -30) makes the function ambiguous wherever e sits near a rounding
-    boundary: q.k summed in another order (any fp32 evaluation is within D *
-    2^-24 * sum_d |q_d k_d| of the exact value) may round it the other way.
-    For each such score, |dp| is the change of its p when e moves by that
-    bound up or down before the rounding; to first order the output moves
-    by sum_j dp_j (v_j - o) / den, so the allowance is sum_j |dp_j| (|v_j| +
-    |o|) / den, which bounds any set of such roundings."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    kf, vf = k.float(), v.float()
-    gamma = q.shape[-1] * 2.0 ** -24 * abs(scale)
-
-    def p_of(e):
-        return torch.exp(e.to(torch.bfloat16).float()).to(torch.bfloat16).float()
-
-    outs = []
-    for i in range(0, q.shape[2], _ROWS):
-        qi = q[:, :, i:i + _ROWS].float()
-        s = torch.matmul(qi, kf.transpose(-1, -2)) * scale
-        if clamp:
-            s = s.clamp(max=smax)
-        e = s - smax
-        reach = gamma * torch.matmul(qi.abs(), kf.abs().transpose(-1, -2))
-        p = p_of(e)
-        dp = (p_of(e + reach) - p).abs() + (p_of(e - reach) - p).abs()
-        den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-        o = torch.matmul(p, vf) / den
-        outs.append((torch.matmul(dp, vf.abs()) + dp.sum(-1, keepdim=True) * o.abs()) / den)
     return torch.cat(outs, dim=2)
 
 

@@ -1,6 +1,8 @@
 """Port parity: the plain versions of the two flash kernels against the JAX
 Pallas kernels in interpret mode, and the port's attention dispatch against
 ``mdu_tpu.ops.attention``. Tolerances as in tests/test_pallas.py."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +13,6 @@ from mdu_tpu.ops.attention import sdpa as jax_sdpa
 from mdu_tpu.ops.pallas import flash_attention as jax_flash
 from mdu_tpu.ops.pallas import flash_attention_t_fm as jax_flash_fm
 from mdu_tpu_torch.ops import attention as port_attention
-from mdu_tpu_torch.ops import kernels as port_kernels
 from mdu_tpu_torch.ops.kernels import (LAUNCHES, flash_attention, flash_attention_fm,
                                        flash_attention_fm_plain, flash_attention_plain)
 
@@ -190,33 +191,23 @@ def test_three_tf32_passes_keep_fp32_precision(rng, shape, online):
     assert np.abs(one_pass - want).max() > 1e-4
 
 
-def test_bf16_exp_ambiguity_bounds_each_other_rounding(rng):
-    """``bf16_exp_ambiguity`` (the allowance of the bf16_exp checks) bounds,
-    element by element, the change of the fp32 plain version when any one
-    score within the fp32 error bound D 2^-24 sum |q_d k_d| of a bf16
-    rounding boundary rounds the other way, and is 0 in the rows where no
-    score can."""
-    D, L = 16, 400
-    q, k, v = (rng.normal(size=(1, 1, L, D)).astype(np.float32) for _ in range(3))
+@pytest.mark.parametrize("D", [13, 40, 512])
+def test_bf16_exp_exact_inputs_leave_no_score_ambiguous(rng, D):
+    """The inputs of the card's bf16_exp checks: q and k small integers and a
+    power-of-two scale (D^-0.5 rounded down). Every shifted score is then exact in fp32 (equal to
+    its float64 value), whatever the order of the sum over d, so no score can
+    round to another bf16 in a kernel than in the plain version: the plain
+    version does not move, bit for bit, when q.k is summed in the reverse
+    order."""
+    q, k = (rng.integers(-2, 3, size=(1, 2, 256, D)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(1, 2, 256, D)).astype(np.float32)
+    scale = 2.0 ** -math.ceil(math.log2(D) / 2)    # D^-0.5 rounded down
+    e = np.einsum("bhid,bhjd->bhij", q.astype(np.float64), k.astype(np.float64)) * scale - 30.0
+    assert (e.astype(np.float32) == e).all()
+    assert e.std() > 1.0                 # the softmax is not flat
     tq, tk, tv = _t(q, k, v)
-    ref = flash_attention_fm_plain(tq, tk, tv, bf16_exp=True)
-    allow = port_kernels.bf16_exp_ambiguity(tq, tk, tv)
-    scale = D ** -0.5
-    e = torch.matmul(tq, tk.transpose(-1, -2)) * scale - 30.0
-    reach = D * 2.0 ** -24 * scale * torch.matmul(tq.abs(), tk.abs().transpose(-1, -2))
-    e16 = e.to(torch.bfloat16).float()
-    up, down = ((e + reach).to(torch.bfloat16).float(), (e - reach).to(torch.bfloat16).float())
-    p = torch.exp(e16).to(torch.bfloat16).float()
-    flips = 0
-    for i, j in zip(*torch.nonzero((up != e16) | (down != e16), as_tuple=True)[2:]):
-        for alt in (up, down):
-            if alt[0, 0, i, j] == e16[0, 0, i, j]:
-                continue
-            pa = p[0, 0, i].clone()
-            pa[j] = torch.exp(alt[0, 0, i, j]).to(torch.bfloat16).float()
-            moved = (pa @ tv[0, 0]) / pa.sum() - ref[0, 0, i]
-            assert (moved.abs() <= allow[0, 0, i] * 1.01 + 1e-7).all()
-            flips += 1
-    assert flips > 0
-    ambiguous_rows = ((up != e16) | (down != e16)).any(-1)
-    assert (allow[~ambiguous_rows] == 0).all()
+    got = flash_attention_fm_plain(tq, tk, tv, scale, bf16_exp=True)
+    rev = flash_attention_fm_plain(tq.flip(-1).contiguous(), tk.flip(-1).contiguous(), tv,
+                                   scale, bf16_exp=True)
+    assert torch.equal(rev, got)
+    assert (flash_attention_fm_plain(tq, tk, tv, scale) - got).abs().max() > 1e-3
