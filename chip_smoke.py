@@ -115,7 +115,8 @@ EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
                      "flash_attention": 1, "flash_attention.wide": 1}
 EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
                     "flash_attention": 1, "flash_attention.wide": 1, "fused_group_norm": 340,
-                    "fused_conv3x3": 320, "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
+                    "fused_group_norm.cluster": 340, "fused_conv3x3": 320,
+                    "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
 EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
                "flash_attention_fm.wide": 1}
 CONFIG2_RUNS = (("default", {}, EXPECTED_LAUNCHES), ("flagged", FLAGS, EXPECTED_FLAGGED),
@@ -157,9 +158,18 @@ KERNELS = {
     "fused_group_norm": dict(
         source="mdu_tpu_torch/csrc/group_norm.cu",
         replaces="mdu_tpu/ops/pallas/group_norm.py:33",
-        # [B, C, H, W], groups 32: config 2's level 0 and level 3; then a
-        # ragged H * W (no 16-byte vectors)
-        shapes=[(10, 320, 64, 96), (10, 1280, 8, 12), (1, 96, 7, 9)]),
+        # [B, C, H, W], groups 32: what config 2 runs under MDU_FUSED_GN=1.
+        # The transformer norms of levels 0, 1, 2 and the mid-block (with
+        # norm_out, 120 / 100 / 100 / 20 launches per image under the four
+        # flags); the widest ResBlock norm (2560 channels, a skip concat);
+        # the largest ResBlock group (level 0's first up ResBlock, 960
+        # channels with its skip: 360 KB a group in bf16); then a ragged H * W
+        # (no 16-byte lines). All take the cluster form.
+        shapes=[(10, 320, 64, 96), (10, 640, 32, 48), (10, 1280, 16, 24), (10, 1280, 8, 12),
+                (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9)],
+        # fp32 (a model built in fp32): level 0 (a cluster of 8); a group
+        # past what a cluster holds (1.7 MB: the two_read form)
+        f32_shapes=[(10, 320, 64, 96), (1, 416, 128, 256)]),
     "fused_tile_blend": dict(
         source="mdu_tpu_torch/csrc/tile_blend.cu",
         replaces="mdu_tpu/ops/pallas/fused_blend.py:92",
@@ -348,6 +358,10 @@ def check_attention(gen, summary):
         if name != "flash_attention_t":        # its fp32 form is flash_attention_f32's
             f32_shapes = KERNELS[name]["f32_shapes"]
             variants.append((torch.float32, name + "_f32", f32_shapes, {}))
+            # a sharp softmax (q x 3: scores of std 3, a large |O|) at the
+            # main path's shapes, where a chain of truncating tensor-core
+            # additions into O would miss the bar
+            variants.append((torch.float32, name + "_f32_sharp", F32_CONFIG2, {"qscale": 3.0}))
         if name == "flash_attention_fm":
             variants.append((torch.bfloat16, name + "_bf16_exp",
                              [shapes[0], (2, 1, 9600, 512), (1, 1, 700, 13)],
@@ -364,6 +378,9 @@ def check_attention(gen, summary):
                 q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                            for _ in range(3))
                 kw = dict(var_kw)
+                qscale = kw.pop("qscale", None)
+                if qscale is not None:
+                    q = q * qscale
                 if kw.get("bf16_exp"):
                     # rounding the shifted score to bf16 (an ulp of 0.125 near
                     # -30) makes the function ambiguous wherever a score sits
@@ -377,6 +394,7 @@ def check_attention(gen, summary):
                     kw["scale"] = 2.0 ** -math.ceil(math.log2(D) / 2)
                 kern = functools.partial(kernel, **kw)
                 pl = functools.partial(plain, **kw)
+                launches_before = dict(flash.LAUNCHES)
                 out = kern(q, k, v)
                 torch.cuda.synchronize()
                 ref = pl(q.float(), k.float(), v.float())
@@ -429,8 +447,13 @@ def check_attention(gen, summary):
                     want = ("sm90" if D <= flash.F32_SM90_MAX_D else "wide") if D % 4 == 0 \
                         else "simt"
                     require(form == want, f"{key} {shape}: form {form}, expected {want}")
+                    require(flash.LAUNCHES[f"{fname}.{form}"]
+                            == launches_before[f"{fname}.{form}"] + 1,
+                            f"{key} {shape}: no launch counted under {fname}.{form}")
                     extra["form"] = form
-                    if shape in F32_CONFIG2:
+                    if qscale is not None:
+                        extra["qscale"] = qscale
+                    elif shape in F32_CONFIG2:
                         # the CUDA-core form that fp32 took before, on the
                         # same inputs: held to the same bar, and timed
                         early = functools.partial(flash.launch_f32_form, fname, "simt", q, k, v,
@@ -466,51 +489,73 @@ def check_attention(gen, summary):
 
 
 def check_group_norm(gen, summary):
+    """bf16 at every shape of KERNELS, fp32 at every ``f32_shapes``. Each line
+    names the form that ``gn_plan`` picks, whose launch counter must move;
+    where the cluster form runs at a config-2 shape, the two_read form runs
+    on the same inputs too, held to the same bar and timed. Then a constant
+    group: its variance clamps at 0, and the output is the bias."""
     import torch
     import torch.nn.functional as F
 
-    from mdu_tpu_torch.ops.kernels import fused_group_norm, fused_group_norm_plain
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, fused_group_norm, fused_group_norm_plain
+    from mdu_tpu_torch.ops.kernels import group_norm as gn_mod
 
     G, eps = 32, 1e-6
+    spec = KERNELS["fused_group_norm"]
+    runs = ([(s, torch.bfloat16) for s in spec["shapes"]]
+            + [(s, torch.float32) for s in spec["f32_shapes"]])
     checks = []
-    for shape in KERNELS["fused_group_norm"]["shapes"]:
-        C = shape[1]
-        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(torch.bfloat16)
-        w = (1 + 0.2 * torch.randn(C, generator=gen, device="cuda")).to(torch.bfloat16)
-        b = (0.2 * torch.randn(C, generator=gen, device="cuda")).to(torch.bfloat16)
+    for shape, dtype in runs:
+        B, C, H, W = shape
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+        w = (1 + 0.2 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        b = (0.2 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        form, cluster, part = gn_mod.gn_plan(C, G, H, W, x.element_size())
+        before = LAUNCHES[f"fused_group_norm.{form}"]
         out = fused_group_norm(x, G, w, b, eps)
         torch.cuda.synchronize()
+        require(LAUNCHES[f"fused_group_norm.{form}"] == before + 1,
+                f"fused_group_norm {shape}: no launch of its {form} form")
         ref = fused_group_norm_plain(x.float(), G, w.float(), b.float(), eps)
-        err_plain = (fused_group_norm_plain(x, G, w, b, eps).float() - ref).abs().max().item()
-        bound_ms, bound_by = bound(8.0 * x.numel(), 2.0 * x.numel() * 2 + 4.0 * C)
+        err_plain = ((fused_group_norm_plain(x, G, w, b, eps).float() - ref).abs().max().item()
+                     if dtype == torch.bfloat16 else 0.0)
+        tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL
+        extra = {"form": form, "cluster": cluster, "part": part}
+        if form == "cluster" and B == 10:
+            early = lambda: gn_mod.launch_form("two_read", x, G, w, b, eps)
+            early_err = (early().float() - ref).abs().max().item()
+            require(early_err <= tol, f"fused_group_norm {shape} two_read form: max abs err "
+                                      f"{early_err}")
+            extra.update(earlier_form="two_read", earlier_max_abs_err=early_err,
+                         earlier_ms=cuda_ms(early, 50), earlier_device_ms=device_ms(early, 50))
+        isz = x.element_size()
+        bound_ms, bound_by = bound(8.0 * x.numel(), 2.0 * x.numel() * isz + 2.0 * C * isz, isz)
         checks.append(_record(
-            "fused_group_norm", shape, torch.bfloat16, out, ref, err_plain,
+            "fused_group_norm", shape, dtype, out, ref, err_plain,
             lambda: fused_group_norm(x, G, w, b, eps),
             lambda: fused_group_norm_plain(x, G, w, b, eps),
-            lambda: F.group_norm(x, G, w, b, eps), bound_ms, bound_by, 50))
-    # fp32 (a model built in fp32) at the first shape
-    shape = KERNELS["fused_group_norm"]["shapes"][0]
-    x = torch.randn(shape, generator=gen, device="cuda") * 3 + 1
-    w = 1 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")
-    b = 0.2 * torch.randn(shape[1], generator=gen, device="cuda")
-    out = fused_group_norm(x, G, w, b, eps)
-    torch.cuda.synchronize()
-    ref = fused_group_norm_plain(x, G, w, b, eps)
-    bound_ms, bound_by = bound(8.0 * x.numel(), 2.0 * x.numel() * 4 + 8.0 * shape[1], 4)
-    checks.append(_record(
-        "fused_group_norm", shape, torch.float32, out, ref, 0.0,
-        lambda: fused_group_norm(x, G, w, b, eps),
-        lambda: fused_group_norm_plain(x, G, w, b, eps),
-        lambda: F.group_norm(x, G, w, b, eps), bound_ms, bound_by, 50))
+            lambda: F.group_norm(x, G, w, b, eps), bound_ms, bound_by, 50,
+            plain_iters=1 if x.numel() > 5e7 else 3, **extra))
+        # a constant first group: var = 0 exactly, so the output is the bias
+        x[:, :C // G] = 5.0
+        out = fused_group_norm(x, G, w, b, eps)
+        first = out[:, :C // G].float()
+        require(bool(torch.isfinite(out).all()) and bool(
+            (first == b[:C // G].float()[None, :, None, None]).all()),
+            f"fused_group_norm {shape}: a constant group does not give the bias")
+        del x, out, ref
     summary["fused_group_norm"] = checks
 
 
 def check_tile_blend(gen, summary):
     """The config-2 canvas (tiles fp32, as the latents are) with normalize
-    False (what the scheduler asks) and True; bf16 tiles; a ragged canvas."""
+    False (what the scheduler asks) and True; bf16 tiles; a ragged canvas.
+    The first line also times the launch floor (``floor_ms``,
+    ``floor_device_ms``): an empty kernel on #5's grid."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import BlendTable, fused_tile_blend, fused_tile_blend_plain
+    from mdu_tpu_torch.ops.kernels.tile_blend import tile_blend_floor
     from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
     checks = []
@@ -532,11 +577,17 @@ def check_tile_blend(gen, summary):
         isz = tiles.element_size()
         nbytes = tiles.numel() * isz + BC * h * w * isz + (wts.numel() * 4 if normalize else 0)
         bound_ms, bound_by = bound(float(tiles.numel()), nbytes, isz)
+        extra = {}
+        if not checks:
+            # the launch floor: an empty kernel on the same grid, through the
+            # same checks and launch path
+            floor = lambda: tile_blend_floor(tiles, wts, h, w, bbs, normalize, table)
+            extra.update(floor_ms=cuda_ms(floor, 200), floor_device_ms=device_ms(floor, 200))
         checks.append(_record(
             "fused_tile_blend", (len(bbs), BC, th, tw, h, w), dtype, out, ref, err_plain,
             lambda: fused_tile_blend(tiles, wts, h, w, bbs, normalize, table),
             lambda: fused_tile_blend_plain(tiles, wts, h, w, bbs, normalize, table),
-            None, bound_ms, bound_by, 200, normalize=normalize))
+            None, bound_ms, bound_by, 200, normalize=normalize, **extra))
     summary["fused_tile_blend"] = checks
 
 
@@ -843,13 +894,14 @@ def kernel_rows(checks, launches):
                  "earlier_device_ms", "bound_ms", "fma_bound_ms", "mufu_floor_ms",
                  "library_ms", "library_device_ms", "library_backend", "library_efficient_ms",
                  "library_efficient_device_ms", "plain_ms", "max_abs_err",
-                 "earlier_max_abs_err")
+                 "earlier_max_abs_err", "cluster", "dtype")
     conv_c2 = KERNELS["fused_conv3x3"]["shapes"][:4]
     # kernel -> (config-2 run that takes it, its config-2 shapes)
     where = {"flash_attention_fm": ("default", KERNELS["flash_attention_fm"]["shapes"][:2]),
              "flash_attention": ("default", [(2, 1, 9600, 512)]),
              "flash_attention_t": ("flagged", KERNELS["flash_attention_t"]["shapes"][:2]),
-             "fused_group_norm": ("flagged", []), "fused_tile_blend": ("flagged", []),
+             "fused_group_norm": ("flagged", KERNELS["fused_group_norm"]["shapes"][:6]),
+             "fused_tile_blend": ("flagged", []),
              "fused_conv3x3": ("flagged", conv_c2),
              "flash_attention_fm_f32": ("fp32 conv", F32_CONFIG2[:2]),
              "flash_attention_f32": ("fp32 conv", F32_CONFIG2[2:]),
@@ -866,7 +918,8 @@ def kernel_rows(checks, launches):
             extra.update(forms=forms,
                          form_launches={k.split(".", 1)[1]: v for k, v in got.items()
                                         if k.startswith(key + ".")})
-        c2_checks = [c for c in checked if tuple(c["shape"]) in c2 and c.get("fuse_act", True)]
+        c2_checks = [c for c in checked if tuple(c["shape"]) in c2 and c.get("fuse_act", True)
+                     and c["dtype"] == main["dtype"]]
         if c2_checks:
             extra["config2_shapes"] = [{f: c.get(f) for f in c2_fields if f in c}
                                        for c in c2_checks]
@@ -881,7 +934,8 @@ def kernel_rows(checks, launches):
                     **{f: main[f] for f in ("form", "earlier_form", "earlier_ms",
                                             "earlier_device_ms", "fma_bound_ms",
                                             "mufu_floor_ms", "bound_basis", "library_backend",
-                                            "library_efficient_ms") if f in main},
+                                            "library_efficient_ms", "floor_ms",
+                                            "floor_device_ms") if f in main},
                     **extra)
 
     for name in list(KERNELS) + list(F32_KERNELS):
@@ -890,6 +944,11 @@ def kernel_rows(checks, launches):
         run, c2 = where[name]
         source = F32_KERNELS[name][1] if name in F32_KERNELS else KERNELS[name]["source"]
         extra = {"template": templates[name]} if name in templates else {}
+        if name + "_sharp" in checks:
+            extra["sharp_softmax"] = [{f: c.get(f) for f in ("shape", "form", "qscale",
+                                                             "max_abs_err", "tol", "ms",
+                                                             "device_ms")}
+                                      for c in checks[name + "_sharp"]]
         rows.append(row(name, name, checks[name], run, c2, source, **extra))
         wide = [c for c in checks[name] if c.get("form") == "wide"]
         if wide and name == "flash_attention_fm":

@@ -55,16 +55,26 @@
 //   of each 8 columns are the A fragment as they stand, and P.V sums the
 //   same products.
 //
+// O's accumulation. The tensor cores add into an fp32 accumulator with
+// truncation, so products chained into O's registers over every kv tile
+// drift with |O|: with scores of std 3 (a sharp softmax, a large |O|) the
+// chain missed the 1e-4 bar (1.0e-4 at [10, 8, 6144, 40]; the wide form
+// 1.6e-4 to 1.8e-4 at [2, 1, 9600, 512]; the CUDA-core form 1e-5 to 2e-5;
+// H100 80GB HBM3, 700 W). So each kv tile's P.V runs into a fresh
+// accumulator, which the CUDA cores add to O in fp32 after O's rescale (as
+// the fp32 conv adds each channel chunk, conv3x3_f32_sm90.cuh): a chain of
+// at most 3 BK / 8 products.
+//
 // Sizes. Consumers hold S (BK / 2 registers), P's small part (BK / 2), O
-// (DP / 2) and Q (DP, or DP / 2 above DP = 80). DP <= 40: three consumers
-// (152 registers each; the producer warpgroup gives its own up, to 56), BK
-// = 64, four stages of Kb, Ks and V^T big and small (40 KB at DP = 40).
-// DP <= 80: two consumers (232 registers; the producer keeps 40), BK = 128
-// at DP = 48 (200 registers), else 64; two stages of up to 80 KB at DP = 80.
-// DP > 80: one consumer, BK = 32, Q's big part up to 40 KB, two stages of up
-// to 80 KB. (Three consumers at DP = 48 spill. At config 2's D = 40 they
-// took 4.6 ms against 5.7 for two consumers at BK = 128, on an H100 80GB
-// HBM3 at 700 W.)
+// (DP / 2), the tile's P.V accumulator (DP / 2; above DP = 80 it runs in
+// chunks of 40 columns, 20) and Q (DP, or DP / 2 above DP = 80). BK = 32 kv
+// at every DP: the fresh accumulator took the registers that a 64-row S
+// held. DP <= 40: three consumers (152 registers each; the producer
+// warpgroup gives its own up, to 56), four stages of Kb, Ks and V^T big and
+// small (20 KB at DP = 40). DP <= 80: two consumers (232 registers; the
+// producer keeps 40). DP > 80: one consumer, Q's big part up to 40 KB.
+// (Three consumers at DP = 48 spill. At config 2's D = 40 three consumers
+// took 4.6 ms against 5.7 for two, on an H100 80GB HBM3 at 700 W.)
 //
 // What bounds it, at config 2's shapes (H100 SXM, 495 TFLOP/s dense TF32):
 // [10, 8, 6144, 40]: 3 passes x 4 L^2 D flops x 80 heads = 3.62e13 flops =
@@ -95,7 +105,8 @@
 // (V's copy overlaps Q.K^T); P lives where K was. The permutation of each 8
 // columns of the fragments (here of d for Q.K^T and of kv for P.V) lets Q,
 // K and P fragments load as 8-byte pairs. 600 blocks at one an SM are 4.5
-// waves.
+// waves. O's accumulation goes through a fresh accumulator per kv tile, as
+// in the sm90 form: 64 more registers at DP = 512.
 #pragma once
 
 #include "mma_bf16.cuh"
@@ -274,7 +285,9 @@ template <int DP>
 struct Cfg {
   static constexpr int NCONS = DP <= 40 ? 3 : DP <= 80 ? 2 : 1;
   static constexpr int BQ = 64 * NCONS;
-  static constexpr int BK = DP == 48 ? 128 : DP <= 80 ? 64 : 32;
+  static constexpr int BK = 32;
+  // width of a chunk of P.V's fresh accumulator
+  static constexpr int PV_N = DP <= 80 ? DP : 40;
   // Q in registers, big and small, as the A fragments of all three passes
   // (DP <= 80); above, its big part in shared memory
   static constexpr bool Q_REGS = DP <= 80;
@@ -293,17 +306,39 @@ struct Cfg {
   static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
 };
 
-// O (+)= A V over one k-step of 8 kv: A from registers, V^T's k-step at
-// ``vt`` (core matrices of 8 d x 4 kv, LBO = DP * 16 bytes, SBO = 128), in
-// wgmma widths of at most 80 columns.
-template <int DP>
-__device__ __forceinline__ void pv_step(float* acc, const uint32_t (&a)[4], uint32_t vt) {
-  if constexpr (DP <= 80) {
-    Tf32<DP>::rs(acc, a, desc_plain(vt, DP * 16, 128), 1);
-  } else {
-    Tf32<80>::rs(acc, a, desc_plain(vt, DP * 16, 128), 1);
-    Tf32<DP - 80>::rs(acc + 40, a, desc_plain(vt + 80 * 16, DP * 16, 128), 1);
+// O += P V over one kv tile, columns [C0, DP): for each chunk of at most
+// PV_N columns, the three products of every k-step of 8 kv into ``pv``
+// (the first overwrites it), then pv added to O's columns on the CUDA
+// cores. P is s (big part, as bits) and ps (small part) in the S
+// accumulator's layout; V^T's k-step j is at 2 j DP 16 bytes (core matrices
+// of 8 d x 4 kv, LBO = DP * 16 bytes, SBO = 128; 8 columns of d are 128
+// bytes).
+template <int DP, int BK, int C0 = 0>
+__device__ __forceinline__ void pv_tile(float (&acc)[DP / 2], float (&pv)[Cfg<DP>::PV_N / 2],
+                                        float (&s)[BK / 2], uint32_t (&ps)[BK / 2],
+                                        uint32_t vtb, uint32_t vts) {
+  constexpr int N = DP - C0 < Cfg<DP>::PV_N ? DP - C0 : Cfg<DP>::PV_N;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_reg(pv[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const uint32_t as[4] = {ps[4 * j], ps[4 * j + 2], ps[4 * j + 1], ps[4 * j + 3]};
+    const uint32_t ab[4] = {__float_as_uint(s[4 * j]), __float_as_uint(s[4 * j + 2]),
+                            __float_as_uint(s[4 * j + 1]), __float_as_uint(s[4 * j + 3])};
+    const uint32_t off = 2 * j * DP * 16 + C0 * 16;
+    Tf32<N>::rs(pv, as, desc_plain(vtb + off, DP * 16, 128), j > 0);
+    Tf32<N>::rs(pv, ab, desc_plain(vts + off, DP * 16, 128), 1);
+    Tf32<N>::rs(pv, ab, desc_plain(vtb + off, DP * 16, 128), 1);
   }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    fence_reg(pv[i]);
+    acc[C0 / 2 + i] += pv[i];
+  }
+  if constexpr (C0 + N < DP) pv_tile<DP, BK, C0 + N>(acc, pv, s, ps, vtb, vts);
 }
 
 template <int DP, class Policy>
@@ -462,6 +497,7 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     float s[BK / 2];
     uint32_t ps[BK / 2];
     float acc[DP / 2];
+    float pv[C::PV_N / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float corr[2] = {1.f, 1.f};
@@ -516,29 +552,13 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         s[i] = __uint_as_float(big);
       }
 
-      // O += Ps Vb + Pb Vs + Pb Vb, one k-step of 8 kv at a time
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) fence_reg(acc[i]);
+      // O += Ps Vb + Pb Vs + Pb Vb, through the tile's fresh accumulator
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         fence_reg(s[i]);
         fence_reg(ps[i]);
       }
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const uint32_t as[4] = {ps[4 * j], ps[4 * j + 2], ps[4 * j + 1], ps[4 * j + 3]};
-        const uint32_t ab[4] = {__float_as_uint(s[4 * j]), __float_as_uint(s[4 * j + 2]),
-                                __float_as_uint(s[4 * j + 1]), __float_as_uint(s[4 * j + 3])};
-        const uint32_t off = 2 * j * DP * 16;
-        pv_step<DP>(acc, as, vtb + off);
-        pv_step<DP>(acc, ab, vts + off);
-        pv_step<DP>(acc, ab, vtb + off);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) fence_reg(acc[i]);
+      pv_tile<DP, BK>(acc, pv, s, ps, vtb, vts);
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         fence_reg(s[i]);
@@ -827,7 +847,13 @@ flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     }
-    // O += P V over this warp's slice of d, 8 kv at a time
+    // O += P V over this warp's slice of d, 8 kv at a time, through a
+    // fresh accumulator (O's accumulation, above)
+    float pv[2][NJ][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) pv[m][j][0] = pv[m][j][1] = pv[m][j][2] = pv[m][j][3] = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       Split4 a[2];
@@ -844,9 +870,15 @@ flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
         Split2 b[JG];
 #pragma unroll
         for (int j = 0; j < JG; ++j) b[j] = Split2(v0[8 * (j0 + j)], v0[C::LDV + 8 * (j0 + j)]);
-        mma3(acc, j0, a, b);
+        mma3(pv, j0, a, b);
       }
     }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] += pv[m][j][i];
   }
 
   __syncthreads();                      // P and the factors are no longer read

@@ -76,19 +76,25 @@ blend_kernel(const T* __restrict__ tiles,     // [T, BC, th, tw]
   }
 }
 
+// the grid of blend_kernel for a canvas of ``total`` elements
+inline int blend_blocks(long total) {
+  const long want = (total + NTHREADS - 1) / NTHREADS;
+  return (int)(want < 65535 ? want : 65535);
+}
+
 template <typename T>
 cudaError_t launch(const void* tiles, const int* idx, const int* offs,
                    const float* wgt, void* out, int BC, int h, int w, int th,
                    int tw, int bh, int bw, int nbx, int k_max, int normalize,
                    cudaStream_t stream) {
-  const long total = (long)BC * h * w;
-  const long want = (total + NTHREADS - 1) / NTHREADS;
-  const int blocks = (int)(want < 65535 ? want : 65535);
-  blend_kernel<T><<<blocks, NTHREADS, 0, stream>>>(
+  blend_kernel<T><<<blend_blocks((long)BC * h * w), NTHREADS, 0, stream>>>(
       static_cast<const T*>(tiles), idx, offs, wgt, static_cast<T*>(out), BC, h, w,
       th, tw, bh, bw, nbx, k_max, normalize);
   return cudaGetLastError();
 }
+
+// does nothing: the device time of a launch of blend_kernel's grid
+__global__ void __launch_bounds__(NTHREADS) floor_kernel() {}
 
 }  // namespace
 
@@ -109,4 +115,14 @@ extern "C" int mdu_tile_blend(const void* tiles, const void* idx, const void* of
                                  nbx, k_max, normalize, s);
   return launch<float>(tiles, ip, op, wp, out, BC, h, w, th, tw, bh, bw, nbx,
                        k_max, normalize, s);
+}
+
+// mdu_tile_blend's signature; launches an empty kernel on its grid and
+// writes nothing
+extern "C" int mdu_tile_blend_floor(const void*, const void*, const void*, const void*,
+                                    void*, int BC, int h, int w, int, int, int, int, int, int,
+                                    int, int, void* stream) {
+  floor_kernel<<<blend_blocks((long)BC * h * w), NTHREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
 }

@@ -1,13 +1,20 @@
-"""Fused GroupNorm: the CUDA kernel ``csrc/group_norm.cu`` and its plain
+"""Fused GroupNorm: the CUDA kernels ``csrc/group_norm.cu`` and their plain
 PyTorch version.
 
 ``fused_group_norm`` replaces ``mdu_tpu.ops.pallas.group_norm.fused_group_norm``:
 NCHW GroupNorm with per-(batch, group) fp32 statistics, var = max(E[x^2] -
 mean^2, 0) (the port clamps; the Pallas body does not), ((x - mean) *
 rsqrt(var + eps)) * w + b in fp32, output in x's dtype. x is bf16 or fp32,
-the affine bf16 or fp32. The wrapper launches the kernel for a CUDA tensor
+the affine bf16 or fp32. The wrapper launches a kernel for a CUDA tensor
 and raises on anything it does not take; it runs the plain version only for
-a CPU tensor. Each launch adds one to ``LAUNCHES["fused_group_norm"]``.
+a CPU tensor. Each launch adds one to ``LAUNCHES["fused_group_norm"]`` and
+to ``LAUNCHES["fused_group_norm.<form>"]``, its form chosen by ``gn_plan``
+from the shape and dtype alone:
+
+* ``cluster``: each group held in shared memory across a thread-block
+  cluster of up to 8 CTAs and read from HBM once;
+* ``two_read``: one block per group that reads it twice, for a group larger
+  than a cluster holds.
 """
 from __future__ import annotations
 
@@ -17,9 +24,30 @@ import torch
 
 from .launch import aligned16, launch, ptr
 
-__all__ = ["fused_group_norm", "fused_group_norm_plain"]
+__all__ = ["fused_group_norm", "fused_group_norm_plain", "gn_plan", "launch_form"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
+CLUSTER_MAX = 8                 # CTAs of a cluster (the portable limit)
+PART_BYTES = 32 * 1024          # a CTA's part of a group, where 8 CTAs allow it
+PART_MAX_BYTES = 192 * 1024     # the most a CTA holds (of 227 KB of shared memory)
+
+
+def gn_plan(C: int, num_groups: int, H: int, W: int, itemsize: int):
+    """(form, cluster size, elements per CTA) of the kernel for a [*, C, H, W]
+    tensor of ``itemsize`` bytes: ``cluster`` with the fewest CTAs (a power
+    of two up to 8) whose parts hold at most 32 KB each, or more if 8 do not
+    get there; ``two_read`` (cluster size and part 0) when a part would pass
+    192 KB. A part is a whole number of 16-byte lines."""
+    n = C // num_groups * H * W
+    per16 = 16 // itemsize
+    cluster = 1
+    while cluster < CLUSTER_MAX and -(-n * itemsize // cluster) > PART_BYTES:
+        cluster *= 2
+    part = -(-n // cluster)
+    part = -(-part // per16) * per16
+    if part * itemsize > PART_MAX_BYTES:
+        return "two_read", 0, 0
+    return "cluster", cluster, part
 
 
 def fused_group_norm_plain(x, num_groups: int, weight, bias, eps: float = 1e-6):
@@ -59,12 +87,27 @@ def fused_group_norm(x, num_groups: int, weight, bias, eps: float = 1e-6):
                              f"on {t.device}")
     if weight.dtype != bias.dtype:
         raise ValueError(f"{name}: weight and bias have different dtypes")
+    return launch_form(gn_plan(C, num_groups, H, W, x.element_size())[0], x, num_groups,
+                       weight, bias, eps)
+
+
+def launch_form(form: str, x, num_groups: int, weight, bias, eps: float = 1e-6):
+    """Launch one form of the kernel on checked inputs (the wrapper passes
+    ``gn_plan``'s choice; a benchmark may time the two_read form where the
+    cluster form would run)."""
+    B, C, H, W = x.shape
     y = torch.empty_like(x)
-    per16 = 16 // x.element_size()
-    vec = int(H * W % per16 == 0 and aligned16(x, y))
-    launch(name, "group_norm", "mdu_group_norm", x.device,
-           ptr(x), ptr(weight), ptr(bias), ptr(y), ctypes.c_int(B), ctypes.c_int(C),
-           ctypes.c_int(num_groups), ctypes.c_int(H * W), ctypes.c_float(eps),
-           ctypes.c_int(int(x.dtype == torch.bfloat16)),
-           ctypes.c_int(int(weight.dtype == torch.bfloat16)), ctypes.c_int(vec))
+    dtypes = (ctypes.c_int(int(x.dtype == torch.bfloat16)),
+              ctypes.c_int(int(weight.dtype == torch.bfloat16)))
+    args = (ptr(x), ptr(weight), ptr(bias), ptr(y), ctypes.c_int(B), ctypes.c_int(C),
+            ctypes.c_int(num_groups), ctypes.c_int(H * W))
+    if form == "cluster":
+        _, cluster, part = gn_plan(C, num_groups, H, W, x.element_size())
+        launch("fused_group_norm", "group_norm", "mdu_group_norm_cluster", x.device, *args,
+               ctypes.c_int(cluster), ctypes.c_int(part), ctypes.c_float(eps), *dtypes,
+               form=form)
+    else:
+        vec = int(H * W % (16 // x.element_size()) == 0 and aligned16(x, y))
+        launch("fused_group_norm", "group_norm", "mdu_group_norm", x.device, *args,
+               ctypes.c_float(eps), *dtypes, ctypes.c_int(vec), form=form)
     return y

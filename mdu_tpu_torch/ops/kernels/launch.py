@@ -13,14 +13,23 @@ of #1, #2, #3 and #6; ``flash_attention.wide`` and
 mma.sync kernel; ``flash_attention_fm_f32``, ``flash_attention_f32`` and
 ``fused_conv3x3_f32`` (the fp32 kernels of #1, #2 and #6): ``.sm90`` (wgmma,
 three TF32 passes), ``.wide`` (mma.sync in TF32 at D > 160) and ``.simt``
-(the CUDA cores)).
+(the CUDA cores); ``fused_group_norm``: ``.cluster`` and ``.two_read``).
+``fused_tile_blend_floor`` counts the empty kernel that measures #5's launch
+floor (never on a pipeline's path).
+
+The host's part of a launch is most of the time of the small kernels (#4 at
+config 2's narrow levels, #5), so ``launch`` resolves each C function and
+its argument types once, per loaded library, and enters a device context
+only for a tensor off the current device.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from . import build
 
 LAUNCHES = {
     "flash_attention_fm": 0, "flash_attention": 0,
@@ -35,7 +44,11 @@ LAUNCHES = {
     "flash_attention_f32.wide": 0, "flash_attention_f32.simt": 0,
     "flash_attention.wide": 0, "flash_attention.mma": 0, "flash_attention_fm.wide_mma": 0,
     "fused_conv3x3_f32.sm90": 0, "fused_conv3x3_f32.simt": 0,
+    "fused_group_norm.cluster": 0, "fused_group_norm.two_read": 0,
+    "fused_tile_blend_floor": 0,
 }
+# (loaded library, C function name) -> the function, its argtypes set
+_FNS: Dict[Tuple[ctypes.CDLL, str], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -47,19 +60,35 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _function(library: str, fn_name: str, args) -> ctypes._CFuncPtr:
+    """``fn_name`` of the loaded ``library`` with its argtypes (those of
+    ``args`` and the stream) and restype set, on its first call only."""
+    lib = build.load(library)
+    fn = _FNS.get((lib, fn_name))
+    if fn is None:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[lib, fn_name] = fn
+    return fn
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as a cudaStream_t."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, library: str, fn_name: str, device: torch.device, *args,
            form: Optional[str] = None) -> None:
     """Call ``fn_name`` of ``library`` with ``args`` (ctypes values) and the
     current stream of ``device``; counts the launch under ``name`` and, with
     ``form``, under ``name.form``."""
-    from .build import load
-
-    fn = getattr(load(library), fn_name)
-    fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    fn = _function(library, fn_name, args)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(device.index))
     LAUNCHES[name] += 1
     if form is not None:
         LAUNCHES[f"{name}.{form}"] += 1

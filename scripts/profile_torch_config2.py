@@ -12,7 +12,8 @@ synchronize), then one image under ``torch.profiler``. Prints one JSON line:
 the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
 share of the profiled image, and the device time by kernel family and by the
-20 largest kernels (also written to PATH with --out). TF32 is off. The
+20 largest kernels (also written to PATH with --out), and the launches of
+#4 by input shape in the warm-up image. TF32 is off. The
 kernel flags (MDU_FLASH, MDU_FUSED_GN, MDU_FUSED_CONV, MDU_FUSED_BLEND) are
 taken from the environment as they are, and echoed in the result, as is
 the dtype.
@@ -42,7 +43,7 @@ FAMILIES = [
                            r"|flash_kernel<\d+, true|flash_kernelILi\d+ELb1"),
     ("flash_attention_t", r"flash_t_kernel|flash_sm90_kernel.*Online"),
     ("flash_attention", r"flash_kernel|flash_wide_sm90_kernel"),
-    ("fused_group_norm", r"gn_kernel"),
+    ("fused_group_norm", r"gn_(cluster|two_read)_kernel"),
     ("fused_tile_blend", r"blend_kernel"),
     ("fused_conv3x3", r"conv_bf16_kernel|conv_sm90_kernel|conv_f32_kernel|conv_f32_sm90_kernel"),
     ("conv (cuDNN / implicit GEMM)", r"conv|implicit|cudnn|xmma_fprop|sm90_xmma|winograd|fprop"),
@@ -88,7 +89,20 @@ def main() -> int:
                      tiled_diffusion=td, tiled_vae=tv)
         torch.cuda.synchronize()
 
+    # the warm-up image also counts #4's launches by shape (under MDU_FUSED_GN)
+    from mdu_tpu_torch.models import layers
+
+    gn_shapes = {}
+    fused_gn = layers.fused_group_norm
+
+    def counted_gn(x, *a, **kw):
+        key = str(list(x.shape))
+        gn_shapes[key] = gn_shapes.get(key, 0) + 1
+        return fused_gn(x, *a, **kw)
+
+    layers.fused_group_norm = counted_gn
     image(0)                                      # warm-up
+    layers.fused_group_norm = fused_gn
     t0 = time.perf_counter()
     image(1)
     wall_s = time.perf_counter() - t0
@@ -127,6 +141,7 @@ def main() -> int:
         "families_ms": {k: {"ms": v[0], "launches": v[1], "share": v[0] / total_ms}
                         for k, v in sorted(fams.items(), key=lambda kv: -kv[1][0])},
         "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]} for n, v in top],
+        "fused_group_norm_shapes": gn_shapes,
     }
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -500,6 +500,78 @@ def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):
         flash_attention_t(*(q.to("meta"),) * 3)
 
 
+@pytest.mark.parametrize("C,H,W,itemsize,plan", [
+    (320, 64, 96, 2, ("cluster", 4, 15360)),      # config 2's level 0, 120 KB a group
+    (320, 64, 96, 4, ("cluster", 8, 7680)),       # the same in fp32, 240 KB
+    (1280, 8, 12, 2, ("cluster", 1, 3840)),       # the mid-block: one CTA a group
+    (960, 64, 96, 2, ("cluster", 8, 23040)),      # the largest ResBlock group: parts past 32 KB
+    (96, 7, 9, 2, ("cluster", 1, 192)),           # ragged: 189 elements, whole 16-byte lines
+    (96, 7, 9, 4, ("cluster", 1, 192)),
+    (32 * 13, 128, 256, 2, ("cluster", 8, 53248)),
+    (32 * 13, 128, 256, 4, ("two_read", 0, 0)),   # 1.7 MB: past 8 parts of 192 KB
+])
+def test_gn_form_rule(C, H, W, itemsize, plan):
+    """#4's form is a function of the shape and dtype alone: the cluster form
+    with the fewest CTAs (up to 8) whose parts hold 32 KB, each part whole
+    16-byte lines, the two-read form once a part would pass 192 KB."""
+    from mdu_tpu_torch.ops.kernels.group_norm import gn_plan
+
+    got = gn_plan(C, 32, H, W, itemsize)
+    assert got == plan
+    form, cluster, part = got
+    if form == "cluster":
+        n = C // 32 * H * W
+        assert cluster * part >= n > (cluster - 1) * part and part * itemsize % 16 == 0
+
+
+def test_launch_resolves_each_c_function_once(monkeypatch):
+    """``launch`` looks a C function up and sets its argtypes on its first
+    call only; every call still counts, and passes the current stream."""
+    from mdu_tpu_torch.ops.kernels import launch as launch_mod
+
+    calls, lookups = [], []
+
+    class Fn:
+        def __init__(self):
+            self.set = []
+
+        def __setattr__(self, key, value):
+            if key != "set":
+                self.set.append(key)
+            object.__setattr__(self, key, value)
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    class Lib:
+        def __getattr__(self, name):
+            lookups.append(name)
+            fn = Fn()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    lib = Lib()
+    monkeypatch.setattr(launch_mod.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(launch_mod, "_raw_stream", lambda index: 1234)
+    monkeypatch.setattr(launch_mod, "_FNS", {})
+    before = dict(launch_mod.LAUNCHES)
+    dev = torch.device("cuda", 0)
+    for _ in range(3):
+        launch_mod.launch("fused_tile_blend", "tile_blend", "mdu_tile_blend", dev,
+                          launch_mod.ctypes.c_int(7))
+    launch_mod.launch("fused_group_norm", "group_norm", "mdu_group_norm_cluster", dev,
+                      launch_mod.ctypes.c_int(1), form="cluster")
+    assert lookups == ["mdu_tile_blend", "mdu_group_norm_cluster"]
+    assert lib.mdu_tile_blend.set == ["argtypes", "restype"]
+    assert lib.mdu_tile_blend.argtypes == [launch_mod.ctypes.c_int, launch_mod.ctypes.c_void_p]
+    assert [a[-1] for a in calls] == [1234] * 4
+    assert launch_mod.LAUNCHES["fused_tile_blend"] == before["fused_tile_blend"] + 3
+    assert (launch_mod.LAUNCHES["fused_group_norm.cluster"]
+            == before["fused_group_norm.cluster"] + 1)
+
+
 # ------------------------------------------------------------ the modules
 
 

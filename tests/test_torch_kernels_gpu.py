@@ -121,6 +121,25 @@ def test_f32_kernel_matches_plain(name, shape, form):
     assert (out - plain(q, k, v)).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("name", ["flash_attention_fm", "flash_attention"])
+@pytest.mark.parametrize("shape,form", [
+    ((10, 8, 6144, 40), "sm90"), ((10, 8, 1536, 80), "sm90"), ((2, 1, 9600, 512), "wide")])
+def test_f32_forms_hold_a_sharp_softmax(name, shape, form):
+    """The fp32 tensor-core forms at the main path's shapes with q x 3
+    (scores of std 3: a sharp softmax and a large |O|), within 1e-4 of the
+    fp32 plain version: O's accumulation cannot drift over a long kv."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+    q = q * 3
+    kernel, plain = _fns(name)
+    before = LAUNCHES[f"{name}_f32.{form}"]
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"{name}_f32.{form}"] == before + 1
+    assert (out - plain(q, k, v)).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("D,form", [(40, "sm90"), (80, "sm90"), (512, "wide")])
 @pytest.mark.parametrize("kw,qscale", [
     (dict(smax=5.0, clamp=True), 4.0),            # scores above smax flattened
@@ -374,23 +393,29 @@ def test_fm_bf16_exp_takes_the_mma_form_by_rule(D, unaligned):
     _check_fm(q, k, v, out, bf16_exp=True)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((2, 320, 64, 96), torch.bfloat16),
-    ((2, 1280, 8, 12), torch.bfloat16),
-    ((1, 96, 7, 9), torch.bfloat16),          # H * W not a multiple of 8
-    ((2, 320, 64, 96), torch.float32),
-    ((1, 96, 7, 9), torch.float32),
+@pytest.mark.parametrize("shape,dtype,form", [
+    ((2, 320, 64, 96), torch.bfloat16, "cluster"),
+    ((2, 1280, 8, 12), torch.bfloat16, "cluster"),
+    ((1, 96, 7, 9), torch.bfloat16, "cluster"),          # H * W not a multiple of 8
+    ((2, 320, 64, 96), torch.float32, "cluster"),
+    ((10, 320, 64, 96), torch.float32, "cluster"),       # 240 KB a group: a cluster of 8
+    ((2, 960, 64, 96), torch.bfloat16, "cluster"),       # 45 KB parts
+    ((2, 416, 67, 93), torch.bfloat16, "cluster"),       # ragged, 8 parts: groups off 16-byte lines
+    ((1, 96, 7, 9), torch.float32, "cluster"),
+    ((1, 416, 128, 256), torch.float32, "two_read"),     # 1.7 MB: past what a cluster holds
 ])
-def test_group_norm_kernel_matches_plain(shape, dtype):
+def test_group_norm_kernel_matches_plain(shape, dtype, form):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(4)
     x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).to(dtype)
     w = (1 + 0.2 * torch.randn(shape[1], generator=gen, device=dev)).to(dtype)
     b = (0.2 * torch.randn(shape[1], generator=gen, device=dev)).to(dtype)
-    before = LAUNCHES["fused_group_norm"]
+    before = dict(LAUNCHES)
     out = fused_group_norm(x, 32, w, b, 1e-5)
     torch.cuda.synchronize()
-    assert LAUNCHES["fused_group_norm"] == before + 1 and out.dtype == dtype
+    assert LAUNCHES["fused_group_norm"] == before["fused_group_norm"] + 1 and out.dtype == dtype
+    assert (LAUNCHES[f"fused_group_norm.{form}"]
+            == before[f"fused_group_norm.{form}"] + 1)
     ref = fused_group_norm_plain(x.float(), 32, w.float(), b.float(), 1e-5)
     if dtype == torch.bfloat16:
         _close_bf16(out, ref, fused_group_norm_plain(x, 32, w, b, 1e-5))
