@@ -29,7 +29,9 @@ __all__ = ["fused_group_norm", "fused_group_norm_plain", "gn_plan", "launch_form
 _DTYPES = (torch.bfloat16, torch.float32)
 CLUSTER_MAX = 8                 # CTAs of a cluster (the portable limit)
 PART_BYTES = 32 * 1024          # a CTA's part of a group, where 8 CTAs allow it
-PART_MAX_BYTES = 192 * 1024     # the most a CTA holds (of 227 KB of shared memory)
+# the most a CTA holds: 8 lines of 16 bytes in each of its 512 threads'
+# registers, less the line that a part starting mid-line shares
+PART_MAX_BYTES = 8 * 512 * 16 - 16
 
 
 def gn_plan(C: int, num_groups: int, H: int, W: int, itemsize: int):
@@ -37,7 +39,7 @@ def gn_plan(C: int, num_groups: int, H: int, W: int, itemsize: int):
     tensor of ``itemsize`` bytes: ``cluster`` with the fewest CTAs (a power
     of two up to 8) whose parts hold at most 32 KB each, or more if 8 do not
     get there; ``two_read`` (cluster size and part 0) when a part would pass
-    192 KB. A part is a whole number of 16-byte lines."""
+    64 KB less a line. A part is a whole number of 16-byte lines."""
     n = C // num_groups * H * W
     per16 = 16 // itemsize
     cluster = 1

@@ -25,7 +25,10 @@ A CASE is ``KERNEL.FORM:SHAPE[:KEY=VALUE...]``:
   ``chip_smoke.py``);
 * the fused conv, ``fused_conv3x3`` (bf16; ``sm90``, ``mma``) and
   ``fused_conv3x3_f32`` (fp32; ``sm90``, ``simt``): SHAPE ``B,H,W,C,Co``;
-  option ``fuse_act`` (default 1).
+  option ``fuse_act`` (default 1);
+* the fused GroupNorm, ``fused_group_norm`` (bf16) and
+  ``fused_group_norm_f32`` (``cluster``, ``two_read``): SHAPE ``B,C,H,W``,
+  32 groups; the cluster form takes this checkout's plan (``gn_plan``).
 
 For example ``--case flash_attention.wide:2,1,9600,512 --case
 fused_conv3x3_f32.sm90:10,64,96,320,320:fuse_act=0``. Every output is held
@@ -33,7 +36,9 @@ against the plain version in fp32 on the same inputs (bf16: 2x the bf16
 plain version's error + 1e-3; fp32: 1e-4); the verdict is printed, not
 enforced, so that a version that misses the bar is still timed. Each version
 is timed twice, in turns (first tree to last, then last to first), by CUDA
-events around a loop of ``--iters`` launches. Prints the card's name and
+events around a loop of ``--iters`` launches (``ms``) and by torch.profiler's
+kernel durations over as many (``device_ms``, which leaves out the host's
+time between launches). Prints the card's name and
 power limit as nvidia-smi gives them, then one JSON line per case.
 """
 from __future__ import annotations
@@ -116,6 +121,23 @@ def conv_case(kernel, form, shape, opts, gen):
     return "conv3x3", run, ref, bar
 
 
+def gn_case(kernel, form, shape, opts, gen):
+    """(library, launch, reference, bar) of one GroupNorm case."""
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import group_norm
+
+    dtype = torch.float32 if kernel.endswith("_f32") else torch.bfloat16
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = (1 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(dtype)
+    b = (0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(dtype)
+    run = lambda: group_norm.launch_form(form, x, 32, w, b)
+    ref = group_norm.fused_group_norm_plain(x.float(), 32, w.float(), b.float())
+    bar = F32_TOL if dtype == torch.float32 else 2 * (group_norm.fused_group_norm_plain(
+        x, 32, w, b).float() - ref).abs().max().item() + 1e-3
+    return "group_norm", run, ref, bar
+
+
 def build(trees, libraries):
     """{(tree, library): loaded library}, one nvcc each, all started at once."""
     from mdu_tpu_torch.ops.kernels import build as kbuild
@@ -167,6 +189,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import chip_smoke
     from mdu_tpu_torch.ops.kernels import build as kbuild
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -175,7 +198,8 @@ def main() -> int:
     cases = []
     for text in args.case:
         kernel, form, shape, opts = parse_case(text)
-        make = conv_case if kernel.startswith("fused_conv3x3") else attention_case
+        make = (conv_case if kernel.startswith("fused_conv3x3") else
+                gn_case if kernel.startswith("fused_group_norm") else attention_case)
         cases.append((text, *make(kernel, form, shape, opts, gen)))
     libs = build(args.trees, sorted({case[1] for case in cases}))
 
@@ -189,12 +213,14 @@ def main() -> int:
         calls = {tree: version(tree, library, run) for tree in args.trees}
         errs = {tree: (call().float() - ref).abs().max().item() for tree, call in calls.items()}
         times = {tree: [] for tree in args.trees}
+        dev = {tree: [] for tree in args.trees}
         for order in (args.trees, args.trees[::-1]):
             for tree in order:
                 times[tree].append(events_ms(calls[tree], args.iters))
+                dev[tree].append(chip_smoke.device_ms(calls[tree], args.iters))
         print(json.dumps({"case": text, "bar": bar, "versions": [
-            {"tree": t, "ms": times[t], "max_abs_err": errs[t], "within_bar": errs[t] <= bar}
-            for t in args.trees]}), flush=True)
+            {"tree": t, "ms": times[t], "device_ms": dev[t], "max_abs_err": errs[t],
+             "within_bar": errs[t] <= bar} for t in args.trees]}), flush=True)
     return 0
 
 

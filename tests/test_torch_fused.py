@@ -507,13 +507,15 @@ def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):
     (960, 64, 96, 2, ("cluster", 8, 23040)),      # the largest ResBlock group: parts past 32 KB
     (96, 7, 9, 2, ("cluster", 1, 192)),           # ragged: 189 elements, whole 16-byte lines
     (96, 7, 9, 4, ("cluster", 1, 192)),
-    (32 * 13, 128, 256, 2, ("cluster", 8, 53248)),
-    (32 * 13, 128, 256, 4, ("two_read", 0, 0)),   # 1.7 MB: past 8 parts of 192 KB
+    (640, 64, 96, 4, ("cluster", 8, 15360)),      # 480 KB in 8 parts of 60 KB
+    (960, 64, 96, 4, ("two_read", 0, 0)),         # 720 KB: past 8 parts of 64 KB
+    (32 * 13, 128, 256, 4, ("two_read", 0, 0)),
 ])
 def test_gn_form_rule(C, H, W, itemsize, plan):
     """#4's form is a function of the shape and dtype alone: the cluster form
     with the fewest CTAs (up to 8) whose parts hold 32 KB, each part whole
-    16-byte lines, the two-read form once a part would pass 192 KB."""
+    16-byte lines, the two-read form once a part would pass 64 KB less a
+    line."""
     from mdu_tpu_torch.ops.kernels.group_norm import gn_plan
 
     got = gn_plan(C, 32, H, W, itemsize)
