@@ -126,7 +126,8 @@ EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
                      "flash_attention": 1, "flash_attention.wide": 1}
 EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
                     "flash_attention": 1, "flash_attention.wide": 1, "fused_group_norm": 340,
-                    "fused_group_norm.cluster": 340, "fused_conv3x3": 320,
+                    "fused_group_norm.cluster": 120, "fused_group_norm.two_read": 220,
+                    "fused_conv3x3": 320,
                     "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
 EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
                "flash_attention_fm.wide": 1}
@@ -175,7 +176,8 @@ KERNELS = {
         # flags); the widest ResBlock norm (2560 channels, a skip concat);
         # the largest ResBlock group (level 0's first up ResBlock, 960
         # channels with its skip: 360 KB a group in bf16); then a ragged H * W
-        # (no 16-byte lines). All take the cluster form.
+        # (no 16-byte lines). Level 0 and the 960 channels take the cluster
+        # form, the others (which fit L2) the two_read form.
         shapes=[(10, 320, 64, 96), (10, 640, 32, 48), (10, 1280, 16, 24), (10, 1280, 8, 12),
                 (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9)],
         # fp32 (a model built in fp32): level 0 (a cluster of 8); a group
@@ -501,10 +503,11 @@ def check_attention(gen, summary):
 
 def check_group_norm(gen, summary):
     """bf16 at every shape of KERNELS, fp32 at every ``f32_shapes``. Each line
-    names the form that ``gn_plan`` picks, whose launch counter must move;
-    where the cluster form runs at a config-2 shape, the two_read form runs
-    on the same inputs too, held to the same bar and timed. Then a constant
-    group: its variance clamps at 0, and the output is the bias."""
+    names the form that ``gn_plan`` picks, whose launch counter must move; at
+    config 2's shapes the other form runs on the same inputs too (where a
+    group fits a cluster), held to the same bar and timed (``other_*``).
+    Then a constant group: its variance clamps at 0, and the output is the
+    bias."""
     import torch
     import torch.nn.functional as F
 
@@ -521,7 +524,7 @@ def check_group_norm(gen, summary):
         x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
         w = (1 + 0.2 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         b = (0.2 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
-        form, cluster, part = gn_mod.gn_plan(C, G, H, W, x.element_size())
+        form, cluster, part = gn_mod.gn_plan(B, C, G, H, W, x.element_size())
         before = LAUNCHES[f"fused_group_norm.{form}"]
         out = fused_group_norm(x, G, w, b, eps)
         torch.cuda.synchronize()
@@ -532,13 +535,14 @@ def check_group_norm(gen, summary):
                      if dtype == torch.bfloat16 else 0.0)
         tol = 2.0 * err_plain + 1e-3 if dtype == torch.bfloat16 else F32_TOL
         extra = {"form": form, "cluster": cluster, "part": part}
-        if form == "cluster" and B == 10:
-            early = lambda: gn_mod.launch_form("two_read", x, G, w, b, eps)
-            early_err = (early().float() - ref).abs().max().item()
-            require(early_err <= tol, f"fused_group_norm {shape} two_read form: max abs err "
-                                      f"{early_err}")
-            extra.update(earlier_form="two_read", earlier_max_abs_err=early_err,
-                         earlier_ms=cuda_ms(early, 50), earlier_device_ms=device_ms(early, 50))
+        other = "two_read" if form == "cluster" else "cluster"
+        if B == 10 and gn_mod.cluster_split(C // G * H * W, x.element_size()):
+            alt = lambda: gn_mod.launch_form(other, x, G, w, b, eps)
+            alt_err = (alt().float() - ref).abs().max().item()
+            require(alt_err <= tol, f"fused_group_norm {shape} {other} form: max abs err "
+                                    f"{alt_err}")
+            extra.update(other_form=other, other_max_abs_err=alt_err,
+                         other_ms=cuda_ms(alt, 50), other_device_ms=device_ms(alt, 50))
         isz = x.element_size()
         bound_ms, bound_by = bound(8.0 * x.numel(), 2.0 * x.numel() * isz + 2.0 * C * isz, isz)
         checks.append(_record(
@@ -905,7 +909,8 @@ def kernel_rows(checks, launches):
                  "earlier_device_ms", "bound_ms", "fma_bound_ms", "mufu_floor_ms",
                  "library_ms", "library_device_ms", "library_backend", "library_efficient_ms",
                  "library_efficient_device_ms", "plain_ms", "max_abs_err",
-                 "earlier_max_abs_err", "cluster", "dtype")
+                 "earlier_max_abs_err", "cluster", "dtype", "other_form", "other_device_ms",
+                 "other_max_abs_err")
     conv_c2 = KERNELS["fused_conv3x3"]["shapes"][:4]
     # kernel -> (config-2 run that takes it, its config-2 shapes)
     where = {"flash_attention_fm": ("default", KERNELS["flash_attention_fm"]["shapes"][:2]),

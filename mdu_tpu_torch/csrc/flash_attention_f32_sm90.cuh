@@ -67,12 +67,18 @@
 //
 // Sizes. Consumers hold S (BK / 2 registers), P's small part (BK / 2), O
 // (DP / 2), the tile's P.V accumulator (DP / 2; above DP = 80 it runs in
-// chunks of 40 columns, 20) and Q (DP, or DP / 2 above DP = 80). BK = 32 kv
-// at every DP: the fresh accumulator took the registers that a 64-row S
-// held. DP <= 40: three consumers (152 registers each; the producer
-// warpgroup gives its own up, to 56), four stages of Kb, Ks and V^T big and
-// small (20 KB at DP = 40). DP <= 80: two consumers (232 registers; the
-// producer keeps 40). DP > 80: one consumer, Q's big part up to 40 KB.
+// chunks of 40 columns, 20) and Q's small part (DP / 2), with its big part
+// (DP / 2) in registers at 40 < DP <= 80 and in shared memory (rounded in
+// place, read by wgmma) otherwise.
+// - DP <= 40: three consumers (152 registers each; the producer warpgroup
+//   gives its own up, to 56), BK = 64, four stages of Kb, Ks and V^T big and
+//   small (40 KB at DP = 40) beside Q's 30 KB. The fresh accumulator took
+//   the registers of Q's big part: at config 2's D = 40 this costs 6 % over
+//   the chained accumulation (4.80 against 4.54 ms), where BK = 32 with Q in
+//   registers cost 13 % (5.15; H100 80GB HBM3, 700 W).
+// - DP <= 80: two consumers (232 registers; the producer keeps 40), BK = 32
+//   (a 64-column S and the fresh accumulator spill at DP = 80).
+// - DP > 80: one consumer, BK = 32, Q's big part up to 40 KB.
 // (Three consumers at DP = 48 spill. At config 2's D = 40 three consumers
 // took 4.6 ms against 5.7 for two, on an H100 80GB HBM3 at 700 W.)
 //
@@ -85,7 +91,7 @@
 // simply by running side by side, and the split of P (two integer
 // operations and a subtract per score) and the helpers' passes run beside
 // the products too.
-// [10, 8, 6144, 40] is 48 x 80 = 3840 blocks of 128 rows, 29 waves.
+// [10, 8, 6144, 40] is 32 x 80 = 2560 blocks of 192 rows, 19.4 waves.
 //
 // ---------------------------------------------------------------- wide form
 // For 160 < D <= 512, the same alignment (the VAE's single head at D = 512,
@@ -285,12 +291,12 @@ template <int DP>
 struct Cfg {
   static constexpr int NCONS = DP <= 40 ? 3 : DP <= 80 ? 2 : 1;
   static constexpr int BQ = 64 * NCONS;
-  static constexpr int BK = 32;
+  static constexpr int BK = DP <= 40 ? 64 : 32;
   // width of a chunk of P.V's fresh accumulator
   static constexpr int PV_N = DP <= 80 ? DP : 40;
-  // Q in registers, big and small, as the A fragments of all three passes
-  // (DP <= 80); above, its big part in shared memory
-  static constexpr bool Q_REGS = DP <= 80;
+  // Q's big part in registers too, as the A fragments of its two passes
+  // (40 < DP <= 80); else in shared memory
+  static constexpr bool Q_REGS = DP > 40 && DP <= 80;
   static constexpr int NTHREADS = 128 * (NCONS + 1);
   static constexpr int NS = DP / 8;                   // k-steps (slices) of Q.K^T
   static constexpr int Q_SLICE = BQ * 32;

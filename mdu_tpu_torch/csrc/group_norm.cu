@@ -15,31 +15,41 @@
 // (ops/kernels/group_norm.py, ``gn_plan``):
 //
 // cluster: the group held on chip across a thread-block cluster of CL <= 8
-//   CTAs, one HBM read. Each CTA takes a contiguous part of the group (at
-//   most 32 KB where CL = 8 allows it, up to 192 KB), pulls it into shared
-//   memory with bulk asynchronous copies (cp.async.bulk, in NCHUNK chunks on
-//   their own mbarriers, so that the sums start on the first chunk while the
-//   rest are in flight; the elements before the part's first and after its
-//   last 16-byte boundary with plain loads), and sums (x, x^2) in fp32 in a
-//   fixed order. The CTAs' partials are exchanged through distributed
-//   shared memory behind a cluster barrier and summed in rank order by every
-//   CTA (so every CTA, and every run, has the same statistics); each CTA then
+//   CTAs, one HBM read. Each CTA takes a contiguous part of the group (32 KB
+//   where 8 CTAs allow it, up to 192 KB), pulls it into shared memory with
+//   bulk asynchronous copies (cp.async.bulk, in NCHUNK chunks on their own
+//   mbarriers, so that the sums start on the first chunk while the rest are
+//   in flight; the elements before the part's first and after its last
+//   16-byte boundary with plain loads), and sums (x, x^2) in fp32 in a fixed
+//   order. The CTAs' partials are exchanged through distributed shared
+//   memory behind a cluster barrier and summed in rank order by every CTA
+//   (so every CTA, and every run, has the same statistics); each CTA then
 //   normalises its part from shared memory with 16-byte stores. Parts of
-//   about 32 KB let 6-7 CTAs share an SM, so one CTA's loads overlap
-//   another's sums and stores, and config 2's 320 groups spread as 1280 or
-//   2560 CTAs, not 320 blocks over 132 SMs.
+//   32 KB let 6-7 CTAs share an SM, so that one CTA's loads overlap
+//   another's sums and stores.
 // two_read: one block of 512 threads per (b, g) reads its group twice, once
 //   for the statistics and once to normalise (16-byte loads and stores where
-//   H * W and alignment allow): for a group larger than a cluster holds (8 x
-//   192 KB; the JAX caller caps a group at 4 MiB). The second read comes
-//   from L2 when the groups fit its 50 MB.
+//   H * W and alignment allow). Its second read comes from L2 when the
+//   tensor fits there beside its output, and then it is the faster form: a
+//   block streams its group with no barrier between CTAs, where a cluster
+//   CTA loads all of its part, waits for the cluster, and only then stores
+//   (at config 2's [10, 1280, 8, 12] 0.0036 against 0.0059 ms, at [10, 640,
+//   32, 48] 0.0111 against 0.0167; both forms tie at level 0's 39 MB, 0.040
+//   ms; the cluster form wins past L2: 0.064 against 0.084 ms at level 0 in
+//   fp32, 0.103 against 0.124 at [10, 960, 64, 96] in bf16; H100 80GB HBM3,
+//   700 W). So the cluster form takes a tensor past 32 MiB whose group fits
+//   a cluster, two_read the rest (and a group larger than 8 x 192 KB; the
+//   JAX caller caps a group at 4 MiB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace mdu::sm90;
 
 constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
@@ -164,8 +174,10 @@ cudaError_t launch_two_read(const void* x, const void* w, const void* b, void* y
 
 namespace cl {
 
-constexpr int NTHREADS = 512;
+constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int NCHUNK = 4;       // bulk copies of a part, each on its own mbarrier
+constexpr int HEAD = 128;       // shared bytes before the part: partial, mbarriers
 
 __device__ __forceinline__ uint32_t ctarank() {
   uint32_t r;
@@ -197,8 +209,17 @@ __device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr, uint32_t rank) {
   return v;
 }
 
+// ``bytes`` (a multiple of 16) from 16-byte aligned global ``src`` to shared
+// ``dst``, completing on ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
 // The channel's affine of group element ``e`` (of group g), kept across the
-// elements of a thread's line: ``next`` is the first element of the next
+// elements of a thread's vector: ``next`` is the first element of the next
 // channel.
 template <typename WT>
 struct Affine {
@@ -224,18 +245,22 @@ struct Affine {
 
 // Grid: B * G clusters of CL CTAs (CL = the cluster's size, 1 to 8). CTA r
 // of the cluster of group bg takes elements [r * part, min((r + 1) * part,
-// n)) of it, as the 16-byte lines of global memory that hold them: line l
-// of the part starts at byte 16 l of (its first element's address & ~15).
-// Thread t holds lines t, t + NTHREADS, ... (at most L of them) in
-// registers from one load each to its store.
-template <typename T, typename WT, int L>
+// n)) of it; ``part`` is a multiple of 16 bytes' worth of elements.
+template <typename T, typename WT>
 __global__ void __launch_bounds__(NTHREADS)
 gn_cluster_kernel(const T* __restrict__ x, const WT* __restrict__ w, const WT* __restrict__ b,
                   T* __restrict__ y, int C, int G, int HW, int part, float eps) {
   constexpr int E = sizeof(T);
   constexpr int V = 16 / E;
   __shared__ float2 red[NWARPS + 1];
-  __shared__ float2 partial;                    // this CTA's, read by the whole cluster
+  extern __shared__ __align__(128) unsigned char smem[];
+  // [0, 8): this CTA's partial (sum x, sum x^2), read by the whole cluster;
+  // [8, 8 + 8 NCHUNK): the chunks' mbarriers; from HEAD: the 16-byte lines
+  // that hold the part, in the order of global memory
+  const uint32_t sbase = mdu::smem_addr(smem);
+  const uint32_t partial = sbase;
+  auto bar = [&](int k) { return sbase + 8u + 8u * k; };
+  unsigned char* const buf = smem + HEAD;
 
   const int CL = (int)nctarank();
   const int rank = (int)ctarank();
@@ -247,47 +272,68 @@ gn_cluster_kernel(const T* __restrict__ x, const WT* __restrict__ w, const WT* _
   const int m = max(min(part, n - p0), 0);      // elements of this CTA's part
   const T* xs = x + (size_t)bg * n + p0;
   T* ys = y + (size_t)bg * n + p0;
-  const uintptr_t a0 = reinterpret_cast<uintptr_t>(xs);
-  const int lead = (int)(a0 & 15u) / E;         // elements of line 0 before the part
-  const int nl = m > 0 ? (lead + m + V - 1) / V : 0;
-  const uint4* xl = reinterpret_cast<const uint4*>(a0 - (a0 & 15u));
 
-  // every line's load first, then the sums: a whole line in one 16-byte
-  // load, the part's two end lines element by element (0 outside the part)
-  __align__(16) T e[L][V];
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int l = threadIdx.x + i * NTHREADS;
-    const int e0 = l * V - lead;                // the part's element at the line's first lane
-    if (l < nl) {
-      if (e0 >= 0 && e0 + V <= m) {
-        *reinterpret_cast<uint4*>(e[i]) = __ldg(xl + l);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) e[i][j] = e0 + j >= 0 && e0 + j < m ? xs[e0 + j] : from_f<T>(0.f);
-      }
+  // the part's bytes [a0, a1): 16-byte lines from a0 & ~15, the whole lines
+  // [mid0, mid1) by bulk copies, the rest by plain loads
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(xs);
+  const uintptr_t a1 = a0 + (uintptr_t)m * E;
+  const int lead = (int)(a0 & 15u);             // buf's bytes before the part
+  uintptr_t mid0 = (a0 + 15u) & ~(uintptr_t)15u;
+  uintptr_t mid1 = a1 & ~(uintptr_t)15u;
+  if (mid1 <= mid0) mid0 = mid1 = a1;           // no whole line: all plain loads
+  const int nh = (int)(mid0 - a0) / E;          // elements before mid0
+  const int nt = (int)(mid1 - a0) / E;          // first element after mid1
+  const int mid_bytes = (int)(mid1 - mid0);
+  const int chunk = ((mid_bytes + NCHUNK * 16 - 1) / (NCHUNK * 16)) * 16;
+  const int line0 = lead + (int)(mid0 - a0);    // buf offset of mid0
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < NCHUNK; ++k) mbar_init(bar(k), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < NCHUNK; ++k) {
+      const int lo = k * chunk;
+      const int len = min(chunk, mid_bytes - lo);
+      if (len <= 0) break;
+      mbar_arrive_expect_tx(bar(k), (uint32_t)len);
+      bulk_load(sbase + HEAD + line0 + lo, reinterpret_cast<const void*>(mid0 + lo),
+                (uint32_t)len, bar(k));
     }
   }
+
   float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    if (threadIdx.x + i * NTHREADS < nl) {
+  // the elements outside the whole lines, into buf as well
+  for (int i = threadIdx.x; i < nh + (m - nt); i += NTHREADS) {
+    const int e = i < nh ? i : nt + (i - nh);
+    const T v = xs[e];
+    *reinterpret_cast<T*>(buf + lead + e * E) = v;
+    const float f = to_f(v);
+    s1 += f;
+    s2 = fmaf(f, f, s2);
+  }
+  __syncthreads();                              // the mbarriers are initialised
+  for (int k = 0; k < NCHUNK; ++k) {
+    const int lo = k * chunk;
+    const int len = min(chunk, mid_bytes - lo);
+    if (len <= 0) break;
+    mbar_wait(bar(k), 0);
+    for (int i = threadIdx.x; i < len / 16; i += NTHREADS) {
+      __align__(16) T e[V];
+      *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(buf + line0 + lo + 16 * i);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float f = to_f(e[i][j]);
+        const float f = to_f(e[j]);
         s1 += f;
         s2 = fmaf(f, f, s2);
       }
     }
   }
   const float2 mine = block_sum2<NTHREADS>(s1, s2, red);
-  if (threadIdx.x == 0) partial = mine;
+  if (threadIdx.x == 0) *reinterpret_cast<float2*>(smem) = mine;
   cluster_arrive();                             // the partial is written
   cluster_wait();
   float t1 = 0.f, t2 = 0.f;
-  const uint32_t paddr = mdu::smem_addr(&partial);
   for (int r = 0; r < CL; ++r) {                // rank order: the same sums everywhere
-    const float2 v = ld_cluster_f2(paddr, (uint32_t)r);
+    const float2 v = ld_cluster_f2(partial, (uint32_t)r);
     t1 += v.x;
     t2 += v.y;
   }
@@ -297,47 +343,59 @@ gn_cluster_kernel(const T* __restrict__ x, const WT* __restrict__ w, const WT* _
   const float rstd = rsqrtf(var + eps);
 
   const uintptr_t b0 = reinterpret_cast<uintptr_t>(ys);
-  const bool lines = (b0 & 15u) == (a0 & 15u); // y's lines are x's
-  uint4* yl = reinterpret_cast<uint4*>(b0 - (b0 & 15u));
+  if ((b0 & 15u) == (uintptr_t)lead) {
+    // y's lines match buf's: 16-byte stores, plain ones at the part's ends
+    T* yl = reinterpret_cast<T*>(b0 - lead);    // y at buf's offset 0
+    const int nl = m > 0 ? (lead + m * E + 15) / 16 : 0;
+    for (int l = threadIdx.x; l < nl; l += NTHREADS) {
+      const int e0 = (16 * l - lead) / E;       // the line's first element (< 0 before the part)
+      __align__(16) T e[V];
+      *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(buf + 16 * l);
+      const int ge = p0 + max(e0, 0);           // its first element in the group
+      const int c = ge / HW;
+      if (e0 >= 0 && e0 + V <= m && ge - c * HW + V <= HW) {
+        // a whole line of one channel: its affine once
+        const float wc = to_f(w[g * Cg + c]);
+        const float bc = to_f(b[g * Cg + c]);
 #pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int l = threadIdx.x + i * NTHREADS;
-    if (l >= nl) continue;
-    const int e0 = l * V - lead;
-    Affine<WT> af(w, b, g, Cg, HW, p0 + max(e0, 0));
+        for (int j = 0; j < V; ++j) e[j] = from_f<T>(((to_f(e[j]) - mean) * rstd) * wc + bc);
+        *reinterpret_cast<uint4*>(yl + 16 / E * l) = *reinterpret_cast<const uint4*>(e);
+      } else {
+        Affine<WT> af(w, b, g, Cg, HW, ge);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      af.at(p0 + min(max(e0 + j, 0), m - 1));   // lanes outside the part: not stored
-      e[i][j] = from_f<T>(((to_f(e[i][j]) - mean) * rstd) * af.wc + af.bc);
+        for (int j = 0; j < V; ++j) {
+          if (e0 + j < 0 || e0 + j >= m) continue;   // outside the part
+          af.at(p0 + e0 + j);
+          ys[e0 + j] = from_f<T>(((to_f(e[j]) - mean) * rstd) * af.wc + af.bc);
+        }
+      }
     }
-    if (lines && e0 >= 0 && e0 + V <= m) {
-      yl[l] = *reinterpret_cast<const uint4*>(e[i]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        if (e0 + j >= 0 && e0 + j < m) ys[e0 + j] = e[i][j];
+  } else {
+    for (int i = threadIdx.x; i < m; i += NTHREADS) {
+      Affine<WT> af(w, b, g, Cg, HW, p0 + i);
+      const float f = to_f(*reinterpret_cast<const T*>(buf + lead + i * E));
+      ys[i] = from_f<T>(((f - mean) * rstd) * af.wc + af.bc);
     }
   }
   cluster_wait();                               // no CTA leaves while its partial is read
 }
 
-template <typename T, typename WT, int L>
-cudaError_t launch_lines(const void* x, const void* w, const void* b, void* y, int B, int C,
-                         int G, int HW, int cluster, int part, float eps,
-                         cudaStream_t stream) {
-  auto kernel = gn_cluster_kernel<T, WT, L>;
-  const int grid = B * G * cluster;
-  auto xp = static_cast<const T*>(x);
-  auto wp = static_cast<const WT*>(w);
-  auto bp = static_cast<const WT*>(b);
-  auto yp = static_cast<T*>(y);
-  if (cluster == 1) {                           // a lone CTA needs no cluster launch
-    kernel<<<grid, NTHREADS, 0, stream>>>(xp, wp, bp, yp, C, G, HW, part, eps);
-    return cudaGetLastError();
-  }
+template <typename T, typename WT>
+cudaError_t launch_cluster(const void* x, const void* w, const void* b, void* y, int B, int C,
+                           int G, int HW, int cluster, int part, float eps,
+                           cudaStream_t stream) {
+  if (cluster < 1 || cluster > 8 || part < 1 || part % (16 / (int)sizeof(T)) != 0 ||
+      (long)cluster * part < (long)(C / G) * HW)
+    return cudaErrorInvalidValue;
+  auto kernel = gn_cluster_kernel<T, WT>;
+  const int smem = HEAD + part * (int)sizeof(T) + 32;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = dim3(B * G * cluster);
   cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -346,26 +404,10 @@ cudaError_t launch_lines(const void* x, const void* w, const void* b, void* y, i
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, xp, wp, bp, yp, C, G, HW, part, eps);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// L, the lines a thread holds: the fewest of 1, 2, 4, 8 that cover a part
-// (and the line its first element may share with the part before it)
-template <typename T, typename WT>
-cudaError_t launch_cluster(const void* x, const void* w, const void* b, void* y, int B, int C,
-                           int G, int HW, int cluster, int part, float eps,
-                           cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  if (cluster < 1 || cluster > 8 || part < 1 || (long)cluster * part < (long)(C / G) * HW)
-    return cudaErrorInvalidValue;
-  const int lines = (part + V - 1) / V + 1;
-#define MDU_GN_LINES(L)                                                                        \
-  if (lines <= L * NTHREADS)                                                                   \
-    return launch_lines<T, WT, L>(x, w, b, y, B, C, G, HW, cluster, part, eps, stream);
-  MDU_GN_LINES(1) MDU_GN_LINES(2) MDU_GN_LINES(4) MDU_GN_LINES(8)
-#undef MDU_GN_LINES
-  return cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const WT*>(w),
+                           static_cast<const WT*>(b), static_cast<T*>(y), C, G, HW, part, eps);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace cl

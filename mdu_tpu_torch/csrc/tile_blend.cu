@@ -2,26 +2,28 @@
 // outputs into the canvas as a gather, fp32 or bf16 tiles.
 //
 // Replaces the TPU kernel mdu_tpu/ops/pallas/fused_blend.py::fused_tile_blend
-// (body _blend_kernel). Each canvas element (c, y, x) is the fp32 sum of the
-// elements of the tiles that cover it, taken in the order of its canvas
-// block's contributor row (tile ids in bbox order, -1 padded, and each
-// tile's origin relative to the block, built once per plan on the host by
-// utils/blend_table.py); with ``normalize`` it is divided by the paint count
-// where that is > 1; then cast to the tiles' dtype. The order is the bbox
-// order of the scatter-add it replaces, so in fp32 the two agree bit for
-// bit. The TPU's cyclic-roll staging of a tile window in VMEM (a Mosaic
-// workaround) has no counterpart.
+// (body _blend_kernel). One thread per canvas element (c, y, x): it looks up
+// the contributor table row of its canvas block (tile ids in bbox order, -1
+// padded, and each tile's origin relative to the block, built once per plan
+// on the host by utils/blend_table.py), sums the elements of its
+// contributor tiles that cover it in fp32, in table order, then with
+// ``normalize`` divides by the paint count where it is > 1, and casts to the
+// tiles' dtype. The order is the bbox order of the scatter-add it replaces,
+// so in fp32 the two agree bit for bit. The TPU's cyclic-roll staging of a
+// tile window in VMEM (a Mosaic workaround) has no counterpart: each thread
+// reads its tile elements directly, neighbouring threads neighbouring
+// addresses.
 //
 // What bounds it on an H100: bytes (each tile element read once, each canvas
 // element written once): at config 2 (5 tiles [4, 64, 96] onto [4, 64, 256],
-// fp32) 0.75 MB, 0.0002 ms at 3.35 TB/s, far under one launch. An empty
-// kernel on the same grid (floor_kernel, launched the same way) measures
-// that launch floor on the device: 0.95 us against the first design's 2.8 us
-// (one thread per element, which read the table row and then each tile
-// element in turn, a chain of dependent loads per contributor; H100 80GB
-// HBM3, 700 W). So one block per canvas block reads the row once, and each
-// thread issues the loads of all the row's tiles at once, 16 bytes each
-// along x where the plan keeps 16-byte lines.
+// fp32) 0.75 MB, 0.0002 ms at 3.35 TB/s, far below a launch. An empty
+// kernel on the same grid (floor_kernel, launched the same way) gives the
+// launch floor on the device: 0.95 us, against this kernel's 2.8 us (H100
+// 80GB HBM3, 700 W). The rest is latency: a thread's table entry, then its
+// tile element, then its store. One block per canvas block, the table row
+// read once into shared memory and 16-byte lines along x (tried: 2.8 us, on
+// a floor of 0.84 for its 32 blocks) keeps the same chain of dependent
+// loads, so this simpler form stays.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,18 +44,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// The contributor row of canvas block ``blk``: up to KREG tiles at a time in
-// registers (ids, then the tile origin relative to the block)
-constexpr int KREG = 8;
-
-// One block per canvas block of bh x bw (all BC channels). The block reads
-// its contributor row once into shared memory; each thread takes V
-// neighbouring canvas elements along x at a time (16 bytes where ``V`` > 1:
-// the host asks for it only when every tile origin, the canvas and tile
-// widths and the pointers keep 16-byte lines), loads the row's tiles that
-// cover them (independent loads, issued together) and sums them in fp32 in
-// table order, as the scatter-add it replaces does.
-template <typename T, int V>
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 blend_kernel(const T* __restrict__ tiles,     // [T, BC, th, tw]
              const int* __restrict__ idx,     // [nblocks, k_max]
@@ -62,94 +53,51 @@ blend_kernel(const T* __restrict__ tiles,     // [T, BC, th, tw]
              T* __restrict__ out,             // [BC, h, w]
              int BC, int h, int w, int th, int tw, int bh, int bw, int nbx,
              int k_max, int normalize) {
-  extern __shared__ int row[];                // k_max ids, then k_max (dy, dx)
-  const int blk = blockIdx.x;
-  for (int i = threadIdx.x; i < 3 * k_max; i += NTHREADS)
-    row[i] = i < k_max ? idx[(size_t)blk * k_max + i] : offs[(size_t)blk * 2 * k_max + i - k_max];
-  __syncthreads();
-  int nk = 0;                                 // the padding (-1) comes after every real entry
-  while (nk < k_max && row[nk] >= 0) ++nk;
-  const int y0 = (blk / nbx) * bh;
-  const int x0 = (blk % nbx) * bw;
-  const int rows = min(bh, h - y0);
-  const int cols = min(bw, w - x0);
-  const int nv = cols / V;                    // V divides cols when V > 1
-  const int items = BC * rows * nv;
-  for (int it = threadIdx.x; it < items; it += NTHREADS) {
-    const int lx = (it % nv) * V;
-    const int r = it / nv;
-    const int ly = r % rows;
-    const int c = r / rows;
-    float acc[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int k0 = 0; k0 < nk; k0 += KREG) {
-      // the tiles of this chunk of the row that cover (ly, lx .. lx + V)
-      __align__(16) T e[KREG][V];
-      bool in[KREG];
-#pragma unroll
-      for (int k = 0; k < KREG; ++k) {
-        const int kk = k0 + k;
-        const int ty = ly - row[k_max + 2 * kk];
-        const int tx = lx - row[k_max + 2 * kk + 1];
-        in[k] = kk < nk && ty >= 0 && ty < th && tx >= 0 && tx + V <= tw;
-        if (in[k]) {
-          const T* src = tiles + (((size_t)row[kk] * BC + c) * th + ty) * tw + tx;
-          if constexpr (V > 1) {
-            *reinterpret_cast<uint4*>(e[k]) = *reinterpret_cast<const uint4*>(src);
-          } else {
-            e[k][0] = *src;
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < KREG; ++k)
-        if (in[k]) {
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] += to_f(e[k][j]);
-        }
+  const long total = (long)BC * h * w;
+  for (long i = (long)blockIdx.x * NTHREADS + threadIdx.x; i < total;
+       i += (long)gridDim.x * NTHREADS) {
+    const int x = (int)(i % w);
+    const long r = i / w;
+    const int y = (int)(r % h);
+    const int c = (int)(r / h);
+    const int by = y / bh;
+    const int bx = x / bw;
+    const int blk = by * nbx + bx;
+    const int ly = y - by * bh;          // position inside the canvas block
+    const int lx = x - bx * bw;
+    float acc = 0.f;
+    for (int k = 0; k < k_max; ++k) {
+      const int e = blk * k_max + k;
+      const int t = idx[e];
+      if (t < 0) break;                  // the padding comes after every real entry
+      const int ty = ly - offs[2 * e];
+      const int tx = lx - offs[2 * e + 1];
+      if (ty >= 0 && ty < th && tx >= 0 && tx < tw)
+        acc += to_f(tiles[(((size_t)t * BC + c) * th + ty) * tw + tx]);
     }
-    const size_t o = ((size_t)c * h + y0 + ly) * w + x0 + lx;
-    __align__(16) T res[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float a = acc[j];
-      if (normalize) {
-        const float wv = wgt[(size_t)(y0 + ly) * w + x0 + lx + j];
-        if (wv > 1.f) a = a / wv;
-      }
-      res[j] = from_f<T>(a);
+    if (normalize) {
+      const float wv = wgt[(size_t)y * w + x];
+      if (wv > 1.f) acc = acc / wv;
     }
-    if constexpr (V > 1) {
-      *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(res);
-    } else {
-      out[o] = res[0];
-    }
+    out[i] = from_f<T>(acc);
   }
 }
 
-// the grid of blend_kernel: one block per canvas block
-inline int blend_blocks(int h, int w, int bh, int nbx) { return (h + bh - 1) / bh * nbx; }
-
-template <typename T, int V>
-cudaError_t launch_v(const void* tiles, const int* idx, const int* offs, const float* wgt,
-                     void* out, int BC, int h, int w, int th, int tw, int bh, int bw, int nbx,
-                     int k_max, int normalize, cudaStream_t stream) {
-  blend_kernel<T, V><<<blend_blocks(h, w, bh, nbx), NTHREADS, 3 * k_max * sizeof(int), stream>>>(
-      static_cast<const T*>(tiles), idx, offs, wgt, static_cast<T*>(out), BC, h, w, th, tw, bh,
-      bw, nbx, k_max, normalize);
-  return cudaGetLastError();
+// the grid of blend_kernel for a canvas of ``total`` elements
+inline int blend_blocks(long total) {
+  const long want = (total + NTHREADS - 1) / NTHREADS;
+  return (int)(want < 65535 ? want : 65535);
 }
 
 template <typename T>
-cudaError_t launch(const void* tiles, const int* idx, const int* offs, const float* wgt,
-                   void* out, int BC, int h, int w, int th, int tw, int bh, int bw, int nbx,
-                   int k_max, int normalize, int vec, cudaStream_t stream) {
-  if (vec)
-    return launch_v<T, 16 / sizeof(T)>(tiles, idx, offs, wgt, out, BC, h, w, th, tw, bh, bw,
-                                       nbx, k_max, normalize, stream);
-  return launch_v<T, 1>(tiles, idx, offs, wgt, out, BC, h, w, th, tw, bh, bw, nbx, k_max,
-                        normalize, stream);
+cudaError_t launch(const void* tiles, const int* idx, const int* offs,
+                   const float* wgt, void* out, int BC, int h, int w, int th,
+                   int tw, int bh, int bw, int nbx, int k_max, int normalize,
+                   cudaStream_t stream) {
+  blend_kernel<T><<<blend_blocks((long)BC * h * w), NTHREADS, 0, stream>>>(
+      static_cast<const T*>(tiles), idx, offs, wgt, static_cast<T*>(out), BC, h, w,
+      th, tw, bh, bw, nbx, k_max, normalize);
+  return cudaGetLastError();
 }
 
 // does nothing: the device time of a launch of blend_kernel's grid
@@ -160,29 +108,28 @@ __global__ void __launch_bounds__(NTHREADS) floor_kernel() {}
 // tiles: contiguous [T, BC, th, tw], fp32 or bf16 (is_bf16); out: contiguous
 // [BC, h, w] of the same dtype; idx / offs: the int32 contributor table of
 // canvas blocks bh x bw (nbx blocks a row); wgt: fp32 [h, w], read only with
-// ``normalize``; ``vec``: 16-byte lines along x (w, tw, bw and every tile's
-// dx multiples of 16 bytes' worth of elements, tiles, out and wgt 16-byte
-// aligned). Returns a cudaError_t (0 on a successful launch).
+// ``normalize``. Returns a cudaError_t (0 on a successful launch).
 extern "C" int mdu_tile_blend(const void* tiles, const void* idx, const void* offs,
                               const void* wgt, void* out, int BC, int h, int w,
                               int th, int tw, int bh, int bw, int nbx, int k_max,
-                              int normalize, int is_bf16, int vec, void* stream) {
+                              int normalize, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const int* op = static_cast<const int*>(offs);
   const float* wp = static_cast<const float*>(wgt);
   if (is_bf16)
-    return launch<__nv_bfloat16>(tiles, ip, op, wp, out, BC, h, w, th, tw, bh, bw, nbx, k_max,
-                                 normalize, vec, s);
-  return launch<float>(tiles, ip, op, wp, out, BC, h, w, th, tw, bh, bw, nbx, k_max, normalize,
-                       vec, s);
+    return launch<__nv_bfloat16>(tiles, ip, op, wp, out, BC, h, w, th, tw, bh, bw,
+                                 nbx, k_max, normalize, s);
+  return launch<float>(tiles, ip, op, wp, out, BC, h, w, th, tw, bh, bw, nbx,
+                       k_max, normalize, s);
 }
 
 // mdu_tile_blend's signature; launches an empty kernel on its grid and
 // writes nothing
-extern "C" int mdu_tile_blend_floor(const void*, const void*, const void*, const void*, void*,
-                                    int, int h, int w, int, int, int bh, int, int nbx, int, int,
+extern "C" int mdu_tile_blend_floor(const void*, const void*, const void*, const void*,
+                                    void*, int BC, int h, int w, int, int, int, int, int, int,
                                     int, int, void* stream) {
-  floor_kernel<<<blend_blocks(h, w, bh, nbx), NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>();
+  floor_kernel<<<blend_blocks((long)BC * h * w), NTHREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

@@ -12,9 +12,11 @@ to ``LAUNCHES["fused_group_norm.<form>"]``, its form chosen by ``gn_plan``
 from the shape and dtype alone:
 
 * ``cluster``: each group held in shared memory across a thread-block
-  cluster of up to 8 CTAs and read from HBM once;
-* ``two_read``: one block per group that reads it twice, for a group larger
-  than a cluster holds.
+  cluster of up to 8 CTAs and read from HBM once, for a tensor too large for
+  L2 to keep it for a second read;
+* ``two_read``: one block per group that reads it twice (the second time
+  from L2, for a tensor that fits there), and for a group larger than a
+  cluster holds.
 """
 from __future__ import annotations
 
@@ -24,32 +26,41 @@ import torch
 
 from .launch import aligned16, launch, ptr
 
-__all__ = ["fused_group_norm", "fused_group_norm_plain", "gn_plan", "launch_form"]
+__all__ = ["fused_group_norm", "fused_group_norm_plain", "gn_plan", "cluster_split",
+           "launch_form"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 CLUSTER_MAX = 8                 # CTAs of a cluster (the portable limit)
 PART_BYTES = 32 * 1024          # a CTA's part of a group, where 8 CTAs allow it
-# the most a CTA holds: 8 lines of 16 bytes in each of its 512 threads'
-# registers, less the line that a part starting mid-line shares
-PART_MAX_BYTES = 8 * 512 * 16 - 16
+PART_MAX_BYTES = 192 * 1024     # the most a CTA holds (of 227 KB of shared memory)
+# A tensor this small finds the two_read form's second read in L2 (50 MB,
+# beside its output); the cluster form only pays above it (PERF.md, #4).
+L2_RESIDENT_BYTES = 32 * 2 ** 20
 
 
-def gn_plan(C: int, num_groups: int, H: int, W: int, itemsize: int):
-    """(form, cluster size, elements per CTA) of the kernel for a [*, C, H, W]
-    tensor of ``itemsize`` bytes: ``cluster`` with the fewest CTAs (a power
-    of two up to 8) whose parts hold at most 32 KB each, or more if 8 do not
-    get there; ``two_read`` (cluster size and part 0) when a part would pass
-    64 KB less a line. A part is a whole number of 16-byte lines."""
-    n = C // num_groups * H * W
+def cluster_split(n: int, itemsize: int):
+    """(cluster size, elements per CTA) of a group of ``n`` elements: the
+    fewest CTAs (a power of two up to 8) whose parts hold at most 32 KB each,
+    or more if 8 do not get there, a part being whole 16-byte lines; None
+    when a part would pass 192 KB."""
     per16 = 16 // itemsize
     cluster = 1
     while cluster < CLUSTER_MAX and -(-n * itemsize // cluster) > PART_BYTES:
         cluster *= 2
     part = -(-n // cluster)
     part = -(-part // per16) * per16
-    if part * itemsize > PART_MAX_BYTES:
+    return None if part * itemsize > PART_MAX_BYTES else (cluster, part)
+
+
+def gn_plan(B: int, C: int, num_groups: int, H: int, W: int, itemsize: int):
+    """(form, cluster size, elements per CTA) of the kernel for a [B, C, H, W]
+    tensor of ``itemsize`` bytes: ``cluster`` (with ``cluster_split``'s
+    split) for a tensor past ``L2_RESIDENT_BYTES`` whose group fits a
+    cluster; else ``two_read`` (cluster size and part 0)."""
+    split = cluster_split(C // num_groups * H * W, itemsize)
+    if split is None or B * C * H * W * itemsize <= L2_RESIDENT_BYTES:
         return "two_read", 0, 0
-    return "cluster", cluster, part
+    return ("cluster",) + split
 
 
 def fused_group_norm_plain(x, num_groups: int, weight, bias, eps: float = 1e-6):
@@ -89,14 +100,14 @@ def fused_group_norm(x, num_groups: int, weight, bias, eps: float = 1e-6):
                              f"on {t.device}")
     if weight.dtype != bias.dtype:
         raise ValueError(f"{name}: weight and bias have different dtypes")
-    return launch_form(gn_plan(C, num_groups, H, W, x.element_size())[0], x, num_groups,
+    return launch_form(gn_plan(B, C, num_groups, H, W, x.element_size())[0], x, num_groups,
                        weight, bias, eps)
 
 
 def launch_form(form: str, x, num_groups: int, weight, bias, eps: float = 1e-6):
     """Launch one form of the kernel on checked inputs (the wrapper passes
-    ``gn_plan``'s choice; a benchmark may time the two_read form where the
-    cluster form would run)."""
+    ``gn_plan``'s choice; a benchmark may time the other form on the same
+    inputs, the cluster form wherever a group fits a cluster)."""
     B, C, H, W = x.shape
     y = torch.empty_like(x)
     dtypes = (ctypes.c_int(int(x.dtype == torch.bfloat16)),
@@ -104,7 +115,7 @@ def launch_form(form: str, x, num_groups: int, weight, bias, eps: float = 1e-6):
     args = (ptr(x), ptr(weight), ptr(bias), ptr(y), ctypes.c_int(B), ctypes.c_int(C),
             ctypes.c_int(num_groups), ctypes.c_int(H * W))
     if form == "cluster":
-        _, cluster, part = gn_plan(C, num_groups, H, W, x.element_size())
+        cluster, part = cluster_split(C // num_groups * H * W, x.element_size())
         launch("fused_group_norm", "group_norm", "mdu_group_norm_cluster", x.device, *args,
                ctypes.c_int(cluster), ctypes.c_int(part), ctypes.c_float(eps), *dtypes,
                form=form)

@@ -25,7 +25,7 @@ import torch
 
 from ...utils.bbox import BBox
 from ...utils.blend_table import build_contributor_table
-from .launch import aligned16, launch, ptr
+from .launch import launch, ptr
 
 __all__ = ["BlendTable", "fused_tile_blend", "fused_tile_blend_plain",
            "tile_blend_floor"]
@@ -46,10 +46,6 @@ class BlendTable:
         self.idx, self.offs, self.k_max = build_contributor_table(
             h, w, bboxes, block_h, block_w)
         self.n_tiles = int(self.idx.max()) + 1
-        # elements a 16-byte line holds -> whether the plan keeps such lines
-        # along x (canvas width, block width and every tile origin)
-        self.lines = {v: bool(w % v == 0 and block_w % v == 0
-                              and (self.offs[..., 1] % v == 0).all()) for v in (4, 8)}
         self._on: Dict[torch.device, tuple] = {}
 
     def on(self, device: torch.device):
@@ -110,13 +106,11 @@ def _launch(name: str, fn_name: str, tiles, weights, h: int, w: int,
     T, C, th, tw = tiles.shape
     idx, offs = table.on(tiles.device)
     out = torch.empty(C, h, w, dtype=tiles.dtype, device=tiles.device)
-    vec = (table.lines[16 // tiles.element_size()] and tw % (16 // tiles.element_size()) == 0
-           and aligned16(tiles, out, weights))
     launch(name, "tile_blend", fn_name, tiles.device,
            ptr(tiles), ptr(idx), ptr(offs), ptr(weights), ptr(out),
            *(ctypes.c_int(v) for v in (C, h, w, th, tw, table.block_h, table.block_w,
                                        table.nbx, table.k_max, int(bool(normalize)),
-                                       int(tiles.dtype == torch.bfloat16), int(vec))))
+                                       int(tiles.dtype == torch.bfloat16))))
     return out
 
 

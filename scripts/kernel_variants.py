@@ -28,7 +28,8 @@ A CASE is ``KERNEL.FORM:SHAPE[:KEY=VALUE...]``:
   option ``fuse_act`` (default 1);
 * the fused GroupNorm, ``fused_group_norm`` (bf16) and
   ``fused_group_norm_f32`` (``cluster``, ``two_read``): SHAPE ``B,C,H,W``,
-  32 groups; the cluster form takes this checkout's plan (``gn_plan``).
+  32 groups; the cluster form takes this checkout's split
+  (``cluster_split``).
 
 For example ``--case flash_attention.wide:2,1,9600,512 --case
 fused_conv3x3_f32.sm90:10,64,96,320,320:fuse_act=0``. Every output is held

@@ -500,30 +500,32 @@ def test_new_wrappers_take_the_plain_version_on_cpu_only(rng):
         flash_attention_t(*(q.to("meta"),) * 3)
 
 
-@pytest.mark.parametrize("C,H,W,itemsize,plan", [
-    (320, 64, 96, 2, ("cluster", 4, 15360)),      # config 2's level 0, 120 KB a group
-    (320, 64, 96, 4, ("cluster", 8, 7680)),       # the same in fp32, 240 KB
-    (1280, 8, 12, 2, ("cluster", 1, 3840)),       # the mid-block: one CTA a group
-    (960, 64, 96, 2, ("cluster", 8, 23040)),      # the largest ResBlock group: parts past 32 KB
-    (96, 7, 9, 2, ("cluster", 1, 192)),           # ragged: 189 elements, whole 16-byte lines
-    (96, 7, 9, 4, ("cluster", 1, 192)),
-    (640, 64, 96, 4, ("cluster", 8, 15360)),      # 480 KB in 8 parts of 60 KB
-    (960, 64, 96, 4, ("two_read", 0, 0)),         # 720 KB: past 8 parts of 64 KB
-    (32 * 13, 128, 256, 4, ("two_read", 0, 0)),
+@pytest.mark.parametrize("B,C,H,W,itemsize,plan", [
+    (10, 320, 64, 96, 2, ("cluster", 4, 15360)),    # config 2's level 0: 39 MB, 120 KB a group
+    (10, 320, 64, 96, 4, ("cluster", 8, 7680)),     # the same in fp32, 240 KB
+    (10, 960, 64, 96, 2, ("cluster", 8, 23040)),    # the largest ResBlock group: 45 KB parts
+    (10, 416, 67, 93, 2, ("cluster", 8, 10128)),    # ragged: whole 16-byte lines a part
+    (10, 640, 32, 48, 2, ("two_read", 0, 0)),       # 20 MB: the second read comes from L2
+    (10, 1280, 8, 12, 2, ("two_read", 0, 0)),
+    (1, 96, 7, 9, 4, ("two_read", 0, 0)),
+    (1, 32 * 13, 128, 256, 4, ("two_read", 0, 0)),  # 1.7 MB a group: past 8 parts of 192 KB
 ])
-def test_gn_form_rule(C, H, W, itemsize, plan):
+def test_gn_form_rule(B, C, H, W, itemsize, plan):
     """#4's form is a function of the shape and dtype alone: the cluster form
-    with the fewest CTAs (up to 8) whose parts hold 32 KB, each part whole
-    16-byte lines, the two-read form once a part would pass 64 KB less a
-    line."""
-    from mdu_tpu_torch.ops.kernels.group_norm import gn_plan
+    for a tensor past 32 MiB whose group fits a cluster (the fewest CTAs, up
+    to 8, whose parts hold 32 KB, each part whole 16-byte lines, none past
+    192 KB), else the two-read form."""
+    from mdu_tpu_torch.ops.kernels.group_norm import cluster_split, gn_plan
 
-    got = gn_plan(C, 32, H, W, itemsize)
+    got = gn_plan(B, C, 32, H, W, itemsize)
     assert got == plan
-    form, cluster, part = got
-    if form == "cluster":
-        n = C // 32 * H * W
+    n = C // 32 * H * W
+    split = cluster_split(n, itemsize)
+    if got[0] == "cluster":
+        cluster, part = split
         assert cluster * part >= n > (cluster - 1) * part and part * itemsize % 16 == 0
+    elif n * itemsize <= 8 * 192 * 1024:
+        assert split is not None                    # two_read by the tensor's size alone
 
 
 def test_launch_resolves_each_c_function_once(monkeypatch):

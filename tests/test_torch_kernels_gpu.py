@@ -394,15 +394,16 @@ def test_fm_bf16_exp_takes_the_mma_form_by_rule(D, unaligned):
 
 
 @pytest.mark.parametrize("shape,dtype,form", [
-    ((2, 320, 64, 96), torch.bfloat16, "cluster"),
-    ((2, 1280, 8, 12), torch.bfloat16, "cluster"),
-    ((1, 96, 7, 9), torch.bfloat16, "cluster"),          # H * W not a multiple of 8
-    ((2, 320, 64, 96), torch.float32, "cluster"),
-    ((10, 320, 64, 96), torch.float32, "cluster"),       # 240 KB a group: a cluster of 8
-    ((2, 960, 64, 96), torch.bfloat16, "cluster"),       # 45 KB parts
-    ((2, 416, 67, 93), torch.bfloat16, "cluster"),       # ragged, 8 parts: groups off 16-byte lines
-    ((1, 96, 7, 9), torch.float32, "cluster"),
-    ((1, 416, 128, 256), torch.float32, "two_read"),     # 1.7 MB: past what a cluster holds
+    ((2, 320, 64, 96), torch.bfloat16, "two_read"),
+    ((2, 1280, 8, 12), torch.bfloat16, "two_read"),
+    ((1, 96, 7, 9), torch.bfloat16, "two_read"),        # H * W not a multiple of 8
+    ((2, 320, 64, 96), torch.float32, "two_read"),
+    ((10, 320, 64, 96), torch.bfloat16, "cluster"),     # config 2's level 0
+    ((10, 320, 64, 96), torch.float32, "cluster"),      # 240 KB a group: a cluster of 8
+    ((10, 960, 64, 96), torch.bfloat16, "cluster"),     # 45 KB parts
+    ((10, 416, 67, 93), torch.bfloat16, "cluster"),     # ragged, 8 parts: groups off 16-byte lines
+    ((1, 96, 7, 9), torch.float32, "two_read"),
+    ((1, 416, 128, 256), torch.float32, "two_read"),    # 1.7 MB a group: past what a cluster holds
 ])
 def test_group_norm_kernel_matches_plain(shape, dtype, form):
     dev = _card()
@@ -428,6 +429,33 @@ def test_group_norm_kernel_matches_plain(shape, dtype, form):
     torch.testing.assert_close(out[:, :shape[1] // 32].float(),
                                b[:shape[1] // 32].float()[None, :, None, None]
                                .expand_as(out[:, :shape[1] // 32]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 96, 7, 9), torch.bfloat16),      # one CTA, parts off 16-byte lines
+    ((2, 1280, 8, 12), torch.bfloat16),   # one CTA a group
+    ((2, 640, 32, 48), torch.bfloat16),   # two
+    ((3, 96, 7, 9), torch.float32),
+])
+def test_group_norm_cluster_form_at_any_split(shape, dtype):
+    """The cluster form, launched where the rule picks two_read (small
+    tensors), at clusters of one and two CTAs and ragged parts."""
+    from mdu_tpu_torch.ops.kernels import group_norm as gn_mod
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).to(dtype)
+    w = (1 + 0.2 * torch.randn(shape[1], generator=gen, device=dev)).to(dtype)
+    b = (0.2 * torch.randn(shape[1], generator=gen, device=dev)).to(dtype)
+    before = LAUNCHES["fused_group_norm.cluster"]
+    out = gn_mod.launch_form("cluster", x, 32, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_group_norm.cluster"] == before + 1
+    ref = fused_group_norm_plain(x.float(), 32, w.float(), b.float(), 1e-5)
+    if dtype == torch.bfloat16:
+        _close_bf16(out, ref, fused_group_norm_plain(x, 32, w, b, 1e-5))
+    else:
+        assert (out - ref).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("h,w,th,tw,ov,BC,normalize,dtype", [
