@@ -30,18 +30,15 @@
 // Layout of a block:
 // - warpgroup 0. Thread 0 issues every TMA load: K tiles of BK kv rows into
 //   a ring of STAGES stages, as 8-column slices of 32 bytes, 32-byte
-//   swizzled (one slice is one k-step of Q.K^T), and at DP > 80 Q's rows
-//   once. Warps 1-3 (96 threads) prepare each stage for the consumers: they
+//   swizzled (one slice is one k-step of Q.K^T), and Q's rows once. Warps 1-3 (96 threads) prepare each stage for the consumers: they
 //   round K in place to its big part and write its small part beside it,
 //   and they read V's tile from global memory and write it transposed, big
 //   and small.
-// - NCONS consumer warpgroups of 64 query rows. At DP <= 80 Q sits in
-//   registers, big and small, as the A fragments of all three passes of
-//   Q.K^T (read from global memory once), so the products read only K from
-//   shared memory; above, Q's small part sits in registers and its big part
-//   in shared memory, rounded in place. S = Qs.Kb + Qb.Ks + Qb.Kb is one
-//   wgmma m64nBKk8 per 8 columns of d and pass; O += Ps.Vb + Pb.Vs + Pb.Vb
-//   takes P from registers.
+// - NCONS consumer warpgroups of 64 query rows. Q's small part sits in
+//   registers as the A fragments of its pass of Q.K^T (read from global
+//   memory once), its big part in shared memory, rounded in place. S =
+//   Qs.Kb + Qb.Ks + Qb.Kb is one wgmma m64nBKk8 per 8 columns of d and pass;
+//   O += Ps.Vb + Pb.Vs + Pb.Vb takes P from registers.
 //
 // Two mismatches of tf32 with the bf16 design, and what this does:
 // - tf32 wgmma reads B K-major only (no transposed layouts), so P.V needs V
@@ -67,17 +64,18 @@
 //
 // Sizes. Consumers hold S (BK / 2 registers), P's small part (BK / 2), O
 // (DP / 2), the tile's P.V accumulator (DP / 2; above DP = 80 it runs in
-// chunks of 40 columns, 20) and Q's small part (DP / 2), with its big part
-// (DP / 2) in registers at 40 < DP <= 80 and in shared memory (rounded in
-// place, read by wgmma) otherwise.
+// chunks of 40 columns, 20) and Q's small part (DP / 2); Q's big part sits
+// in shared memory. The fresh accumulator took the registers that Q's big
+// part held in PR 6's design (Q in registers at DP <= 80): at config 2's
+// D = 40 the repair costs 6 % over the chained accumulation (4.80 against
+// 4.54 ms), where BK = 32 with Q in registers cost 13 % (5.15); at D = 80
+// 6 % (0.888 against 0.837), where BK = 32 cost 9 % (0.915); H100 80GB
+// HBM3, 700 W.
 // - DP <= 40: three consumers (152 registers each; the producer warpgroup
 //   gives its own up, to 56), BK = 64, four stages of Kb, Ks and V^T big and
-//   small (40 KB at DP = 40) beside Q's 30 KB. The fresh accumulator took
-//   the registers of Q's big part: at config 2's D = 40 this costs 6 % over
-//   the chained accumulation (4.80 against 4.54 ms), where BK = 32 with Q in
-//   registers cost 13 % (5.15; H100 80GB HBM3, 700 W).
-// - DP <= 80: two consumers (232 registers; the producer keeps 40), BK = 32
-//   (a 64-column S and the fresh accumulator spill at DP = 80).
+//   small (40 KB at DP = 40) beside Q's 30 KB.
+// - DP <= 80: two consumers (232 registers; the producer keeps 40), BK = 64,
+//   two to four stages.
 // - DP > 80: one consumer, BK = 32, Q's big part up to 40 KB.
 // (Three consumers at DP = 48 spill. At config 2's D = 40 three consumers
 // took 4.6 ms against 5.7 for two, on an H100 80GB HBM3 at 700 W.)
@@ -291,17 +289,14 @@ template <int DP>
 struct Cfg {
   static constexpr int NCONS = DP <= 40 ? 3 : DP <= 80 ? 2 : 1;
   static constexpr int BQ = 64 * NCONS;
-  static constexpr int BK = DP <= 40 ? 64 : 32;
+  static constexpr int BK = DP <= 80 ? 64 : 32;
   // width of a chunk of P.V's fresh accumulator
   static constexpr int PV_N = DP <= 80 ? DP : 40;
-  // Q's big part in registers too, as the A fragments of its two passes
-  // (40 < DP <= 80); else in shared memory
-  static constexpr bool Q_REGS = DP > 40 && DP <= 80;
   static constexpr int NTHREADS = 128 * (NCONS + 1);
   static constexpr int NS = DP / 8;                   // k-steps (slices) of Q.K^T
   static constexpr int Q_SLICE = BQ * 32;
   static constexpr int K_SLICE = BK * 32;
-  static constexpr int Q_BYTES = Q_REGS ? 0 : NS * Q_SLICE;
+  static constexpr int Q_BYTES = NS * Q_SLICE;        // Q's big part
   static constexpr int K_BYTES = NS * K_SLICE;        // K big, or K small, of a stage
   static constexpr int VT_BYTES = BK * DP * 4;        // V^T big, or V^T small
   static constexpr int STAGE = 2 * K_BYTES + 2 * VT_BYTES;
@@ -387,10 +382,8 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if constexpr (C::NCONS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if constexpr (C::NCONS == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (threadIdx.x == 0) {
-      if constexpr (!C::Q_REGS) {
-        mbar_arrive_expect_tx(bars, C::Q_BYTES);
-        for (int c = 0; c < NS; ++c) tma_load_3d(sq + c * C::Q_SLICE, &mq, bars, 8 * c, q0, bh);
-      }
+      mbar_arrive_expect_tx(bars, C::Q_BYTES);
+      for (int c = 0; c < NS; ++c) tma_load_3d(sq + c * C::Q_SLICE, &mq, bars, 8 * c, q0, bh);
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) mbar_wait(empty(st), ((it / STAGES) - 1) & 1);
@@ -464,10 +457,8 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const int r0 = q0 + cw * 64 + warp * 16 + g;
     const int r1 = r0 + 8;
 
-    // Q's small part (and with Q_REGS its big part): the A fragments of
-    // every k-step, from global memory
+    // Q's small part: the A fragments of every k-step, from global memory
     uint32_t qs[NS][4];
-    uint32_t qb[C::Q_REGS ? NS : 1][4];
     {
       const float* qg = q + (size_t)bh * Lq * D;
       auto ld = [&](int r, int c) { return r < Lq && c < D ? __ldg(qg + (size_t)r * D + c) : 0.f; };
@@ -476,28 +467,21 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         const float x[4] = {ld(r0, 8 * c + t), ld(r1, 8 * c + t), ld(r0, 8 * c + t + 4),
                             ld(r1, 8 * c + t + 4)};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t big = to_tf32(x[i]);
-          qs[c][i] = small_of(x[i], big);
-          if constexpr (C::Q_REGS) qb[c][i] = big;
-        }
+        for (int i = 0; i < 4; ++i) qs[c][i] = small_of(x[i], to_tf32(x[i]));
       }
     }
-    // otherwise Q's big part: this consumer's rows of every slice, rounded
-    // in place
+    // Q's big part: this consumer's rows of every slice, rounded in place
     const uint32_t qw = sq + cw * 64 * 32;
-    if constexpr (!C::Q_REGS) {
-      mbar_wait(bars, 0);
+    mbar_wait(bars, 0);
 #pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        uint4* p = reinterpret_cast<uint4*>(base + c * C::Q_SLICE + cw * 64 * 32) + tid;
-        const uint4 x = *p;
-        *p = make_uint4(to_tf32(__uint_as_float(x.x)), to_tf32(__uint_as_float(x.y)),
-                        to_tf32(__uint_as_float(x.z)), to_tf32(__uint_as_float(x.w)));
-      }
-      fence_proxy_async();
-      named_sync(1 + cw, 128);
+    for (int c = 0; c < NS; ++c) {
+      uint4* p = reinterpret_cast<uint4*>(base + c * C::Q_SLICE + cw * 64 * 32) + tid;
+      const uint4 x = *p;
+      *p = make_uint4(to_tf32(__uint_as_float(x.x)), to_tf32(__uint_as_float(x.y)),
+                      to_tf32(__uint_as_float(x.z)), to_tf32(__uint_as_float(x.w)));
     }
+    fence_proxy_async();
+    named_sync(1 + cw, 128);
 
     Policy pol(scale, smax, clamp, bf16_exp);
     float s[BK / 2];
@@ -523,23 +507,14 @@ flash_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int c = 0; c < NS; ++c)
         Tf32<BK>::rs(s, qs[c], desc_b32(kb + c * C::K_SLICE, 16, 256), c > 0);
-      if constexpr (C::Q_REGS) {
 #pragma unroll
-        for (int c = 0; c < NS; ++c)
-          Tf32<BK>::rs(s, qb[c], desc_b32(ks + c * C::K_SLICE, 16, 256), 1);
+      for (int c = 0; c < NS; ++c)
+        Tf32<BK>::ss(s, desc_b32(qw + c * C::Q_SLICE, 16, 256),
+                     desc_b32(ks + c * C::K_SLICE, 16, 256), 1);
 #pragma unroll
-        for (int c = 0; c < NS; ++c)
-          Tf32<BK>::rs(s, qb[c], desc_b32(kb + c * C::K_SLICE, 16, 256), 1);
-      } else {
-#pragma unroll
-        for (int c = 0; c < NS; ++c)
-          Tf32<BK>::ss(s, desc_b32(qw + c * C::Q_SLICE, 16, 256),
-                       desc_b32(ks + c * C::K_SLICE, 16, 256), 1);
-#pragma unroll
-        for (int c = 0; c < NS; ++c)
-          Tf32<BK>::ss(s, desc_b32(qw + c * C::Q_SLICE, 16, 256),
-                       desc_b32(kb + c * C::K_SLICE, 16, 256), 1);
-      }
+      for (int c = 0; c < NS; ++c)
+        Tf32<BK>::ss(s, desc_b32(qw + c * C::Q_SLICE, 16, 256),
+                     desc_b32(kb + c * C::K_SLICE, 16, 256), 1);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
