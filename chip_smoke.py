@@ -27,15 +27,16 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  backend named. The fp32 #1 and #2 also at the main path's
                  three shapes with q x 3 (``_f32_sharp``: scores of std 3,
                  a sharp softmax), each launch counted under its form, within
-                 1e-4. #4 at the shapes config 2 runs under MDU_FUSED_GN=1 and
-                 a ragged one in bf16, and in fp32 at level 0 and at a group
-                 past what a cluster holds: each line names the form
+                 1e-4. #4 at six shapes config 2 runs under MDU_FUSED_GN=1
+                 and a ragged one in bf16, and in fp32 at level 0 and at a
+                 group past what a cluster holds: each line names the form
                  ``gn_plan`` picks (cluster or two_read) and its counter must
-                 move; at config 2's shapes the two_read form runs on the
-                 same inputs too, held to the same bar and timed; a constant
+                 move; at config 2's shapes the other form runs on the same
+                 inputs too, held to the same bar and timed; a constant
                  group must give the bias. #5's first line also times an
                  empty kernel on its grid through the same launch path
-                 (``floor_ms``, ``floor_device_ms``). #6 in fp32 at config 2's four shapes with
+                 (``floor_ms``, ``floor_device_ms``). #6 in fp32 at config
+                 2's four shapes with
                  ``fuse_act``, the first without, a ragged shape off its
                  tile (sm90) and C = 12 (simt), in the same way. #1 and #3
                  also at D = 13 (their mma.sync forms), #1 and its
@@ -127,8 +128,7 @@ EXPECTED_LAUNCHES = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
 EXPECTED_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
                     "flash_attention": 1, "flash_attention.wide": 1, "fused_group_norm": 340,
                     "fused_group_norm.cluster": 120, "fused_group_norm.two_read": 220,
-                    "fused_conv3x3": 320,
-                    "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
+                    "fused_conv3x3": 320, "fused_conv3x3.sm90": 320, "fused_tile_blend": 20}
 EXPECTED_FM = {"flash_attention_fm": 201, "flash_attention_fm.sm90": 200,
                "flash_attention_fm.wide": 1}
 CONFIG2_RUNS = (("default", {}, EXPECTED_LAUNCHES), ("flagged", FLAGS, EXPECTED_FLAGGED),
