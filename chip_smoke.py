@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,img2img,upscale8k]
 
 Phases, one JSON line each (all of them unless ``--phases`` names some;
 ``device`` and ``build`` always run):
@@ -66,16 +66,26 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  for attention, ``F.group_norm`` for GroupNorm, cuDNN's
                  ``F.conv2d`` on the pre-activated input for the fused conv
                  ("conv alone": no one call computes the fused function),
-                 none for the tile blend. ``device_ms`` and
+                 ``index_add_`` into the flat canvas for the tile blend (its
+                 fp32 raw sums). The img2img path's shapes: #1 and #3 at
+                 config 3's UNet levels 0-2 ([10, 8, 576, 160]: the sm90
+                 form's widest head), #2 at config 3's and the 8K's VAE
+                 mid-blocks ([4, 1, 17424, 512]: a ragged last block), #4 at
+                 config 3's level 0 in both forms, #5 on config 3's Mixture
+                 of Diffusers canvas with gaussian-weighted tiles, #6 at
+                 [10, 96, 96, 320] -> 320. ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
                  and the yardstick's launches (torch.profiler's kernel
                  durations, summed, per call). Bounds: max(flops / peak, bytes /
                  3.35 TB/s), peak 989 TF/s in bf16 and 67 TF/s in fp32, bytes
                  = each input read once and each output written once.
-4. ``reference`` a tiny pipeline, sized so that its attention reaches the
-                 flash kernels, on the card against the same pipeline on the
-                 CPU: fp32 within 1e-4 of the largest value; bf16 within 2x
-                 the CPU bf16 run's error against CPU fp32, + 1e-3 of it.
+4. ``reference`` a tiny txt2img and a tiny img2img (Mixture of Diffusers,
+                 noise inversion, the exact tiled encode and decode, the fast
+                 encode with color_fix and the fast decode), sized so that
+                 their attention reaches the flash kernels, on the card
+                 against the same pipelines on the CPU: fp32 within 1e-4 of
+                 the largest value; bf16 within 2x the CPU bf16 run's error
+                 against CPU fp32, + 1e-3 of it.
                  Once with no flag (the fm kernel must launch; in fp32 its
                  sm90 form) and once with MDU_FLASH=trans MDU_FUSED_GN=1
                  MDU_FUSED_CONV=1 MDU_FUSED_BLEND=1 (each flagged kernel must
@@ -93,6 +103,21 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  just after; each kernel's launches per image must equal the
                  pinned count (and a kernel of the path launched 0 times
                  fails the run).
+6. ``img2img``   config 3 through ``DiffusionPipeline.img2img`` as
+                 ``bench.py:345-377`` runs it: a 512 x 512 image, Lanczos x4
+                 to 2048 x 2048, Mixture of Diffusers (tile 96, overlap 8,
+                 ``tile_bs`` 8: 9 tiles in batches of 5 and 4), noise
+                 inversion (10 steps, renoise 1), Euler 20 steps at denoise
+                 0.4 (9 steps) and CFG 7, exact tiled encode (tile 1024) and
+                 decode (tile 64); SD1.5 in bf16, with no flag and with the
+                 four flags; ``free_cache()`` before each of 1 warm and 2
+                 timed images. Launches per image pinned; the output (1,
+                 2048, 2048, 3), finite, and the decode's NaN chain not taken.
+7. ``upscale8k`` one 2048 x 2048 -> 8192 x 8192 upscale with no flag
+                 (``bench.py:479-533``: config 3's settings with the fast
+                 tiled VAE, encoder tile 512, decoder tile 64, ``tile_batch``
+                 8), ``decode=False`` and then ``_decode_tensor``; launches
+                 pinned, the output finite.
 
 Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
 (every kernel of the port), the nvidia-smi line, and as the last line
@@ -138,6 +163,28 @@ F32_RUN = ("fp32 conv", {"MDU_FUSED_CONV": "1"},
            {"fused_conv3x3_f32": 320, "fused_conv3x3_f32.sm90": 320,
             "flash_attention_fm_f32": 200, "flash_attention_fm_f32.sm90": 200,
             "flash_attention_f32": 1, "flash_attention_f32.wide": 1})
+# config 3 (bench.py:345-377): MoD img2img x4, 512 -> 2048, with noise inversion
+CFG3 = dict(image=512, scale=4.0, steps=20, cfg=7.0, denoise=0.4, tile=96, overlap=8,
+            tile_bs=8, inverse_steps=10, renoise=1.0, encoder_tile=1024, decoder_tile=64)
+# launches per config-3 image: 38 UNet calls (inversion 10 x 2 tile batches,
+# sampling 9 x 2), 15 attentions at L >= 512 a call (levels 0-2), and the
+# encoder's and the decoder's mid-blocks in one lockstep call each
+EXPECTED_CONFIG3 = {"flash_attention_fm": 570, "flash_attention_fm.sm90": 570,
+                    "flash_attention": 2, "flash_attention.wide": 2}
+# under the four flags: 17 #4 a UNet call (the cluster form at level 0 in
+# the sampling calls' batches of 10 and 8: 6 a call), 16 #6, 1 #5 a denoiser call
+EXPECTED_CONFIG3_FLAGGED = {"flash_attention_t": 570, "flash_attention_t.sm90": 570,
+                            "flash_attention": 2, "flash_attention.wide": 2,
+                            "fused_group_norm": 646, "fused_group_norm.cluster": 108,
+                            "fused_group_norm.two_read": 538, "fused_conv3x3": 608,
+                            "fused_conv3x3.sm90": 608, "fused_tile_blend": 19}
+CONFIG3_RUNS = (("default", {}, EXPECTED_CONFIG3), ("flagged", FLAGS, EXPECTED_CONFIG3_FLAGGED))
+# the 2K -> 8K upscale (bench.py:479-533, _vae_8k_config at :397-404): 342 UNet
+# calls (18 tile batches x (10 + 9)); #2 in 32 encoder and 32 decoder chunks
+# and the two statistics passes
+CFG8K = dict(image=2048, encoder_tile=512, decoder_tile=64, tile_batch=8)
+EXPECTED_8K = {"flash_attention_fm": 5130, "flash_attention_fm.sm90": 5130,
+               "flash_attention": 66, "flash_attention.wide": 66}
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
 N_SMS = 132
 KERNELS = {
@@ -148,8 +195,10 @@ KERNELS = {
         # VAE mid-block under MDU_FLASH=fm (the wide form); D = 13 (mma.sync);
         # the wide form ragged, and at D = 200 (off 64); D = 300 (wide_mma:
         # D % 8 != 0)
+        # config 3's levels 0, 1, 2 (D = 160: the sm90 form's widest head)
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
-                (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300)],
+                (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
+                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
@@ -157,16 +206,22 @@ KERNELS = {
         source="mdu_tpu_torch/csrc/flash_attention.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:335",
         # VAE mid-block attention of config 2's decode; a ragged shape; D =
-        # 200 (off 64); D = 300 (D % 8 != 0: the split-D mma.sync form)
-        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300)],
+        # 200 (off 64); D = 300 (D % 8 != 0: the split-D mma.sync form); then
+        # config 3's encoder (17424 tokens: a ragged last block) and decoder,
+        # the 8K's encoder and decoder chunks and its statistics passes
+        shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
+                (4, 1, 17424, 512), (16, 1, 7396, 512), (8, 1, 5184, 512), (8, 1, 7396, 512),
+                (1, 1, 4096, 512)],
         # fp32: the VAE's (wide form), ragged, config 2's level 0 as
         # MDU_FLASH=trans sends it (sm90), an odd D (simt)
         f32_shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (10, 8, 6144, 40), (1, 1, 700, 13)]),
     "flash_attention_t": dict(
         source="mdu_tpu_torch/csrc/flash_attention_t.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:282",
-        # under MDU_FLASH=trans: config 2's UNet self-attention; ragged; D = 13
-        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (1, 1, 700, 13)]),
+        # under MDU_FLASH=trans: config 2's UNet self-attention; ragged; D = 13;
+        # config 3's
+        shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (1, 1, 700, 13),
+                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160)]),
     "fused_group_norm": dict(
         source="mdu_tpu_torch/csrc/group_norm.cu",
         replaces="mdu_tpu/ops/pallas/group_norm.py:33",
@@ -178,8 +233,11 @@ KERNELS = {
         # channels with its skip: 360 KB a group in bf16); then a ragged H * W
         # (no 16-byte lines). Level 0 and the 960 channels take the cluster
         # form, the others (which fit L2) the two_read form.
+        # Then config 3's level 0 in a sampling batch (cluster) and in an
+        # inversion batch (two_read).
         shapes=[(10, 320, 64, 96), (10, 640, 32, 48), (10, 1280, 16, 24), (10, 1280, 8, 12),
-                (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9)],
+                (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9), (10, 320, 96, 96),
+                (4, 320, 96, 96)],
         # fp32 (a model built in fp32): level 0 (a cluster of 8); a group
         # past what a cluster holds (1.7 MB: the two_read form)
         f32_shapes=[(10, 320, 64, 96), (1, 416, 128, 256)]),
@@ -187,18 +245,19 @@ KERNELS = {
         source="mdu_tpu_torch/csrc/tile_blend.cu",
         replaces="mdu_tpu/ops/pallas/fused_blend.py:92",
         # config 2's latent canvas 64 x 256, tiles 64 x 96 at overlap 48, B*C
-        # = 4; then a ragged canvas
-        shapes=[(64, 256, 64, 96, 48, 4), (61, 97, 24, 24, 8, 3)]),
+        # = 4; then a ragged canvas; then config 3's MoD canvas 256 x 256,
+        # tiles 96 at overlap 8, weighted by gaussian x 1 / sum(weights)
+        shapes=[(64, 256, 64, 96, 48, 4), (61, 97, 24, 24, 8, 3), (256, 256, 96, 96, 8, 4)]),
     "fused_conv3x3": dict(
         source="mdu_tpu_torch/csrc/conv3x3.cu",
         replaces="mdu_tpu/ops/pallas/conv3x3.py:96",
         # [B, H, W, C] -> Co: config 2's four ResBlock conv shapes (the first
         # two are its level-0 and level-1 convs); H and W off the warpgroup
         # form's 32 x 8 tile; Co off its 160 channels; odd H, W and C (the
-        # mma.sync form, no 16-byte vectors)
+        # mma.sync form, no 16-byte vectors); config 3's level-0 conv
         shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
-                (2, 7, 9, 12, 20)],
+                (2, 7, 9, 12, 20), (10, 96, 96, 320, 320)],
         # fp32: config 2's four shapes (sm90); H, W and Co off the 32 x 8 x 80
         # tile (sm90); C = 12 (simt)
         f32_shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
@@ -562,26 +621,65 @@ def check_group_norm(gen, summary):
     summary["fused_group_norm"] = checks
 
 
-def check_tile_blend(gen, summary):
-    """The config-2 canvas (tiles fp32, as the latents are) with normalize
-    False (what the scheduler asks) and True; bf16 tiles; a ragged canvas.
-    The first line also times the launch floor (``floor_ms``,
-    ``floor_device_ms``): an empty kernel on #5's grid."""
+def index_add_blend(h, w, bboxes, BC, device):
+    """The yardstick of #5: one ``index_add_`` of the flat tiles [T, BC, th,
+    tw] into the flat canvas [BC, h, w], with the index built once per plan.
+    Returns (index, call(tiles, canvas))."""
     import torch
 
+    idx = []
+    for b in bboxes:
+        ys = torch.arange(b.y, b.y + b.h, device=device)[:, None]
+        xs = torch.arange(b.x, b.x + b.w, device=device)[None, :]
+        pix = (ys * w + xs).reshape(1, -1)
+        chans = torch.arange(BC, device=device)[:, None] * (h * w)
+        idx.append((chans + pix).reshape(-1))
+    index = torch.cat(idx)
+
+    def add(tiles, canvas):
+        canvas.view(-1).index_add_(0, index, tiles.reshape(-1))
+        return canvas
+
+    return index, add
+
+
+def check_tile_blend(gen, summary):
+    """The config-2 canvas (tiles fp32, as the latents are) with normalize
+    False (what the scheduler asks) and True; bf16 tiles; a ragged canvas;
+    config 3's Mixture of Diffusers canvas, its tiles weighted by gaussian x
+    1 / sum(weights), normalize False. The first line also times the launch
+    floor (``floor_ms``, ``floor_device_ms``): an empty kernel on #5's grid.
+    The yardstick is ``index_add_`` into the flat canvas (``index_add_blend``),
+    on the fp32 canvases the scheduler sends with normalize False."""
+    import torch
+
+    from mdu_tpu_torch.config import Method
     from mdu_tpu_torch.ops.kernels import BlendTable, fused_tile_blend, fused_tile_blend_plain
     from mdu_tpu_torch.ops.kernels.tile_blend import tile_blend_floor
+    from mdu_tpu_torch.tiling.schedulers import mod_tile_weights, plan_tiled_diffusion
     from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
     checks = []
     specs = KERNELS["fused_tile_blend"]["shapes"]
     for (h, w, th, tw, ov, BC), dtype, normalize in (
             (specs[0], torch.float32, False), (specs[0], torch.float32, True),
-            (specs[0], torch.bfloat16, False), (specs[1], torch.float32, True)):
-        bbs = split_grid(w, h, tw, th, ov)
+            (specs[0], torch.bfloat16, False), (specs[1], torch.float32, True),
+            (specs[2], torch.float32, False)):
+        mod = (h, w) == specs[2][:2]
+        tiles_scale = None
+        if mod:
+            plan = plan_tiled_diffusion(Method.MIX_DIFF, h, w, th, tw, ov, tile_bs=8)
+            bbs = list(plan.bboxes)
+            wts = torch.as_tensor(plan.weights[0, 0], device="cuda")
+            tiles_scale = torch.as_tensor(mod_tile_weights(plan), device="cuda")[:, None]
+        else:
+            bbs = split_grid(w, h, tw, th, ov)
+            wts = torch.as_tensor(paint_count(w, h, bbs)[0, 0], device="cuda")
         table = BlendTable(h, w, bbs)
-        tiles = torch.randn(len(bbs), BC, th, tw, generator=gen, device="cuda").to(dtype)
-        wts = torch.as_tensor(paint_count(w, h, bbs)[0, 0], device="cuda")
+        tiles = torch.randn(len(bbs), BC, th, tw, generator=gen, device="cuda")
+        if tiles_scale is not None:
+            tiles = tiles * tiles_scale
+        tiles = tiles.to(dtype)
         out = fused_tile_blend(tiles, wts, h, w, bbs, normalize, table)
         torch.cuda.synchronize()
         ref = fused_tile_blend_plain(tiles.cpu().float(), wts.cpu(), h, w, bbs, normalize,
@@ -592,7 +690,16 @@ def check_tile_blend(gen, summary):
         isz = tiles.element_size()
         nbytes = tiles.numel() * isz + BC * h * w * isz + (wts.numel() * 4 if normalize else 0)
         bound_ms, bound_by = bound(float(tiles.numel()), nbytes, isz)
-        extra = {}
+        extra = {"mod_weighted": mod}
+        lib_fn = None
+        if dtype == torch.float32 and not normalize:
+            _, add = index_add_blend(h, w, bbs, BC, "cuda")
+            lib_out = add(tiles, torch.zeros(BC, h, w, device="cuda"))
+            lib_err = (lib_out - ref).abs().max().item()
+            require(lib_err <= F32_TOL, f"index_add_ yardstick {(h, w)}: max abs err {lib_err}")
+            canvas = torch.zeros(BC, h, w, device="cuda")
+            lib_fn = lambda: add(tiles, canvas)
+            extra.update(library="index_add_ into the flat canvas", library_max_abs_err=lib_err)
         if not checks:
             # the launch floor: an empty kernel on the same grid, through the
             # same checks and launch path
@@ -602,7 +709,7 @@ def check_tile_blend(gen, summary):
             "fused_tile_blend", (len(bbs), BC, th, tw, h, w), dtype, out, ref, err_plain,
             lambda: fused_tile_blend(tiles, wts, h, w, bbs, normalize, table),
             lambda: fused_tile_blend_plain(tiles, wts, h, w, bbs, normalize, table),
-            None, bound_ms, bound_by, 200, normalize=normalize, **extra))
+            lib_fn, bound_ms, bound_by, 200, normalize=normalize, **extra))
     summary["fused_tile_blend"] = checks
 
 
@@ -750,13 +857,62 @@ def _tiny_run(device: str, dtype):
     return res.latents.float().cpu(), img.float().cpu()
 
 
+def _tiny_img2img(device: str, dtype):
+    """Tiny img2img at a size whose UNet level 0 (32 x 32 tiles: 1024 tokens)
+    and both VAE mid-blocks (the encoder's 224 px tiles and its 192 px
+    statistics pass; the decoder's 54-latent tiles and its 24-latent
+    statistics pass) reach the flash kernels on the card: a 512 x 512 uint8
+    image (upscaler None, so that both devices quantise the same image for
+    the renoise mask), Mixture of Diffusers (9 tiles of 32 in 3 batches),
+    noise inversion (3 steps, renoise 1), the exact tiled encode (tile 192: 9
+    tiles) and decode (tile 24: 4 tiles); then the fast encode with
+    ``color_fix`` of the same image and the fast decode of the latents
+    (``tile_batch`` 2). Returns (latents, image, fast moments, fast image) on
+    the CPU in fp32."""
+    import numpy as np
+    import torch
+
+    from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
+                               TiledDiffusionConfig, TiledVAEConfig)
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
+                                      tiny_unet_config, tiny_vae_config)
+    from mdu_tpu_torch.utils.image import image_to_tensor
+
+    unet = UNet2DCondition(tiny_unet_config(), dtype=dtype)
+    vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
+    unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
+    vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
+    pipe = DiffusionPipeline(unet, vae, device=device)
+    gen = torch.Generator().manual_seed(5)
+    c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    img = (np.random.default_rng(6).random((512, 512, 3)) * 255).astype(np.uint8)
+    enc_noise = torch.randn(1, 4, 64, 64, generator=gen).to(dtype)
+    noise = torch.randn(1, 4, 64, 64, generator=gen)
+    td = TiledDiffusionConfig(method=Method.MIX_DIFF, tile_w=32, tile_h=32, overlap=8,
+                              tile_bs=3, noise_inverse=True, noise_inverse_steps=3,
+                              noise_inverse_renoise_kernel=16)
+    exact = TiledVAEConfig(encoder_tile_size=192, decoder_tile_size=24,
+                           fast_encoder=False, fast_decoder=False)
+    fast = TiledVAEConfig(encoder_tile_size=192, decoder_tile_size=24, color_fix=True,
+                          tile_batch=2)
+    res = pipe._img2img_from_noise(
+        img, enc_noise, noise, c, u,
+        SamplerConfig(steps=4, cfg_scale=7.0, denoising_strength=0.75), 0, td, exact,
+        decode=False)
+    image = pipe._decode_tensor(res.latents, exact)
+    moments = pipe._encode(image_to_tensor(img), fast)
+    fast_image = pipe._decode_tensor(res.latents, fast)
+    return tuple(t.float().cpu() for t in (res.latents, image, moments, fast_image))
+
+
 def phase_reference():
-    """The tiny pipeline on the card against the same pipeline on the CPU
-    (plain versions): in fp32 within 1e-4 of the largest CPU value; in bf16
-    within 2x the CPU bf16 run's own error against the CPU fp32 run plus
-    1e-3 of the largest value. With no flag each card run must launch its fm
-    kernel (in fp32 its sm90 form: the heads are D = 4 and 16); with the four
-    flags, each flagged kernel."""
+    """The tiny txt2img and img2img pipelines on the card against the same
+    pipelines on the CPU (plain versions): in fp32 within 1e-4 of the largest
+    CPU value; in bf16 within 2x the CPU bf16 run's own error against the CPU
+    fp32 run plus 1e-3 of the largest value. With no flag each card run must
+    launch its fm kernel (in fp32 its sm90 form: the heads are D = 4 and 16);
+    with the four flags, each flagged kernel."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -768,31 +924,36 @@ def phase_reference():
                                      "fused_tile_blend"],
                      torch.bfloat16: ["flash_attention_t", "fused_group_norm",
                                       "fused_conv3x3", "fused_tile_blend"]})]
+    pipelines = (("txt2img", _tiny_run, ("latent", "image")),
+                 ("img2img", _tiny_img2img, ("latent", "image", "fast_moments",
+                                             "fast_image")))
     for flags, must_launch in runs:
         with flags_set(flags):
-            ref = _tiny_run("cpu", torch.float32)
-            ref_bf16 = _tiny_run("cpu", torch.bfloat16)
-            for dtype in (torch.float32, torch.bfloat16):
-                reset_launches()
-                got = _tiny_run("cuda", dtype)
-                launches = dict(LAUNCHES)
-                for key in must_launch[dtype]:
-                    require(launches[key] > 0,
-                            f"tiny {dtype} pipeline (flags {flags}) launched no {key}")
-                fields = {"flags": flags, "launches": launches}
-                for i, part in enumerate(("latent", "image")):
-                    scale = ref[i].abs().max().item()
-                    err = (got[i] - ref[i]).abs().max().item()
-                    if dtype == torch.float32:
-                        tol = 1e-4 * scale
-                    else:
-                        tol = 2.0 * (ref_bf16[i] - ref[i]).abs().max().item() + 1e-3 * scale
-                    require(bool(torch.isfinite(got[i]).all()),
-                            f"tiny {dtype} {part} (flags {flags}): non-finite")
-                    require(err <= tol, f"tiny {dtype} {part} (flags {flags}): max abs "
-                                        f"err {err} > {tol}")
-                    fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
-                emit("reference", dtype=_dtype_name(dtype), **fields)
+            for pipeline, run, parts in pipelines:
+                ref = run("cpu", torch.float32)
+                ref_bf16 = run("cpu", torch.bfloat16)
+                for dtype in (torch.float32, torch.bfloat16):
+                    reset_launches()
+                    got = run("cuda", dtype)
+                    launches = dict(LAUNCHES)
+                    for key in must_launch[dtype]:
+                        require(launches[key] > 0, f"tiny {pipeline} {dtype} (flags {flags}) "
+                                                   f"launched no {key}")
+                    fields = {"pipeline": pipeline, "flags": flags, "launches": launches}
+                    for i, part in enumerate(parts):
+                        scale = ref[i].abs().max().item()
+                        err = (got[i] - ref[i]).abs().max().item()
+                        if dtype == torch.float32:
+                            tol = 1e-4 * scale
+                        else:
+                            tol = (2.0 * (ref_bf16[i] - ref[i]).abs().max().item()
+                                   + 1e-3 * scale)
+                        require(bool(torch.isfinite(got[i]).all()),
+                                f"tiny {pipeline} {dtype} {part} (flags {flags}): non-finite")
+                        require(err <= tol, f"tiny {pipeline} {dtype} {part} (flags {flags}): "
+                                            f"max abs err {err} > {tol}")
+                        fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
+                    emit("reference", dtype=_dtype_name(dtype), **fields)
 
 
 def build_config2(dtype=None):
@@ -895,11 +1056,188 @@ def phase_txt2img():
     return out
 
 
-def kernel_rows(checks, launches):
+def build_config3():
+    """Config 3 on config 2's pipeline (SD1.5 UNet and VAE, random bf16
+    weights): Mixture of Diffusers img2img of a 512 x 512 image, Lanczos x4 to
+    2048 x 2048, tiles 96 at overlap 8 in batches of up to 8, noise inversion
+    of 10 steps at renoise 1, Euler 20 steps at denoise 0.4 (9 steps) and CFG
+    7, exact tiled encode (tile 1024) and decode (tile 64), as
+    ``bench.py:345-377`` runs it. Returns (pipe, cond, uncond, sampler,
+    tiled_diffusion, tiled_vae, image)."""
+    import numpy as np
+
+    from mdu_tpu_torch import Method, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
+
+    pipe, cond, uncond, _, _, _ = build_config2()
+    td = TiledDiffusionConfig(method=Method.MIX_DIFF, tile_w=CFG3["tile"], tile_h=CFG3["tile"],
+                              overlap=CFG3["overlap"], tile_bs=CFG3["tile_bs"],
+                              upscaler="Lanczos", scale_factor=CFG3["scale"],
+                              noise_inverse=True, noise_inverse_steps=CFG3["inverse_steps"],
+                              noise_inverse_renoise_strength=CFG3["renoise"])
+    tv = TiledVAEConfig(encoder_tile_size=CFG3["encoder_tile"],
+                        decoder_tile_size=CFG3["decoder_tile"], fast_decoder=False,
+                        fast_encoder=False)
+    sp = SamplerConfig(name="Euler", steps=CFG3["steps"], cfg_scale=CFG3["cfg"],
+                       denoising_strength=CFG3["denoise"])
+    img = (np.random.default_rng(1).random((CFG3["image"],) * 2 + (3,)) * 255).astype(np.uint8)
+    return pipe, cond, uncond, sp, td, tv, img
+
+
+@contextlib.contextmanager
+def stage_timer(pipe):
+    """Seconds spent in the pipeline's image preparation (the upscale), encode,
+    noise inversion, renoise mask (on the host) and decode, each ended by a
+    synchronize, summed per stage while the block runs."""
+    import torch
+
+    from mdu_tpu_torch import pipeline as pipeline_mod
+
+    spent = {k: 0.0 for k in ("upscale", "encode", "noise_inversion", "renoise_mask",
+                              "decode")}
+    methods = {"upscale": "_prepare_image", "encode": "_encode",
+               "noise_inversion": "noise_inversion", "decode": "_decode_tensor"}
+
+    def timed(stage, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    for stage, attr in methods.items():
+        setattr(pipe, attr, timed(stage, getattr(pipe, attr)))
+    mask_fn = pipeline_mod.get_retouch_mask
+    pipeline_mod.get_retouch_mask = timed("renoise_mask", mask_fn)
+    try:
+        yield spent
+    finally:
+        for attr in methods.values():
+            delattr(pipe, attr)
+        pipeline_mod.get_retouch_mask = mask_fn
+
+
+def phase_img2img():
+    """Config 3 in bf16 with no flag and with the four flags: 1 warm and 2
+    timed images, ``free_cache()`` before each (the full inversion every
+    time). Launches per image must equal the pinned counts; the output must
+    be (1, 2048, 2048, 3), the latents finite, and the decode's NaN chain
+    not taken. Returns the launches per image of each run."""
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv, img = build_config3()
+    setup_s = time.perf_counter() - t0
+    side = int(CFG3["image"] * CFG3["scale"])
+    out = {}
+    for label, flags, expected in CONFIG3_RUNS:
+        def image(seed):
+            pipe.free_cache()
+            res = pipe.img2img(img, cond, uncond, sampler=sp, seed=seed, tiled_diffusion=td,
+                               tiled_vae=tv)
+            torch.cuda.synchronize()
+            require(tuple(res.images.shape) == (1, side, side, 3),
+                    f"config 3 {label}: output shape {tuple(res.images.shape)}")
+            require(bool(torch.isfinite(res.latents).all()),
+                    f"config 3 {label}: non-finite latents")
+            require(pipe.last_decode == "decode",
+                    f"config 3 {label}: the decode's NaN chain gave the image "
+                    f"({pipe.last_decode})")
+            return res
+
+        with flags_set(flags):
+            reset_launches()
+            t0 = time.perf_counter()
+            image(0)
+            first_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            want = {k: expected.get(k, 0) for k in launches}
+            require(launches == want, f"config 3 {label}: launches per image {launches}, "
+                                      f"expected {want}")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            n = 2
+            with stage_timer(pipe) as stages:
+                t0 = time.perf_counter()
+                for seed in range(1, n + 1):
+                    image(seed)
+                timed_s = time.perf_counter() - t0
+            per_image = {k: v / n for k, v in LAUNCHES.items()}
+            require(per_image == launches, f"config 3 {label}: launches per image differ: "
+                                           f"{per_image} vs {launches}")
+        emit("img2img", config="config 3: MoD img2img x4 512 -> 2048 with noise inversion, "
+                               "SD1.5 bf16", run=label, flags=flags, sampler=sp.name,
+             steps=sp.steps, denoising_strength=sp.denoising_strength,
+             cfg_scale=sp.cfg_scale, tile=[td.tile_h, td.tile_w], overlap=td.overlap,
+             tile_bs=td.tile_bs, inverse_steps=td.noise_inverse_steps,
+             encoder_tile=tv.encoder_tile_size, decoder_tile=tv.decoder_tile_size,
+             setup_s=setup_s, first_image_s=first_s, img_per_min=60.0 * n / timed_s,
+             seconds_per_image=timed_s / n,
+             stage_seconds_per_image={k: v / n for k, v in stages.items()},
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             output_shape=[1, side, side, 3], finite=True, nan_chain_taken=False,
+             launches_per_image=launches, expected_launches=expected)
+        out[label] = launches
+    del pipe, cond, uncond
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_upscale8k():
+    """One 2048 x 2048 -> 8192 x 8192 upscale with no flag: config 3's
+    settings with the 8K's fast tiled VAE (encoder tile 512, decoder tile 64,
+    ``tile_batch`` 8), ``decode=False`` and then ``_decode_tensor``, as
+    ``bench.py:508-513`` does. Its launches must equal the pinned counts, and
+    the output must be [1, 3, 8192, 8192] and finite. Returns its launches."""
+    import numpy as np
+    import torch
+
+    from mdu_tpu_torch import TiledVAEConfig
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    pipe, cond, uncond, sp, td, _, _ = build_config3()
+    tv = TiledVAEConfig(encoder_tile_size=CFG8K["encoder_tile"],
+                        decoder_tile_size=CFG8K["decoder_tile"], fast_decoder=True,
+                        fast_encoder=True, tile_batch=CFG8K["tile_batch"])
+    src = (np.random.default_rng(1).random((CFG8K["image"],) * 2 + (3,)) * 255
+           ).astype(np.uint8)
+    pipe.free_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with stage_timer(pipe) as stages:
+        t0 = time.perf_counter()
+        res = pipe.img2img(src, cond, uncond, sampler=sp, seed=0, tiled_diffusion=td,
+                           tiled_vae=tv, decode=False)
+        out = pipe._decode_tensor(res.latents, tv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {k: EXPECTED_8K.get(k, 0) for k in launches}
+    require(launches == want, f"8K upscale: launches {launches}, expected {want}")
+    side = int(CFG8K["image"] * CFG3["scale"])
+    require(tuple(out.shape) == (1, 3, side, side), f"8K upscale: output {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "8K upscale: non-finite output")
+    emit("upscale8k", config="2K -> 8K: MoD img2img x4 2048 -> 8192 with noise inversion, "
+                             "fast tiled VAE, SD1.5 bf16", flags={}, seconds=seconds,
+         img_per_min=60.0 / seconds, stage_seconds=dict(stages),
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         output_shape=list(out.shape), finite=True, launches=launches,
+         expected_launches=EXPECTED_8K)
+    del pipe, cond, uncond, res, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_rows(checks, launches, config3=None, upscale8k=None):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels, the fp32 image for the
-    fp32 kernels). A kernel with forms also lists the forms checked, the
+    fp32 kernels), and beside them its launches per config-3 image (the
+    flagged or the default run, as for config 2) and in the 8K upscale. A kernel with forms also lists the forms checked, the
     launches of each form in that run, and every config-2 shape with the
     earlier form's time (attention with the MUFU floor, fp32 with the FMA
     bound and, for attention, SDPA under both backends); #1's wide form has
@@ -929,6 +1267,12 @@ def kernel_rows(checks, launches):
     def row(name, key, checked, run, c2, source, launch_key=None, **extra):
         main = checked[0]
         got = launches.get(run, {})
+        counted = launch_key or key
+        if config3 is not None:
+            extra["config3_launches"] = config3.get(
+                "flagged" if run == "flagged" else "default", {}).get(counted, 0)
+        if upscale8k is not None:
+            extra["upscale8k_launches"] = upscale8k.get(counted, 0)
         forms = sorted({c["form"] for c in checked if c.get("form")})
         if forms:
             extra.update(forms=forms,
@@ -977,7 +1321,7 @@ def kernel_rows(checks, launches):
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,reference,txt2img",
+    ap.add_argument("--phases", default="kernels,reference,txt2img,img2img,upscale8k",
                     help="comma-separated phases after device and build")
     phases = set(ap.parse_args().phases.split(","))
     try:
@@ -1021,9 +1365,11 @@ def main() -> int:
         phase_reference()
     if "txt2img" in phases:
         launches = phase_txt2img()
+    config3 = phase_img2img() if "img2img" in phases else None
+    up8k = phase_upscale8k() if "upscale8k" in phases else None
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
-    print(json.dumps({"kernels": kernel_rows(checks, launches)}))
+    print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -7,7 +7,10 @@ wrote in Pallas are hand-written CUDA kernels here (``csrc/``,
 """
 from .config import Method, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
 from .device import resolve_device
-from .pipeline import DiffusionPipeline, GenerationResult
+from .pipeline import (DiffusionPipeline, GenerationResult, NoiseInverseCache,
+                       cond_fingerprint)
+from .upscale import get_upscaler, list_upscalers, register_upscaler
 
 __all__ = ["Method", "SamplerConfig", "TiledDiffusionConfig", "TiledVAEConfig",
-           "resolve_device", "DiffusionPipeline", "GenerationResult"]
+           "resolve_device", "DiffusionPipeline", "GenerationResult", "NoiseInverseCache",
+           "cond_fingerprint", "get_upscaler", "list_upscalers", "register_upscaler"]

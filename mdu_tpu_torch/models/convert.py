@@ -10,17 +10,13 @@
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
-
-# parts of the JAX AutoencoderKL tree that the decode-only port does not hold
-VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
-
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -33,28 +29,18 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(params: Mapping,
-                        drop_prefixes: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
-    """``{"params": {...}}`` of numpy arrays -> a torch ``state_dict``.
-
-    Entries whose name starts with one of ``drop_prefixes`` are left out
-    (``VAE_ENCODER_PREFIXES`` for the decode-only VAE); any other name must
-    exist in the target module, which ``load_state_dict(strict=True)``
-    checks.
-    """
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"params": {...}}`` of numpy arrays -> a torch ``state_dict``; every
+    name must exist in the target module, which
+    ``load_state_dict(strict=True)`` checks."""
     tree = params["params"] if "params" in params else params
-    out: Dict[str, torch.Tensor] = {}
-    for name, arr in _flatten(tree).items():
-        if any(name.startswith(p) for p in drop_prefixes):
-            continue
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
-    return out
+    return {name: torch.from_numpy(np.array(arr, dtype=np.float32))
+            for name, arr in _flatten(tree).items()}
 
 
-def load_jax_params(module: nn.Module, params: Mapping,
-                    drop_prefixes: Sequence[str] = ()) -> nn.Module:
+def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX parameter tree into ``module`` with ``strict=True``."""
-    module.load_state_dict(state_dict_from_jax(params, drop_prefixes), strict=True)
+    module.load_state_dict(state_dict_from_jax(params), strict=True)
     return module
 
 

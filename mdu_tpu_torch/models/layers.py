@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import flags
-from ..ops.groupnorm import group_norm_affine
+from ..ops.groupnorm import GroupNormStats, apply_group_norm, group_norm_affine, group_stats
 from ..ops.kernels import (conv3x3_plan_fits, fused_conv3x3, fused_group_norm,
                            pack_conv3x3_weight)
 from ..ops.tile_context import TileContext, tile_group_norm
@@ -104,11 +104,21 @@ class Linear(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm with fp32 statistics: per sample, or pooled across the
-    lockstep-batched tiles of a ``TileContext``. ``affine_only`` returns the
-    folded per-(batch, channel) (a, b) for a fused consumer. Under
-    ``MDU_FUSED_GN`` a per-sample norm whose group fits the JAX cap runs the
-    fused kernel."""
+    """GroupNorm with fp32 statistics, dispatched in the JAX package's order
+    (``mdu_tpu/models/layers.py:249-280``):
+
+    1. ``affine_only``: the folded per-(batch, channel) (a, b) for a fused
+       consumer;
+    2. statistics injected through ``stats`` (a ``GroupNormStats`` that holds
+       this layer), tiled over the batch;
+    3. capture (``stats.capture``): per-sample statistics, recorded in
+       ``stats``;
+    4. under ``MDU_FUSED_GN``, with no ``TileContext``, a per-sample norm
+       whose group fits the JAX cap runs the fused kernel;
+    5. per sample, or pooled across the lockstep-batched tiles of a
+       ``TileContext``.
+
+    So a norm with injected or captured statistics never runs the kernel."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
@@ -119,11 +129,26 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, ctx: Optional[TileContext] = None, affine_only: bool = False):
+    def forward(self, x, ctx: Optional[TileContext] = None, affine_only: bool = False,
+                stats: Optional[GroupNormStats] = None):
         if affine_only:
-            if ctx is not None:
+            if ctx is not None or stats is not None:
                 raise ValueError("affine_only takes per-sample statistics only")
             return group_norm_affine(x, self.num_groups, self.weight, self.bias, self.eps)
+        if stats is not None:
+            held = stats.get(self)
+            if held is not None:
+                mean, var = held
+                reps = x.shape[0] // mean.shape[0]
+                return apply_group_norm(x, self.num_groups, mean.repeat(reps, 1),
+                                        var.repeat(reps, 1), self.weight, self.bias,
+                                        self.eps).to(self.dtype)
+            if stats.capture:
+                mean, meansq, _ = group_stats(x, self.num_groups)
+                var = torch.clamp(meansq - mean * mean, min=0.0)
+                stats.record(self, mean, var)
+                return apply_group_norm(x, self.num_groups, mean, var, self.weight,
+                                        self.bias, self.eps).to(self.dtype)
         if ctx is None and flags.fused_group_norm():
             B, C, H, W = x.shape
             if C // self.num_groups * H * W * 4 <= FUSED_GN_MAX_BYTES:

@@ -6,11 +6,13 @@
 * ``group_norm``        plain GroupNorm, var = max(E[x^2] - mean^2, 0);
 * ``group_norm_affine`` the same statistics folded into a per-(batch,
                         channel) fp32 (a, b) with group_norm(x) = x * a + b,
-                        for a consumer that fuses the normalisation.
+                        for a consumer that fuses the normalisation;
+* ``GroupNormStats``    statistics recorded by one call and injected into
+                        another (the JAX package's ``gn_stats`` collection).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -80,3 +82,34 @@ def group_norm_affine(x, num_groups: int, weight=None, bias=None, eps: float = 1
     a_c = rstd_c * w[None, :]
     b_c = b[None, :] - mu_c * a_c
     return a_c, b_c
+
+
+class GroupNormStats:
+    """Per-layer GroupNorm statistics handed down a VAE call, in place of the
+    JAX package's ``gn_stats`` variable collection (Tiled VAE fast mode, ref
+    tilevae.py:465-505). Keys are the ``GroupNorm`` modules themselves.
+
+    * ``capture=True``: every GroupNorm that gets no injected statistics
+      computes its per-sample (mean, var) [B, G], records them here and
+      normalises with them;
+    * a held entry: that GroupNorm normalises with the recorded (mean, var),
+      tiled over the batch: row i takes batch i % B, as ``jnp.tile`` does.
+    """
+
+    def __init__(self, capture: bool = False,
+                 stats: Optional[Dict[object, Tuple[torch.Tensor, torch.Tensor]]] = None):
+        self.capture = capture
+        self.stats = dict(stats or {})
+
+    def get(self, layer) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        return self.stats.get(layer)
+
+    def record(self, layer, mean, var) -> None:
+        self.stats[layer] = (mean, var)
+
+    def injected(self, layers: Optional[Iterable] = None) -> "GroupNormStats":
+        """The recorded statistics for injection only, restricted to
+        ``layers`` when given."""
+        keep = None if layers is None else set(layers)
+        return GroupNormStats(stats={k: v for k, v in self.stats.items()
+                                     if keep is None or k in keep})

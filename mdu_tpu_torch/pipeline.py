@@ -1,10 +1,16 @@
-"""txt2img with MultiDiffusion and the exact tiled VAE decode (counterpart of
-the txt2img path of ``mdu_tpu/pipeline.py``).
+"""txt2img with MultiDiffusion, and img2img upscaling with MultiDiffusion or
+Mixture of Diffusers and tiled noise inversion, over the exact or fast
+tiled VAE (counterpart of the txt2img and img2img paths of
+``mdu_tpu/pipeline.py``).
 
   plan    = plan_tiled_diffusion(...)                    static geometry
   den_fn  = make_tiled_denoiser(plan, tile_denoise)      CFG'd per-tile denoiser
   latent  = sampler(den_fn, noise * sigma_0, sigmas)     Python loop
-  image   = tiled_vae_decode(...)                        lockstep, pooled stats
+  image   = tiled_vae_decode(...)                        lockstep or fast
+
+img2img encodes the (pre-upscaled) image with the tiled VAE encoder, samples
+the truncated schedule from it and, with noise inversion, starts from noise
+found by running the sampler backwards over the image's latent.
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
 Features of ``mdu_tpu`` that this slice does not port raise
@@ -12,8 +18,11 @@ Features of ``mdu_tpu`` that this slice does not port raise
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import sys
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,16 +30,19 @@ import torch
 from .config import SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
 from .device import resolve_device
 from .models.unet import UNet2DCondition
-from .models.vae import AutoencoderKL
-from .samplers.denoiser import cfg_combine, denoised_from_model
+from .models.vae import AutoencoderKL, sample_from_moments
+from .ops.resize import resize_nchw
+from .samplers.denoiser import cfg_combine, denoised_from_model, scalings
 from .samplers.samplers import get_sampler
 from .samplers.schedule import NoiseSchedule
 from .tiling.conds import Cond, concat_conds, tile_cond
 from .tiling.schedulers import DiffusionTilePlan, make_tiled_denoiser, plan_tiled_diffusion
-from .tiling.tiled_vae import (DECODER_PAD, lockstep_footprint_bytes,
-                               plan_vae_tiles, tiled_vae_decode)
+from .tiling.tiled_vae import (DECODER_PAD, ENCODER_PAD, lockstep_footprint_bytes,
+                               plan_vae_tiles, tiled_vae_decode, tiled_vae_encode_moments)
+from .upscale import get_upscaler
 from .utils.grid import splitable
-from .utils.image import tensor_to_image
+from .utils.guided_filter import get_retouch_mask
+from .utils.image import cheap_latent_preview, grayscale_u8, image_to_tensor, tensor_to_image
 
 # cond leaves this slice consumes; the others belong to later slices
 _COND_KEYS = {"crossattn", "concat"}
@@ -42,6 +54,51 @@ _WAITING = {
     "__and__": "AND prompt composition (ROADMAP queue 1, item 15)",
     "__bank__": "scheduled prompts (ROADMAP queue 1, item 15)",
 }
+
+
+@dataclass
+class NoiseInverseCache:
+    """One cached (x0, xt) latent pair of noise inversion (ref
+    abstractdiffusion.py:627-646), keyed as the JAX package keys it: prompt
+    content (``cond_fingerprint``), the UNet's weights (``weights_key``: the
+    storage and version of every parameter, which loading new weights
+    changes, in place of the JAX package's ``params is``), steps, retouch,
+    and the closeness of x0."""
+
+    x0: torch.Tensor
+    xt: torch.Tensor
+    steps: int
+    retouch: float
+    prompt_key: str
+    weights: Tuple
+
+    def matches(self, x0, steps: int, retouch: float, prompt_key: str,
+                weights: Tuple) -> bool:
+        return (self.steps == steps
+                and abs(self.retouch - retouch) < 0.01
+                and self.prompt_key == prompt_key
+                and self.weights == weights
+                and tuple(self.x0.shape) == tuple(x0.shape)
+                and float((self.x0.float() - x0.float()).abs().sum()) < 100)   # ref :635
+
+
+def cond_fingerprint(cond: Optional[Cond]) -> str:
+    """sha1 over every leaf's shape and bytes, leaves in key order (a bf16
+    leaf's bytes are read as int16)."""
+    h = hashlib.sha1()
+    for key in sorted(cond or {}):
+        leaf = torch.as_tensor(cond[key]).detach().to("cpu").contiguous()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        h.update(str(tuple(leaf.shape)).encode())
+        h.update(leaf.numpy().tobytes())
+    return h.hexdigest()
+
+
+def weights_key(module: torch.nn.Module) -> Tuple:
+    """Identity of a module's weights: each parameter's storage and version
+    (``load_state_dict`` copies in place, which moves the version)."""
+    return tuple((p.data_ptr(), p._version) for p in module.parameters())
 
 
 @dataclass
@@ -72,6 +129,10 @@ class DiffusionPipeline:
         self.unet = unet.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.schedule = schedule or NoiseSchedule()
+        self.noise_inverse_cache: Optional[NoiseInverseCache] = None
+        # which step of the decode's NaN chain gave the last image: "decode",
+        # "estimated stats" or "latent preview"
+        self.last_decode: Optional[str] = None
 
     # ------------------------------------------------------------ denoisers
 
@@ -144,9 +205,7 @@ class DiffusionPipeline:
             return None
         if td.regions:
             raise _unported("regional prompts (ROADMAP queue 1, item 17)")
-        if td.noise_inverse:
-            raise _unported("noise inversion (ROADMAP queue 1, item 12)")
-        if not splitable(w, h, td.tile_w, td.tile_h, td.overlap):
+        if not (splitable(w, h, td.tile_w, td.tile_h, td.overlap) or td.noise_inverse):
             return None
         return plan_tiled_diffusion(td.method, h, w, tile_h=td.tile_h,
                                     tile_w=td.tile_w, overlap=td.overlap,
@@ -208,25 +267,256 @@ class DiffusionPipeline:
         return GenerationResult(images, latents, seed,
                                 self._info(sp, tiled_diffusion, seed))
 
+    # --------------------------------------------------------------- img2img
+
+    def _prepare_image(self, image, td: Optional[TiledDiffusionConfig],
+                       target_size: Optional[Tuple[int, int]]):
+        """uint8 image (or [1, 3, H, W] tensor in [-1, 1]) -> the pre-upscaled,
+        resized and cropped fp32 tensor on the device (``mdu_tpu/pipeline.py:
+        807-823``)."""
+        x = image_to_tensor(image) if isinstance(image, np.ndarray) else torch.as_tensor(image)
+        x = x.to(self.device, torch.float32)
+        if td is not None and td.upscaler and td.upscaler != "None":
+            x = get_upscaler(td.upscaler)(x, td.scale_factor)
+        if target_size is not None:
+            th, tw = int(target_size[0]), int(target_size[1])
+            if (x.shape[-2], x.shape[-1]) != (th, tw):
+                x = resize_nchw(x, (th, tw), "lanczos")
+        h, w = x.shape[-2] // 8, x.shape[-1] // 8
+        return x[:, :, :h * 8, :w * 8]
+
+    def img2img(self, image: Optional[np.ndarray], cond: Cond, uncond: Optional[Cond],
+                sampler: Optional[SamplerConfig] = None, seed: int = 0,
+                tiled_diffusion: Optional[TiledDiffusionConfig] = None,
+                tiled_vae: Optional[TiledVAEConfig] = None,
+                region_conds: Sequence = (), inversion_cond: Optional[Cond] = None,
+                mask: Optional[np.ndarray] = None, init_latents=None, decode: bool = True,
+                step_callback=None,
+                target_size: Optional[Tuple[int, int]] = None) -> GenerationResult:
+        """img2img from a uint8 image (or from ``init_latents``). The encoder's
+        sample and then the sampling noise are drawn from one
+        ``torch.Generator`` seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._img2img_from_noise(
+            image, gen, gen, cond, uncond, sampler, seed, tiled_diffusion, tiled_vae,
+            region_conds, inversion_cond, mask, init_latents, decode, step_callback,
+            target_size)
+
+    @staticmethod
+    def _noise(noise, shape, dtype, device):
+        """``noise`` as given, or drawn from it when it is a generator."""
+        if isinstance(noise, torch.Generator):
+            return torch.randn(shape, generator=noise, dtype=dtype, device=device)
+        noise = torch.as_tensor(noise, dtype=dtype, device=device)
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise of shape {tuple(noise.shape)}, expected {tuple(shape)}")
+        return noise
+
+    @torch.inference_mode()
+    def _img2img_from_noise(self, image, enc_noise, noise, cond: Cond,
+                            uncond: Optional[Cond], sampler: Optional[SamplerConfig] = None,
+                            seed: int = 0,
+                            tiled_diffusion: Optional[TiledDiffusionConfig] = None,
+                            tiled_vae: Optional[TiledVAEConfig] = None,
+                            region_conds: Sequence = (),
+                            inversion_cond: Optional[Cond] = None,
+                            mask: Optional[np.ndarray] = None, init_latents=None,
+                            decode: bool = True, step_callback=None,
+                            target_size: Optional[Tuple[int, int]] = None
+                            ) -> GenerationResult:
+        """img2img with the encoder's unit-variance sample noise ``enc_noise``
+        (the moments' dtype, [B, 4, h, w]) and the sampling noise ``noise``
+        (fp32, [B, 4, h, w]), each a tensor or a ``torch.Generator`` to draw it
+        from (``mdu_tpu/pipeline.py:767-970``)."""
+        if region_conds:
+            raise _unported("regional prompts (ROADMAP queue 1, item 17)")
+        if step_callback is not None:
+            raise _unported("step callbacks (ROADMAP queue 1, item 21)")
+        sp = sampler or SamplerConfig()
+        td = tiled_diffusion
+        if td is not None and td.noise_inverse and sp.name != "Euler":
+            # the reference forces Euler under noise inversion (ref
+            # tilediffusion.py:431-435)
+            print(f"[Tiled Diffusion] noise inversion: overriding sampler {sp.name!r} "
+                  "-> 'Euler' (ref convention)", file=sys.stderr)
+            sp = dataclasses.replace(sp, name="Euler")
+        self._check_sampler(sp)
+        cond, uncond = self._cond(cond), self._cond(uncond)
+
+        if init_latents is not None:
+            # latent-space entry; the renoise mask needs pixels
+            if td is not None and td.noise_inverse:
+                raise ValueError("noise_inverse requires an image input "
+                                 "(the renoise mask is pixel-space)")
+            init_latent = torch.as_tensor(init_latents, device=self.device)
+            x_img = None
+        else:
+            x_img = self._prepare_image(image, td, target_size)
+            moments = self._encode(x_img, tiled_vae)
+            C = moments.shape[1] // 2
+            init_latent = sample_from_moments(moments, self._noise(
+                enc_noise, (moments.shape[0], C) + tuple(moments.shape[2:]),
+                moments.dtype, self.device))
+            init_latent = init_latent * self.vae.cfg.scaling_factor
+        h, w = init_latent.shape[-2], init_latent.shape[-1]
+
+        plan = self._plan(td, h, w)
+        noise = self._noise(noise, tuple(init_latent.shape), torch.float32, self.device)
+        # the truncated schedule (A1111 setup_img2img_steps)
+        steps, t_enc = self.schedule.img2img_steps(sp.steps, sp.denoising_strength)
+        all_sigmas = torch.as_tensor(self.schedule.sampling_sigmas(steps, sp.schedule),
+                                     device=self.device)
+        sigmas = all_sigmas[steps - t_enc - 1:]
+        if td is not None and td.noise_inverse:
+            # sigma0 is the full schedule's sigma_max (ref abstractdiffusion.py:651)
+            noise = self._noise_inverse_combined_noise(
+                x_img, init_latent, noise, td, plan,
+                inversion_cond=self._cond(inversion_cond) if inversion_cond is not None
+                else cond, sigma0=all_sigmas[0])
+
+        x = init_latent + noise * sigmas[0]
+        den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale)
+        if mask is not None:
+            # masked redraw: the denoised estimate blends with the initial
+            # latent each step (A1111 semantics)
+            m = torch.as_tensor(np.asarray(mask), dtype=torch.float32, device=self.device)
+            if m.dim() == 2:
+                m = m[None, None]
+            lm = resize_nchw(m, (h, w), "linear")
+            inner = den_fn
+
+            def den_fn(xx, ss, ii):  # noqa: F811
+                return init_latent * (1 - lm) + inner(xx, ss, ii) * lm
+
+        latents = get_sampler(sp.name)(den_fn, x, sigmas)
+        images = self._decode(latents, tiled_vae) if decode else None
+        info = self._info(sp, td, seed)
+        if target_size is not None:
+            info["Target size"] = [int(target_size[0]), int(target_size[1])]
+        return GenerationResult(images, latents, seed, info)
+
+    # ------------------------------------------------------- noise inversion
+
+    def _noise_inverse_combined_noise(self, x_img, init_latent, noise,
+                                      td: TiledDiffusionConfig,
+                                      plan: Optional[DiffusionTilePlan],
+                                      inversion_cond: Cond, sigma0):
+        """Invert the initial latent to noise, then blend it with fresh noise
+        through the guided-filter renoise mask (ref abstractdiffusion.py:604-679)."""
+        prompt_key = cond_fingerprint(inversion_cond)
+        wkey = weights_key(self.unet)
+        cache = self.noise_inverse_cache
+        if cache is not None and cache.matches(init_latent, td.noise_inverse_steps,
+                                               td.noise_inverse_retouch, prompt_key, wkey):
+            xt = cache.xt
+        else:
+            xt = self.noise_inversion(init_latent, inversion_cond, td.noise_inverse_steps,
+                                      td.noise_inverse_retouch, plan)
+            self.noise_inverse_cache = NoiseInverseCache(
+                init_latent.clone(), xt.clone(), td.noise_inverse_steps,
+                td.noise_inverse_retouch, prompt_key, wkey)
+        inverse_noise = xt - init_latent / sigma0
+        if td.noise_inverse_renoise_strength <= 0:
+            return inverse_noise
+        # the mask is built on the host from the image quantised to uint8
+        gray = grayscale_u8(tensor_to_image(x_img)[0])
+        detail = get_retouch_mask(gray, td.noise_inverse_renoise_kernel)
+        m = 1.0 - resize_nchw(torch.as_tensor(detail, device=noise.device)[None, None],
+                              tuple(noise.shape[-2:]), "linear")
+        m = torch.clamp(m * td.noise_inverse_renoise_strength, 0.0, 1.0)
+        return ((1 - m) * inverse_noise + m * noise) / torch.sqrt(m ** 2 + (1 - m) ** 2)
+
+    @torch.inference_mode()
+    def noise_inversion(self, init_latent, cond: Cond, steps: int, retouch: float = 1.0,
+                        plan: Optional[DiffusionTilePlan] = None):
+        """Tiled reverse Euler over the ``steps`` ascending sigmas with the
+        positive cond only and no CFG (ref abstractdiffusion.py:683-742,
+        multidiffusion.py:220-243); the carry is fp32 and the result is
+        divided by the largest sigma."""
+        cond = self._cond(cond)
+        sch = self.schedule
+        sig_asc = torch.as_tensor(sch.sampling_sigmas(steps)[:-1][::-1].copy(),
+                                  device=self.device)
+        prev = torch.cat([torch.zeros(1, device=self.device), sig_asc[:-1]])
+        model_fn = self._model_fn()
+
+        def eps_org(x, sigma, step):
+            return self._raw_eps(model_fn, x, sigma, cond, retouch)
+
+        if plan is not None:
+            def eps_tile(flat, sigma, step, bboxes, batch_i):
+                c = tile_cond(cond, bboxes, (plan.h, plan.w))
+                return self._raw_eps(model_fn, flat, sigma, c, retouch)
+
+            tiled_eps = make_tiled_denoiser(plan, eps_tile)
+        else:
+            tiled_eps = eps_org
+        x = torch.as_tensor(init_latent, device=self.device).float()
+        for i in range(steps):
+            s, s_prev = sig_asc[i], prev[i]
+            _, c_out, c_in = scalings(s, sch.prediction_type)
+            eps = tiled_eps(x * c_in, s, steps - 1 - i)
+            denoised = x + eps * c_out        # ref :726, the eps form even for v
+            x = x + (x - denoised) / s * (s - s_prev)
+        return x / sig_asc[-1]
+
+    def _raw_eps(self, model_fn, x, sigma, cond, retouch: float):
+        t = self.schedule.t_for_sigma(torch.atleast_1d(sigma)) / retouch
+        return model_fn(x, t.expand(x.shape[0]), cond)
+
+    def free_cache(self):
+        """Clear the noise-inversion cache (ref 'Free GPU' button,
+        tilediffusion.py:591-593)."""
+        self.noise_inverse_cache = None
+
     # ------------------------------------------------------------------- VAE
 
     def _decode(self, latents, tv: Optional[TiledVAEConfig]) -> np.ndarray:
+        """Decode with the reference's recovery chain (ref tilevae.py:500-503,
+        570-573, 625): NaN in the decoded tensor -> the fast decoder with
+        estimated GroupNorm statistics -> the cheap latent -> RGB
+        approximation. ``last_decode`` names the step that gave the image."""
         out = self._decode_tensor(latents, tv)
-        if not bool(torch.isfinite(out).all()):
-            raise _unported("the NaN fallback of the VAE decode (ROADMAP queue 1, item 11)")
-        return tensor_to_image(out)
+        if bool(torch.isfinite(out).all()):
+            self.last_decode = "decode"
+            return tensor_to_image(out)
+        print("[Tiled VAE] NaN in decoded image; retrying with estimated "
+              "GroupNorm stats (ref tilevae.py:502)", file=sys.stderr)
+        tv_fast = dataclasses.replace(tv or TiledVAEConfig(), enabled=True,
+                                      fast_decoder=True, streaming=False)
+        try:
+            out = self._decode_tensor(latents, tv_fast)
+        except Exception:                            # noqa: BLE001
+            out = torch.full_like(out, float("nan"))
+        if bool(torch.isfinite(out).all()):
+            self.last_decode = "estimated stats"
+            return tensor_to_image(out)
+        print("[Tiled VAE] still NaN; returning cheap latent approximation "
+              "(ref tilevae.py:570-573)", file=sys.stderr)
+        latents = torch.as_tensor(latents, device=self.device)
+        approx = cheap_latent_preview(latents.float() / self.vae.cfg.scaling_factor)
+        approx = resize_nchw(approx, (latents.shape[-2] * 8, latents.shape[-1] * 8), "linear")
+        self.last_decode = "latent preview"
+        return tensor_to_image(torch.clamp(approx, -1.0, 1.0))
 
-    def _exact_vae_mode(self, tile_size: int, h: int, w: int, B: int) -> str:
-        """'lockstep' when every tile fits through the decoder at once in the
-        card's free memory (``torch.cuda.mem_get_info``), else the streaming
-        mode it would need."""
-        plan = plan_vae_tiles(h, w, tile_size, DECODER_PAD)
+    def _exact_vae_mode(self, which: str, tile_size: int, h: int, w: int, B: int) -> str:
+        """'lockstep' when every tile fits through the encoder or decoder at
+        once in the card's free memory (``torch.cuda.mem_get_info``), else
+        the streaming mode it would need."""
+        pad = ENCODER_PAD if which == "encoder" else DECODER_PAD
+        plan = plan_vae_tiles(h, w, tile_size, pad)
         if plan is None or self.device.type != "cuda":
             return "lockstep"
         free, _ = torch.cuda.mem_get_info(self.device)
-        if lockstep_footprint_bytes(tile_size, plan.num_tiles, B) <= free:
+        if lockstep_footprint_bytes(which, tile_size, plan.num_tiles, B) <= free:
             return "lockstep"
         return "stream"
+
+    def _check_exact_fits(self, which: str, tile_size: int, shape) -> None:
+        if self._exact_vae_mode(which, tile_size, shape[2], shape[3], shape[0]) != "lockstep":
+            raise _unported(
+                f"the exact lockstep {which} does not fit in free device memory; "
+                "the streaming exact tiled VAE (ROADMAP queue 1, item 13)")
 
     @torch.inference_mode()
     def _decode_tensor(self, latents, tv: Optional[TiledVAEConfig]):
@@ -236,14 +526,24 @@ class DiffusionPipeline:
             return self.vae.decode(z)
         if tv.streaming:
             raise _unported("the streaming tiled VAE (ROADMAP queue 1, item 13)")
-        if tv.fast_decoder:
-            raise _unported("the fast tiled VAE decoder (ROADMAP queue 1, item 11)")
-        if self._exact_vae_mode(tv.decoder_tile_size, z.shape[2], z.shape[3],
-                                z.shape[0]) != "lockstep":
-            raise _unported(
-                "the exact lockstep decode does not fit in free device memory; "
-                "the streaming exact decode (ROADMAP queue 1, item 13)")
-        return tiled_vae_decode(self.vae, z, tile_size=tv.decoder_tile_size)
+        if not tv.fast_decoder:
+            self._check_exact_fits("decoder", tv.decoder_tile_size, z.shape)
+        return tiled_vae_decode(self.vae, z, tile_size=tv.decoder_tile_size,
+                                fast=tv.fast_decoder, tile_batch=tv.tile_batch)
+
+    @torch.inference_mode()
+    def _encode(self, x_img, tv: Optional[TiledVAEConfig]):
+        """[B, 3, H, W] in [-1, 1] -> [B, 8, H/8, W/8] moments."""
+        x_img = torch.as_tensor(x_img, device=self.device)
+        if tv is None or not tv.enabled:
+            return self.vae.encode_moments(x_img)
+        if tv.streaming:
+            raise _unported("the streaming tiled VAE (ROADMAP queue 1, item 13)")
+        if not tv.fast_encoder:
+            self._check_exact_fits("encoder", tv.encoder_tile_size, x_img.shape)
+        return tiled_vae_encode_moments(self.vae, x_img, tile_size=tv.encoder_tile_size,
+                                        fast=tv.fast_encoder, tile_batch=tv.tile_batch,
+                                        color_fix=tv.color_fix)
 
     # ------------------------------------------------------------------ misc
 
@@ -252,8 +552,17 @@ class DiffusionPipeline:
         info: Dict[str, Any] = {"Sampler": sp.name, "Steps": sp.steps,
                                 "CFG scale": sp.cfg_scale, "Seed": seed}
         if td is not None and td.enabled:
-            info["Tiled Diffusion"] = {
-                "Method": td.method, "Tile tile width": td.tile_w,
-                "Tile tile height": td.tile_h, "Tile Overlap": td.overlap,
-                "Tile batch size": td.tile_bs}
+            block = {"Method": td.method, "Tile tile width": td.tile_w,
+                     "Tile tile height": td.tile_h, "Tile Overlap": td.overlap,
+                     "Tile batch size": td.tile_bs}
+            if td.upscaler and td.upscaler != "None":
+                block["Upscaler"] = td.upscaler
+                block["Upscale factor"] = td.scale_factor
+            if td.noise_inverse:
+                block.update({
+                    "NoiseInv": True, "NoiseInv Steps": td.noise_inverse_steps,
+                    "NoiseInv Retouch": td.noise_inverse_retouch,
+                    "NoiseInv Renoise strength": td.noise_inverse_renoise_strength,
+                    "NoiseInv Kernel size": td.noise_inverse_renoise_kernel})
+            info["Tiled Diffusion"] = block
         return info

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -54,6 +55,13 @@ class NoiseSchedule:
         t = np.linspace(len(table) - 1, 0, steps)
         log_t = np.interp(t, np.arange(len(table)), np.log(table))
         return np.append(np.exp(log_t), 0.0).astype(np.float32)
+
+    def img2img_steps(self, steps: int, strength: float) -> Tuple[int, int]:
+        """(total_steps, t_enc): A1111's setup_img2img_steps, as the JAX
+        package has it: run the last ``t_enc + 1`` sigmas of a
+        ``steps``-long schedule."""
+        t_enc = int(min(strength, 0.999) * steps)
+        return steps, t_enc
 
 
 @lru_cache(maxsize=8)

@@ -1,10 +1,18 @@
-"""Exact tiled VAE decode (counterpart of the lockstep path of
-``mdu_tpu/tiling/tiled_vae.py``).
+"""Tiled VAE encode and decode (counterpart of ``mdu_tpu/tiling/tiled_vae.py``
+without its streaming modes, ROADMAP queue 1, item 13).
 
-All tiles run lockstep-batched on the leading axis; every GroupNorm pools
-the statistics of the tiles' owned regions (``ops/tile_context.py``), so the
-result does not depend on the tiling. The plan mirrors the reference's
-split_tiles (tilevae.py:405-462): latent halo 11, tile sizes auto-shrunk and
+* exact mode: all tiles run lockstep-batched on the leading axis; every
+  GroupNorm pools the statistics of the tiles' owned regions
+  (``ops/tile_context.py``), so the result does not depend on the tiling;
+* fast mode: the GroupNorm statistics are estimated once from a
+  nearest-exact downsampled whole image with the reference's
+  distribution-shift correction (tilevae.py:542-563), then the tiles run in
+  chunks of ``tile_batch`` with those statistics injected;
+* ``color_fix`` (fast encoder): the estimated statistics only before the
+  first downsample, exact pooling after it (tilevae.py:492-496).
+
+The plan mirrors the reference's split_tiles (tilevae.py:405-462): halo 11
+latent pixels (decoder) or 32 pixels (encoder), tile sizes auto-shrunk and
 rounded to multiples of 32, every padded input tile the same shape (edge
 windows slide inward).
 """
@@ -18,8 +26,11 @@ import numpy as np
 import torch
 
 from ..models.vae import AutoencoderKL
+from ..ops.groupnorm import GroupNormStats
+from ..ops.resize import resize_nchw
 from ..ops.tile_context import TileContext
 
+ENCODER_PAD = 32   # pixel-space halo (ref tilevae.py:373)
 DECODER_PAD = 11   # latent-space halo
 
 
@@ -102,23 +113,121 @@ def _scatter_owned(tiles_out, plan: VAETilePlan, scale_num: int, scale_den: int,
     return out
 
 
-def lockstep_footprint_bytes(tile_size: int, num_tiles: int, batch: int,
+def _tile_side(which: str, tile_size: int) -> int:
+    """Side of the widest full-resolution activation of one padded tile."""
+    if which == "encoder":
+        return tile_size + 2 * ENCODER_PAD
+    return (tile_size + 2 * DECODER_PAD) * 8
+
+
+def lockstep_footprint_bytes(which: str, tile_size: int, num_tiles: int, batch: int,
                              dtype_bytes: int = 2) -> int:
-    """Rough peak-memory estimate of the lockstep decode: the widest
-    full-resolution activation (128 channels) times ~4 live tensors."""
-    side = (tile_size + 2 * DECODER_PAD) * 8
+    """Rough peak-memory estimate of the exact lockstep mode: the widest
+    full-resolution activation (128 channels) of every tile times ~4 live
+    tensors."""
+    side = _tile_side(which, tile_size)
     return num_tiles * batch * 128 * side * side * dtype_bytes * 4
 
 
-def tiled_vae_decode(vae: AutoencoderKL, z, tile_size: int = 96,
-                     reference_pooling: bool = False):
-    """Decode [B, 4, h, w] latents -> [B, 3, 8h, 8w] with exact pooled stats."""
+def fast_footprint_bytes(which: str, tile_size: int, num_tiles: int, batch: int,
+                         tile_batch: int, dtype_bytes: int = 2) -> int:
+    """Rough peak-memory estimate of a fast mode: the gathered input tiles and
+    the output tiles, plus one chunk's working set (~4 live tensors of the
+    widest 128-channel activation)."""
+    if which == "encoder":
+        side_in = tile_size + 2 * ENCODER_PAD
+        in_ch, out_ch, side_out, work_side = 3, 8, max(1, side_in // 8), side_in
+    else:
+        side_in = tile_size + 2 * DECODER_PAD
+        in_ch, out_ch, side_out = 4, 3, side_in * 8
+        work_side = side_out
+    tile_io = in_ch * side_in * side_in + out_ch * side_out * side_out
+    return (num_tiles * batch * tile_io * dtype_bytes
+            + tile_batch * batch * 128 * work_side * work_side * dtype_bytes * 4)
+
+
+def _estimate_stats(x, tile_size: int, method) -> GroupNormStats:
+    """Fast-mode statistics: ``method`` (the VAE's ``encode_moments`` or
+    ``decode``) once on a nearest-exact downsampled whole input, whose
+    per-channel mean and population std are moved to the input's, clipped to
+    its range (tilevae.py:542-563); every GroupNorm records its statistics."""
+    B, C, H, W = x.shape
+    scale = tile_size / max(H, W)
+    hw = (max(8, int(H * scale)) // 8 * 8, max(8, int(W * scale)) // 8 * 8)
+    xd = resize_nchw(x, hw, "nearest")
+    dims = (0, 2, 3)
+    std_o = torch.std(x, dim=dims, keepdim=True, correction=0)
+    mean_o = torch.mean(x, dim=dims, keepdim=True)
+    std_n = torch.std(xd, dim=dims, keepdim=True, correction=0)
+    mean_n = torch.mean(xd, dim=dims, keepdim=True)
+    xd = (xd - mean_n) / (std_n + 1e-12) * std_o + mean_o
+    xd = torch.clamp(xd, x.min(), x.max())
+    stats = GroupNormStats(capture=True)
+    method(xd, stats=stats)
+    return stats.injected()
+
+
+def _filter_pre_downsample(vae: AutoencoderKL, stats: GroupNormStats) -> GroupNormStats:
+    """The estimated statistics of the encoder's norms before its first
+    downsample only (the colour-fix boundary, ref tilevae.py:492-496)."""
+    keep = [m for name, m in vae.encoder.named_modules() if name.startswith("down_0_block")]
+    return stats.injected(keep)
+
+
+def _map_tiles_with_stats(stats: GroupNormStats, tiles, method, tile_batch: int, B: int):
+    """The tiles through ``method`` in chunks of ``tile_batch * B`` with the
+    statistics injected; a short last chunk is padded by repeating its last
+    tile, and the padded tiles are dropped."""
+    TB = tiles.shape[0]
+    chunk = max(1, min(tile_batch * B, TB))
+    outs = []
+    for i in range(0, TB, chunk):
+        part = tiles[i:i + chunk]
+        n = part.shape[0]
+        if n < chunk:
+            part = torch.cat([part, part[-1:].expand(chunk - n, *part.shape[1:])])
+        outs.append(method(part, stats=stats)[:n])
+    return torch.cat(outs)
+
+
+def _context(plan: VAETilePlan, device, reference_pooling: bool = False) -> TileContext:
+    return TileContext(plan.num_tiles, (plan.in_h, plan.in_w),
+                       torch.as_tensor(plan.local_masks(), device=device),
+                       reference_pooling=reference_pooling)
+
+
+def tiled_vae_decode(vae: AutoencoderKL, z, tile_size: int = 96, fast: bool = False,
+                     tile_batch: int = 8, reference_pooling: bool = False):
+    """Decode [B, 4, h, w] latents -> [B, 3, 8h, 8w]."""
     B = z.shape[0]
     plan = plan_vae_tiles(z.shape[2], z.shape[3], tile_size, DECODER_PAD)
     if plan is None:
         return vae.decode(z)
-    ctx = TileContext(plan.num_tiles, (plan.in_h, plan.in_w),
-                      torch.as_tensor(plan.local_masks(), device=z.device),
-                      reference_pooling=reference_pooling)
-    out_tiles = vae.decode(_gather_plan_tiles(z, plan), ctx)
+    tiles = _gather_plan_tiles(z, plan)
+    if fast:
+        stats = _estimate_stats(z, tile_size, vae.decode)
+        out_tiles = _map_tiles_with_stats(stats, tiles, vae.decode, tile_batch, B)
+    else:
+        out_tiles = vae.decode(tiles, _context(plan, z.device, reference_pooling))
     return _scatter_owned(out_tiles, plan, 8, 1, vae.cfg.out_channels, B)
+
+
+def tiled_vae_encode_moments(vae: AutoencoderKL, x, tile_size: int = 1536,
+                             fast: bool = False, tile_batch: int = 8,
+                             color_fix: bool = False):
+    """Encode [B, 3, H, W] images -> [B, 8, H/8, W/8] gaussian moments."""
+    B = x.shape[0]
+    plan = plan_vae_tiles(x.shape[2], x.shape[3], tile_size, ENCODER_PAD)
+    if plan is None:
+        return vae.encode_moments(x)
+    tiles = _gather_plan_tiles(x, plan)
+    if fast and color_fix:
+        stats = _filter_pre_downsample(
+            vae, _estimate_stats(x, tile_size, vae.encode_moments))
+        out_tiles = vae.encode_moments(tiles, _context(plan, x.device), stats)
+    elif fast:
+        stats = _estimate_stats(x, tile_size, vae.encode_moments)
+        out_tiles = _map_tiles_with_stats(stats, tiles, vae.encode_moments, tile_batch, B)
+    else:
+        out_tiles = vae.encode_moments(tiles, _context(plan, x.device))
+    return _scatter_owned(out_tiles, plan, 1, 8, 2 * vae.cfg.latent_channels, B)

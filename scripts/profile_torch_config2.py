@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of one config-2 image goes in the PyTorch port, on the card.
+"""Where the time of one config-2 or config-3 image goes in the PyTorch port,
+on the card.
 
-    python3 scripts/profile_torch_config2.py [--dtype bfloat16|float32] [--out PATH]
+    python3 scripts/profile_torch_config2.py [--config 2|3] [--dtype bfloat16|float32]
+                                             [--out PATH]
 
 Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 random weights, in
 bf16 unless ``--dtype float32`` asks for an fp32 model, as the JAX CLI's
 default dtype gives;
-MultiDiffusion 2048 x 512, Euler 20 steps at CFG 7, exact tiled decode),
-runs one warm-up image, one image timed on the host clock (ending in a
+MultiDiffusion 2048 x 512, Euler 20 steps at CFG 7, exact tiled decode), or
+with ``--config 3`` config 3 as ``chip_smoke.build_config3`` does (bf16 only:
+MoD img2img x4 of a 512 x 512 image with noise inversion, exact tiled encode
+and decode; the noise-inversion cache is freed before every image), runs one
+warm-up image, one image timed on the host clock (ending in a
 synchronize), then one image under ``torch.profiler``. Prints one JSON line:
 the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
@@ -66,7 +71,11 @@ def main() -> int:
     ap.add_argument("--out", help="also write the result as JSON to this file")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the models' dtype (default bfloat16, as config 2 runs)")
+    ap.add_argument("--config", choices=("2", "3"), default="2",
+                    help="config 2 (txt2img, the default) or config 3 (img2img, bf16)")
     args = ap.parse_args()
+    if args.config == "3" and args.dtype != "bfloat16":
+        ap.error("config 3 runs in bf16")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -82,12 +91,21 @@ def main() -> int:
     from mdu_tpu_torch.ops.kernels import build
 
     build.build_all()
-    pipe, cond, uncond, sp, td, tv = chip_smoke.build_config2(getattr(torch, args.dtype))
+    if args.config == "3":
+        pipe, cond, uncond, sp, td, tv, img = chip_smoke.build_config3()
 
-    def image(seed):
-        pipe.txt2img(cond, uncond, width=2048, height=512, sampler=sp, seed=seed,
-                     tiled_diffusion=td, tiled_vae=tv)
-        torch.cuda.synchronize()
+        def image(seed):
+            pipe.free_cache()
+            pipe.img2img(img, cond, uncond, sampler=sp, seed=seed, tiled_diffusion=td,
+                         tiled_vae=tv)
+            torch.cuda.synchronize()
+    else:
+        pipe, cond, uncond, sp, td, tv = chip_smoke.build_config2(getattr(torch, args.dtype))
+
+        def image(seed):
+            pipe.txt2img(cond, uncond, width=2048, height=512, sampler=sp, seed=seed,
+                         tiled_diffusion=td, tiled_vae=tv)
+            torch.cuda.synchronize()
 
     # the warm-up image also counts #4's launches by shape (under MDU_FUSED_GN)
     from mdu_tpu_torch.models import layers
@@ -131,6 +149,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
     result = {
         "device": torch.cuda.get_device_name(0),
+        "config": int(args.config),
         "dtype": args.dtype,
         "flags": {k: os.environ[k] for k in sorted(chip_smoke.FLAGS) if k in os.environ},
         "nvidia_smi": chip_smoke.nvidia_smi_line(),

@@ -17,6 +17,8 @@ from mdu_tpu_torch.ops.kernels import (LAUNCHES, BlendTable, flash, fused_conv3x
                                        fused_group_norm_plain, fused_tile_blend,
                                        fused_tile_blend_plain, pack_conv3x3_weight)
 from mdu_tpu_torch.ops.kernels import conv3x3 as conv3x3_mod
+from mdu_tpu_torch.config import Method
+from mdu_tpu_torch.tiling.schedulers import mod_tile_weights, plan_tiled_diffusion
 from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
 pytestmark = pytest.mark.gpu
@@ -30,7 +32,9 @@ CASES = [
     ("flash_attention_fm", (1, 2, 77, 513, 80), "sm90"),     # Lq < Lk, both ragged
     ("flash_attention_fm", (1, 1, 260, 128, 16), "sm90"),    # one kv tile, DP = 16
     ("flash_attention_fm", (1, 1, 70, 90, 13), "mma"),       # D not a multiple of 8
+    ("flash_attention_fm", (2, 8, 576, 576, 160), "sm90"),   # config 3's UNet level 2
     ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
+    ("flash_attention", (1, 1, 17424, 17424, 512), "wide"),  # config 3's encoder mid-block
     ("flash_attention", (2, 1, 513, 700, 512), "wide"),      # Lq, Lk off the 64 / 32 tiles
     ("flash_attention", (1, 2, 300, 300, 200), "wide"),      # D off 64: DP = 256
     ("flash_attention", (1, 1, 200, 150, 192), "wide"),
@@ -480,6 +484,32 @@ def test_tile_blend_kernel_matches_plain(h, w, th, tw, ov, BC, normalize, dtype)
         _close_bf16(out, ref, fused_tile_blend_plain(tiles, wts, h, w, bbs, normalize, table))
     else:
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,w,BC", [(256, 256, 4), (40, 56, 3)])
+def test_tile_blend_kernel_on_mod_weighted_tiles(h, w, BC):
+    """Mixture of Diffusers: tiles pre-weighted by gaussian x 1 / sum(weights)
+    (config 3's 256^2 canvas, 9 tiles of 96 at overlap 8, first), summed
+    raw; the same order of fp32 sums: exact."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tile = 96 if h == 256 else 16
+    plan = plan_tiled_diffusion(Method.MIX_DIFF, h, w, tile, tile, 8, tile_bs=8)
+    ptw = torch.as_tensor(mod_tile_weights(plan), device=dev)
+    tiles = torch.randn(len(plan.bboxes), BC, tile, tile, generator=gen, device=dev)
+    tiles = tiles * ptw[:, None]
+    wts = torch.as_tensor(plan.weights[0, 0], device=dev)
+    table = BlendTable(h, w, plan.bboxes)
+    before = LAUNCHES["fused_tile_blend"]
+    out = fused_tile_blend(tiles, wts, h, w, plan.bboxes, False, table)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_tile_blend"] == before + 1
+    ref = fused_tile_blend_plain(tiles, wts, h, w, plan.bboxes, False, table)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # a constant field comes back: the weights sum to 1 on every pixel
+    ones = fused_tile_blend(ptw[:, None].expand(-1, BC, -1, -1).contiguous(), wts, h, w,
+                            plan.bboxes, False, table)
+    torch.testing.assert_close(ones, torch.ones_like(ones), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("B,H,W,C,Co,dtype,form", [

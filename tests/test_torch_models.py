@@ -1,4 +1,4 @@
-"""Port parity: layers, the tiny SD1.5 UNet and the tiny VAE decoder against
+"""Port parity: layers, the tiny SD1.5 UNet and the tiny VAE against
 the JAX modules, with weights carried by ``state_dict_from_jax``.
 Tolerance: atol 1e-4 * max|ref| (fp32 on both sides, JAX at 'highest')."""
 import jax
@@ -17,7 +17,7 @@ from mdu_tpu.models.layers import timestep_embedding as jax_temb
 from mdu_tpu.models.unet import FeedForwardGEGLU as JaxGEGLU
 from mdu_tpu.ops.tile_context import TileContext as JaxTileContext
 from mdu_tpu.ops.tile_context import tile_group_norm as jax_tile_group_norm
-from mdu_tpu_torch.models import (VAE_ENCODER_PREFIXES, AutoencoderKL, UNet2DCondition,
+from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition,
                                   load_jax_params, random_state_dict, state_dict_from_jax,
                                   tiny_unet_config, tiny_vae_config)
 from mdu_tpu_torch.models.layers import LayerNorm, timestep_embedding
@@ -52,8 +52,7 @@ def unet_pair():
 def vae_pair():
     vae = JaxVAE(jax_tiny_vae())
     params = random_params(vae, 1, jnp.zeros((1, 3, 32, 32)), jax.random.PRNGKey(0))
-    port = load_jax_params(AutoencoderKL(tiny_vae_config()), _np(params),
-                           VAE_ENCODER_PREFIXES).eval()
+    port = load_jax_params(AutoencoderKL(tiny_vae_config()), _np(params)).eval()
     return vae, params, port
 
 
@@ -145,11 +144,17 @@ def test_state_dict_from_jax_names_and_strictness(unet_pair, vae_pair):
     w = np.asarray(uparams["params"]["down_0_res_0"]["conv1"]["weight"])
     np.testing.assert_array_equal(sd["down_0_res_0.conv1.weight"].numpy(), w)
 
+    # the whole VAE, encoder included, carries across; a name more or less fails
     _, vparams, port_vae = vae_pair
+    vsd = state_dict_from_jax(_np(vparams))
+    assert set(vsd) == set(port_vae.state_dict())
+    assert any(k.startswith("encoder.down_0_downsample.") for k in vsd)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        port_vae.load_state_dict(state_dict_from_jax(_np(vparams)), strict=True)
-    kept = state_dict_from_jax(_np(vparams), VAE_ENCODER_PREFIXES)
-    assert set(kept) == set(port_vae.state_dict())
+        port_vae.load_state_dict({**vsd, "encoder.extra.weight": vsd["quant_conv.weight"]},
+                                 strict=True)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        port_vae.load_state_dict({k: v for k, v in vsd.items() if k != "quant_conv.bias"},
+                                 strict=True)
 
 
 def test_random_state_dict_scheme():

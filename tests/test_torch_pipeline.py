@@ -28,8 +28,8 @@ from mdu_tpu.tiling.schedulers import plan_tiled_diffusion as jax_plan
 from mdu_tpu.utils import grid as jgrid
 from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
                            TiledDiffusionConfig, TiledVAEConfig)
-from mdu_tpu_torch.models import (VAE_ENCODER_PREFIXES, AutoencoderKL, UNet2DCondition,
-                                  load_jax_params, tiny_unet_config, tiny_vae_config)
+from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, load_jax_params,
+                                  tiny_unet_config, tiny_vae_config)
 from mdu_tpu_torch.ops import fusion
 from mdu_tpu_torch.samplers import samplers
 from mdu_tpu_torch.samplers.schedule import NoiseSchedule
@@ -177,8 +177,7 @@ def pipes():
     to_np = lambda p: jax.tree.map(np.asarray, p)            # noqa: E731
     port = DiffusionPipeline(
         load_jax_params(UNet2DCondition(tiny_unet_config()), to_np(up)),
-        load_jax_params(AutoencoderKL(tiny_vae_config()), to_np(vp),
-                        VAE_ENCODER_PREFIXES),
+        load_jax_params(AutoencoderKL(tiny_vae_config()), to_np(vp)),
         device="cpu")
     c = {"crossattn": np.asarray(jax.random.normal(jax.random.PRNGKey(0), (1, 7, 16))) * 0.1}
     u = {"crossattn": np.asarray(jax.random.normal(jax.random.PRNGKey(1), (1, 7, 16))) * 0.1}
@@ -238,18 +237,27 @@ def test_unported_features_raise(pipes):
     _, port, c, u = pipes
     tiny = dict(width=128, height=128, sampler=SamplerConfig(steps=1))
     cases = [
-        dict(tiled_diffusion=TiledDiffusionConfig(method=Method.MIX_DIFF, tile_w=8,
-                                                  tile_h=8, overlap=4)),
+        dict(sampler=SamplerConfig(steps=1, image_cfg_scale=1.5)),   # edit-model CFG
         dict(sampler=SamplerConfig(name="DPM++ 2M", steps=1)),
         dict(sampler=SamplerConfig(steps=1, deepcache=2)),
         dict(step_callback=lambda i, x: None),
         dict(region_conds=[(c, u)]),
-        dict(tiled_vae=TiledVAEConfig()),                   # fast decoder
+        dict(tiled_diffusion=TiledDiffusionConfig(method=Method.DEMO_FU, tile_w=8,
+                                                  tile_h=8, overlap=4)),
         dict(tiled_vae=TiledVAEConfig(streaming=True, fast_decoder=False)),
     ]
     for extra in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.txt2img(c, u, **{**tiny, **extra})
+    img = np.zeros((64, 64, 3), np.uint8)
+    i2i = dict(sampler=SamplerConfig(steps=2, denoising_strength=0.5))
+    for extra in (dict(cond={**c, "adm": np.zeros((1, 8), np.float32)}),   # unCLIP
+                  dict(tiled_diffusion=TiledDiffusionConfig(upscaler="R-ESRGAN 4x+")),
+                  dict(tiled_diffusion=TiledDiffusionConfig(regions=[object()])),
+                  dict(region_conds=[(c, u)])):
+        kw = {"cond": c, **i2i, **extra}
+        with pytest.raises(NotImplementedError, match="item 1[27]"):
+            port.img2img(img, kw.pop("cond"), u, **kw)
     with pytest.raises(NotImplementedError, match="ControlNet"):
         port.txt2img({**c, "control": [np.zeros((1, 3, 128, 128), np.float32)]}, u, **tiny)
     with pytest.raises(NotImplementedError, match="mesh"):
