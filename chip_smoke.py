@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img,img2img,upscale8k]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,img2img,regional,upscale8k]
 
 Phases, one JSON line each (all of them unless ``--phases`` names some;
 ``device`` and ``build`` always run):
@@ -73,7 +73,13 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  mid-blocks ([4, 1, 17424, 512]: a ragged last block), #4 at
                  config 3's level 0 in both forms, #5 on config 3's Mixture
                  of Diffusers canvas with gaussian-weighted tiles, #6 at
-                 [10, 96, 96, 320] -> 320. ``device_ms`` and
+                 [10, 96, 96, 320] -> 320. The regional path's shapes
+                 (config 4): #1 and #3 at its region calls' levels 0-2 ([2, 8,
+                 9216, 40], [2, 8, 2304, 80], [2, 8, 576, 160]), #2 at its
+                 decoder mid-block [4, 1, 13924, 512] (4 tiles of 118
+                 latent), #4 at [2, 320, 96, 96] and [2, 640, 48, 48], #5 on
+                 its 9 tiles of 96 over the 192 x 192 canvas, #6 at [2, 96,
+                 96, 320] -> 320 and [2, 48, 48, 640] -> 640. ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
                  and the yardstick's launches (torch.profiler's kernel
                  durations, summed, per call). Bounds: max(flops / peak, bytes /
@@ -90,7 +96,15 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  sm90 form) and once with MDU_FLASH=trans MDU_FUSED_GN=1
                  MDU_FUSED_CONV=1 MDU_FUSED_BLEND=1 (each flagged kernel must
                  launch; in fp32 the trans attention is flash_attention_f32's
-                 sm90 form).
+                 sm90 form). With each, a tiny regional txt2img (one
+                 BACKGROUND and one FOREGROUND region) under MultiDiffusion
+                 and under Mixture of Diffusers, its noise composed on the
+                 CPU. Then, with no flag, the tiny pipeline (untiled, 1024
+                 tokens at level 0) under each of the 15 samplers, "DPM++ 2M
+                 Karras" and Euler with churn, the samplers' noise drawn on
+                 the CPU and copied to the card; DPM adaptive must take the
+                 same accept / reject decisions on the card as on the CPU in
+                 fp32, and prints both devices' decisions in bf16.
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
@@ -103,7 +117,11 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  just after; each kernel's launches per image must equal the
                  pinned count (and a kernel of the path launched 0 times
                  fails the run).
-6. ``img2img``   config 3 through ``DiffusionPipeline.img2img`` as
+6. ``samplers``  config 2 under "DPM++ 2M Karras" and "DPM++ SDE" (1 warm and
+                 1 timed image each, launches pinned: #1 200 and 390, the
+                 latter 39 UNet calls: two on each of 19 steps, one on the
+                 last).
+7. ``img2img``   config 3 through ``DiffusionPipeline.img2img`` as
                  ``bench.py:345-377`` runs it: a 512 x 512 image, Lanczos x4
                  to 2048 x 2048, Mixture of Diffusers (tile 96, overlap 8,
                  ``tile_bs`` 8: 9 tiles in batches of 5 and 4), noise
@@ -113,7 +131,19 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  four flags; ``free_cache()`` before each of 1 warm and 2
                  timed images. Launches per image pinned; the output (1,
                  2048, 2048, 3), finite, and the decode's NaN chain not taken.
-7. ``upscale8k`` one 2048 x 2048 -> 8192 x 8192 upscale with no flag
+8. ``regional``  config 4 through ``DiffusionPipeline.txt2img`` as
+                 ``bench.py:545-577`` runs it: 1536 x 1536 (a 192 x 192
+                 latent), four BACKGROUND regions of 0.5 x 0.5 at the
+                 quadrants, each with its own (cond, uncond), MultiDiffusion
+                 (tile 96, overlap 48, ``tile_bs`` 8: 9 tiles in batches of 5
+                 and 4) with the background drawn, Euler 20 steps at CFG 7,
+                 exact tiled decode (tile 96: 4 tiles); SD1.5 in bf16, with no
+                 flag and with the four flags; ``free_cache()`` before each of
+                 1 warm and 2 timed images. 120 UNet calls an image (20 steps
+                 x (2 grid calls + 4 region calls)); launches per image
+                 pinned; seconds per stage (sampling, decode) and the peak
+                 memory.
+9. ``upscale8k`` one 2048 x 2048 -> 8192 x 8192 upscale with no flag
                  (``bench.py:479-533``: config 3's settings with the fast
                  tiled VAE, encoder tile 512, decoder tile 64, ``tile_batch``
                  8), ``decode=False`` and then ``_decode_tensor``; launches
@@ -185,6 +215,26 @@ CONFIG3_RUNS = (("default", {}, EXPECTED_CONFIG3), ("flagged", FLAGS, EXPECTED_C
 CFG8K = dict(image=2048, encoder_tile=512, decoder_tile=64, tile_batch=8)
 EXPECTED_8K = {"flash_attention_fm": 5130, "flash_attention_fm.sm90": 5130,
                "flash_attention": 66, "flash_attention.wide": 66}
+# config 4 (bench.py:545-577): 4 BACKGROUND regions at the quadrants of a
+# 1536 x 1536 MultiDiffusion txt2img
+CFG4 = dict(width=1536, height=1536, steps=20, cfg=7.0, tile=96, overlap=48, tile_bs=8,
+            decoder_tile=96, quadrants=((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (0.5, 0.5)))
+# launches per config-4 image: 120 UNet calls (20 steps x (grid batches of 5
+# and 4 tiles + 4 regions)), 15 attentions at L >= 512 a call, and the
+# decoder's mid-block in one lockstep call (4 tiles of 118 latent)
+EXPECTED_CONFIG4 = {"flash_attention_fm": 1800, "flash_attention_fm.sm90": 1800,
+                    "flash_attention": 1, "flash_attention.wide": 1}
+# under the four flags: 17 #4 a UNet call (the cluster form at level 0 in the
+# grid calls' batches of 10 and 8: 6 a call), 16 #6 a call, 1 #5 a step (the
+# grid; the region adds follow it)
+EXPECTED_CONFIG4_FLAGGED = {"flash_attention_t": 1800, "flash_attention_t.sm90": 1800,
+                            "flash_attention": 1, "flash_attention.wide": 1,
+                            "fused_group_norm": 2040, "fused_group_norm.cluster": 240,
+                            "fused_group_norm.two_read": 1800, "fused_conv3x3": 1920,
+                            "fused_conv3x3.sm90": 1920, "fused_tile_blend": 20}
+CONFIG4_RUNS = (("default", {}, EXPECTED_CONFIG4), ("flagged", FLAGS, EXPECTED_CONFIG4_FLAGGED))
+# config 2 under two more samplers: (name, #1 launches per image = 10 a UNet call)
+SAMPLER_RUNS = (("DPM++ 2M Karras", 200), ("DPM++ SDE", 390))
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
 N_SMS = 132
 KERNELS = {
@@ -196,9 +246,11 @@ KERNELS = {
         # the wide form ragged, and at D = 200 (off 64); D = 300 (wide_mma:
         # D % 8 != 0)
         # config 3's levels 0, 1, 2 (D = 160: the sm90 form's widest head)
+        # config 4's region calls (batch 2) at levels 0, 1, 2
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                 (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
-                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160)],
+                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
+                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
@@ -208,10 +260,11 @@ KERNELS = {
         # VAE mid-block attention of config 2's decode; a ragged shape; D =
         # 200 (off 64); D = 300 (D % 8 != 0: the split-D mma.sync form); then
         # config 3's encoder (17424 tokens: a ragged last block) and decoder,
-        # the 8K's encoder and decoder chunks and its statistics passes
+        # the 8K's encoder and decoder chunks and its statistics passes;
+        # config 4's decoder mid-block (4 tiles of 118 latent)
         shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
                 (4, 1, 17424, 512), (16, 1, 7396, 512), (8, 1, 5184, 512), (8, 1, 7396, 512),
-                (1, 1, 4096, 512)],
+                (1, 1, 4096, 512), (4, 1, 13924, 512)],
         # fp32: the VAE's (wide form), ragged, config 2's level 0 as
         # MDU_FLASH=trans sends it (sm90), an odd D (simt)
         f32_shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (10, 8, 6144, 40), (1, 1, 700, 13)]),
@@ -219,9 +272,10 @@ KERNELS = {
         source="mdu_tpu_torch/csrc/flash_attention_t.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:282",
         # under MDU_FLASH=trans: config 2's UNet self-attention; ragged; D = 13;
-        # config 3's
+        # config 3's; config 4's region calls
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (1, 1, 700, 13),
-                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160)]),
+                (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
+                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160)]),
     "fused_group_norm": dict(
         source="mdu_tpu_torch/csrc/group_norm.cu",
         replaces="mdu_tpu/ops/pallas/group_norm.py:33",
@@ -234,10 +288,11 @@ KERNELS = {
         # (no 16-byte lines). Level 0 and the 960 channels take the cluster
         # form, the others (which fit L2) the two_read form.
         # Then config 3's level 0 in a sampling batch (cluster) and in an
-        # inversion batch (two_read).
+        # inversion batch (two_read); config 4's region calls at levels 0 and
+        # 1 (two_read).
         shapes=[(10, 320, 64, 96), (10, 640, 32, 48), (10, 1280, 16, 24), (10, 1280, 8, 12),
                 (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9), (10, 320, 96, 96),
-                (4, 320, 96, 96)],
+                (4, 320, 96, 96), (2, 320, 96, 96), (2, 640, 48, 48)],
         # fp32 (a model built in fp32): level 0 (a cluster of 8); a group
         # past what a cluster holds (1.7 MB: the two_read form)
         f32_shapes=[(10, 320, 64, 96), (1, 416, 128, 256)]),
@@ -246,18 +301,22 @@ KERNELS = {
         replaces="mdu_tpu/ops/pallas/fused_blend.py:92",
         # config 2's latent canvas 64 x 256, tiles 64 x 96 at overlap 48, B*C
         # = 4; then a ragged canvas; then config 3's MoD canvas 256 x 256,
-        # tiles 96 at overlap 8, weighted by gaussian x 1 / sum(weights)
-        shapes=[(64, 256, 64, 96, 48, 4), (61, 97, 24, 24, 8, 3), (256, 256, 96, 96, 8, 4)]),
+        # tiles 96 at overlap 8, weighted by gaussian x 1 / sum(weights);
+        # config 4's canvas 192 x 192, tiles 96 at overlap 48
+        shapes=[(64, 256, 64, 96, 48, 4), (61, 97, 24, 24, 8, 3), (256, 256, 96, 96, 8, 4),
+                (192, 192, 96, 96, 48, 4)]),
     "fused_conv3x3": dict(
         source="mdu_tpu_torch/csrc/conv3x3.cu",
         replaces="mdu_tpu/ops/pallas/conv3x3.py:96",
         # [B, H, W, C] -> Co: config 2's four ResBlock conv shapes (the first
         # two are its level-0 and level-1 convs); H and W off the warpgroup
         # form's 32 x 8 tile; Co off its 160 channels; odd H, W and C (the
-        # mma.sync form, no 16-byte vectors); config 3's level-0 conv
+        # mma.sync form, no 16-byte vectors); config 3's level-0 conv;
+        # config 4's region calls at levels 0 and 1
         shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
-                (2, 7, 9, 12, 20), (10, 96, 96, 320, 320)],
+                (2, 7, 9, 12, 20), (10, 96, 96, 320, 320), (2, 96, 96, 320, 320),
+                (2, 48, 48, 640, 640)],
         # fp32: config 2's four shapes (sm90); H, W and Co off the 32 x 8 x 80
         # tile (sm90); C = 12 (simt)
         f32_shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
@@ -647,7 +706,8 @@ def check_tile_blend(gen, summary):
     """The config-2 canvas (tiles fp32, as the latents are) with normalize
     False (what the scheduler asks) and True; bf16 tiles; a ragged canvas;
     config 3's Mixture of Diffusers canvas, its tiles weighted by gaussian x
-    1 / sum(weights), normalize False. The first line also times the launch
+    1 / sum(weights), normalize False; config 4's MultiDiffusion canvas,
+    normalize False. The first line also times the launch
     floor (``floor_ms``, ``floor_device_ms``): an empty kernel on #5's grid.
     The yardstick is ``index_add_`` into the flat canvas (``index_add_blend``),
     on the fp32 canvases the scheduler sends with normalize False."""
@@ -664,7 +724,7 @@ def check_tile_blend(gen, summary):
     for (h, w, th, tw, ov, BC), dtype, normalize in (
             (specs[0], torch.float32, False), (specs[0], torch.float32, True),
             (specs[0], torch.bfloat16, False), (specs[1], torch.float32, True),
-            (specs[2], torch.float32, False)):
+            (specs[2], torch.float32, False), (specs[3], torch.float32, False)):
         mod = (h, w) == specs[2][:2]
         tiles_scale = None
         if mod:
@@ -826,27 +886,36 @@ def flags_set(flags):
                 os.environ[k] = v
 
 
-def _tiny_run(device: str, dtype):
-    """Tiny MultiDiffusion txt2img + exact tiled decode at a size whose UNet
-    level-0 and VAE mid-block attention reach the flash kernels on the card:
-    returns (latents, image) on the CPU in fp32."""
+def _tiny_pipeline(device: str, dtype):
+    """The tiny pipeline on ``device`` with random weights drawn on the CPU
+    (so that both devices get the same weights), and a cond and an uncond:
+    returns (pipe, cond, uncond, the CPU generator that drew them)."""
     import torch
 
-    from mdu_tpu_torch import (DiffusionPipeline, SamplerConfig,
-                               TiledDiffusionConfig, TiledVAEConfig)
-    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition,
-                                      random_state_dict, tiny_unet_config,
-                                      tiny_vae_config)
+    from mdu_tpu_torch import DiffusionPipeline
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
+                                      tiny_unet_config, tiny_vae_config)
 
     unet = UNet2DCondition(tiny_unet_config(), dtype=dtype)
     vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
-    # drawn on the CPU so that both devices get the same weights
     unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
     vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
     pipe = DiffusionPipeline(unet, vae, device=device)
     gen = torch.Generator().manual_seed(5)
     c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
     u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    return pipe, c, u, gen
+
+
+def _tiny_run(device: str, dtype):
+    """Tiny MultiDiffusion txt2img + exact tiled decode at a size whose UNet
+    level-0 and VAE mid-block attention reach the flash kernels on the card:
+    returns (latents, image) on the CPU in fp32."""
+    import torch
+
+    from mdu_tpu_torch import SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
+
+    pipe, c, u, gen = _tiny_pipeline(device, dtype)
     noise = torch.randn(1, 4, 32, 64, generator=gen)
     res = pipe._txt2img_from_noise(
         noise, c, u, SamplerConfig(steps=3), 0,
@@ -872,20 +941,10 @@ def _tiny_img2img(device: str, dtype):
     import numpy as np
     import torch
 
-    from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
-                               TiledDiffusionConfig, TiledVAEConfig)
-    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
-                                      tiny_unet_config, tiny_vae_config)
+    from mdu_tpu_torch import Method, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
     from mdu_tpu_torch.utils.image import image_to_tensor
 
-    unet = UNet2DCondition(tiny_unet_config(), dtype=dtype)
-    vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
-    unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
-    vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
-    pipe = DiffusionPipeline(unet, vae, device=device)
-    gen = torch.Generator().manual_seed(5)
-    c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
-    u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+    pipe, c, u, gen = _tiny_pipeline(device, dtype)
     img = (np.random.default_rng(6).random((512, 512, 3)) * 255).astype(np.uint8)
     enc_noise = torch.randn(1, 4, 64, 64, generator=gen).to(dtype)
     noise = torch.randn(1, 4, 64, 64, generator=gen)
@@ -906,16 +965,125 @@ def _tiny_img2img(device: str, dtype):
     return tuple(t.float().cpu() for t in (res.latents, image, moments, fast_image))
 
 
-def phase_reference():
-    """The tiny txt2img and img2img pipelines on the card against the same
-    pipelines on the CPU (plain versions): in fp32 within 1e-4 of the largest
-    CPU value; in bf16 within 2x the CPU bf16 run's own error against the CPU
-    fp32 run plus 1e-3 of the largest value. With no flag each card run must
-    launch its fm kernel (in fp32 its sm90 form: the heads are D = 4 and 16);
-    with the four flags, each flagged kernel."""
+def _tiny_regional(method):
+    """Tiny regional txt2img under ``method`` (the 32 x 64 latent of
+    ``_tiny_run``; tiles of 32 at overlap 16 in one batch of 3), a BACKGROUND
+    region over the left half (32 x 32 latent: 1024 tokens) and a feathered
+    FOREGROUND one (16 x 32: 512 tokens), each with its own (cond, uncond),
+    Euler 3 steps, then the exact tiled decode. The base noise and the
+    regions' patches are drawn and composed on the CPU. Returns
+    ``run(device, dtype) -> (latents, image)`` on the CPU in fp32."""
+
+    def run(device, dtype):
+        import torch
+
+        from mdu_tpu_torch import SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
+        from mdu_tpu_torch.tiling.regions import compose_region_noise
+        from mdu_tpu_torch.utils.bbox import BlendMode, RegionSpec
+
+        pipe, c, u, gen = _tiny_pipeline(device, dtype)
+        rc = [{"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+              for _ in range(3)]
+        regions = [RegionSpec(0.0, 0.0, 0.5, 1.0, seed=31),
+                   RegionSpec(0.25, 0.25, 0.5, 0.5, blend_mode=BlendMode.FOREGROUND,
+                              feather_ratio=0.3, seed=32)]
+        noise = compose_region_noise(torch.randn(1, 4, 32, 64, generator=gen),
+                                     [r.to_bbox(64, 32) for r in regions], [31, 32])
+        td = TiledDiffusionConfig(method=method, tile_w=32, tile_h=32, overlap=16, tile_bs=3,
+                                  regions=regions)
+        res = pipe._txt2img_from_noise(noise, c, u, SamplerConfig(steps=3), 0, td, decode=False,
+                                       region_conds=[(rc[0], rc[1]), (rc[2], u)],
+                                       region_seeds=[31, 32])
+        img = pipe._decode_tensor(res.latents, TiledVAEConfig(decoder_tile_size=16,
+                                                              fast_decoder=False))
+        return res.latents.float().cpu(), img.float().cpu()
+
+    return run
+
+
+# the reference phase's samplers: every sampler, a Karras name, Euler with churn
+TINY_SAMPLERS = [(name, {}) for name in (
+    "Euler", "Euler a", "Heun", "DPM2", "DPM2 a", "DPM++ 2M", "DPM++ 2S a", "DPM++ SDE",
+    "DPM++ 2M SDE", "DPM fast", "DPM adaptive", "DDIM", "LMS", "PLMS", "Restart",
+    "DPM++ 2M Karras")] + [("Euler", {"s_churn": 1.0, "s_tmin": 0.5, "s_tmax": 10.0})]
+
+
+def _tiny_sampler(name, churn, decisions):
+    """The tiny pipeline untiled on a 32 x 32 latent (1024 tokens at UNet
+    level 0, a flash kernel on the card) under sampler ``name``, 3 steps,
+    the samplers' noise drawn from a CPU generator (the same draws on both
+    devices). DPM adaptive's accept / reject decisions go to
+    ``decisions[(device, dtype)]``. Returns ``run(device, dtype) -> (latents,)``."""
+
+    def run(device, dtype):
+        import functools
+
+        import torch
+
+        from mdu_tpu_torch import SamplerConfig
+        from mdu_tpu_torch.samplers import samplers
+
+        pipe, c, u, gen = _tiny_pipeline(device, dtype)
+        noise = torch.randn(1, 4, 32, 32, generator=gen)
+        adaptive = samplers.SAMPLERS["DPM adaptive"]
+        samplers.SAMPLERS["DPM adaptive"] = functools.partial(
+            adaptive, decisions=decisions.setdefault((device, _dtype_name(dtype)), []))
+        try:
+            res = pipe._txt2img_from_noise(noise, c, u, SamplerConfig(name=name, steps=3, **churn),
+                                           0, None, decode=False,
+                                           sampler_noise=torch.Generator().manual_seed(9))
+        finally:
+            samplers.SAMPLERS["DPM adaptive"] = adaptive
+        return (res.latents.float().cpu(),)
+
+    return run
+
+
+def _hold_to_cpu(label, run, parts, must_launch, dtypes=None):
+    """``run`` on the card against the CPU in each dtype (fp32 within 1e-4 of
+    the largest CPU value; bf16 within 2x the CPU bf16 run's own error
+    against the CPU fp32 run plus 1e-3 of it); each card run must launch
+    ``must_launch[dtype]``. Returns the ``reference`` lines' fields by dtype."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    ref = run("cpu", torch.float32)
+    ref_bf16 = run("cpu", torch.bfloat16)
+    out = {}
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
+        reset_launches()
+        got = run("cuda", dtype)
+        launches = dict(LAUNCHES)
+        for key in must_launch[dtype]:
+            require(launches[key] > 0, f"{label} {dtype} launched no {key}")
+        fields = {"launches": launches}
+        for i, part in enumerate(parts):
+            scale = ref[i].abs().max().item()
+            err = (got[i] - ref[i]).abs().max().item()
+            if dtype == torch.float32:
+                tol = 1e-4 * scale
+            else:
+                tol = 2.0 * (ref_bf16[i] - ref[i]).abs().max().item() + 1e-3 * scale
+            require(bool(torch.isfinite(got[i]).all()), f"{label} {dtype} {part}: non-finite")
+            require(err <= tol, f"{label} {dtype} {part}: max abs err {err} > {tol}")
+            fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
+        out[dtype] = fields
+    return out
+
+
+def phase_reference():
+    """The tiny txt2img, img2img and regional txt2img pipelines on the card
+    against the same pipelines on the CPU (plain versions): in fp32 within
+    1e-4 of the largest CPU value; in bf16 within 2x the CPU bf16 run's own
+    error against the CPU fp32 run plus 1e-3 of the largest value. With no
+    flag each card run must launch its fm kernel (in fp32 its sm90 form: the
+    heads are D = 4 and 16); with the four flags, each flagged kernel. Then
+    the tiny pipeline under every sampler, with no flag, held the same way;
+    DPM adaptive's decisions on the card must equal the CPU's in fp32."""
+    import torch
+
+    from mdu_tpu_torch.config import Method
 
     runs = [({}, {torch.float32: ["flash_attention_fm_f32", "flash_attention_fm_f32.sm90"],
                   torch.bfloat16: ["flash_attention_fm"]}),
@@ -926,34 +1094,37 @@ def phase_reference():
                                       "fused_conv3x3", "fused_tile_blend"]})]
     pipelines = (("txt2img", _tiny_run, ("latent", "image")),
                  ("img2img", _tiny_img2img, ("latent", "image", "fast_moments",
-                                             "fast_image")))
+                                             "fast_image")),
+                 ("regional MultiDiffusion", _tiny_regional(Method.MULTI_DIFF),
+                  ("latent", "image")),
+                 ("regional Mixture of Diffusers", _tiny_regional(Method.MIX_DIFF),
+                  ("latent", "image")))
     for flags, must_launch in runs:
         with flags_set(flags):
             for pipeline, run, parts in pipelines:
-                ref = run("cpu", torch.float32)
-                ref_bf16 = run("cpu", torch.bfloat16)
-                for dtype in (torch.float32, torch.bfloat16):
-                    reset_launches()
-                    got = run("cuda", dtype)
-                    launches = dict(LAUNCHES)
-                    for key in must_launch[dtype]:
-                        require(launches[key] > 0, f"tiny {pipeline} {dtype} (flags {flags}) "
-                                                   f"launched no {key}")
-                    fields = {"pipeline": pipeline, "flags": flags, "launches": launches}
-                    for i, part in enumerate(parts):
-                        scale = ref[i].abs().max().item()
-                        err = (got[i] - ref[i]).abs().max().item()
-                        if dtype == torch.float32:
-                            tol = 1e-4 * scale
-                        else:
-                            tol = (2.0 * (ref_bf16[i] - ref[i]).abs().max().item()
-                                   + 1e-3 * scale)
-                        require(bool(torch.isfinite(got[i]).all()),
-                                f"tiny {pipeline} {dtype} {part} (flags {flags}): non-finite")
-                        require(err <= tol, f"tiny {pipeline} {dtype} {part} (flags {flags}): "
-                                            f"max abs err {err} > {tol}")
-                        fields.update({f"{part}_max_abs_err": err, f"{part}_tol": tol})
-                    emit("reference", dtype=_dtype_name(dtype), **fields)
+                label = f"tiny {pipeline} (flags {flags})"
+                for dtype, fields in _hold_to_cpu(label, run, parts, must_launch).items():
+                    emit("reference", dtype=_dtype_name(dtype), pipeline=pipeline, flags=flags,
+                         **fields)
+    must_launch = runs[0][1]
+    for name, churn in TINY_SAMPLERS:
+        decisions = {}
+        fields = _hold_to_cpu(f"tiny sampler {name} {churn}",
+                              _tiny_sampler(name, churn, decisions), ("latent",), must_launch)
+        for dtype, f in fields.items():
+            extra = {}
+            if name == "DPM adaptive":
+                # in fp32 the card must decide as the CPU does; in bf16 the two
+                # UNets round differently and the decisions are printed (a
+                # difference stands in ROADMAP queue 3), the latents held to
+                # the bf16 bar above
+                cpu, card = (decisions[(d, _dtype_name(dtype))] for d in ("cpu", "cuda"))
+                if dtype == torch.float32:
+                    require(card == cpu, f"DPM adaptive {dtype}: accept / reject decisions on "
+                                         f"the card {card} differ from the CPU's {cpu}")
+                extra.update(decisions=card, cpu_decisions=cpu, decisions_match=card == cpu)
+            emit("reference", dtype=_dtype_name(dtype), pipeline="tiny sampler", sampler=name,
+                 churn=churn, flags={}, **f, **extra)
 
 
 def build_config2(dtype=None):
@@ -1056,6 +1227,30 @@ def phase_txt2img():
     return out
 
 
+def phase_samplers():
+    """Config 2 in bf16 with no flag under each sampler of ``SAMPLER_RUNS``: 1
+    warm and 1 timed image; #1's launches per image pinned (10 a UNet call),
+    #2's at 1."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv = build_config2()
+    setup_s = time.perf_counter() - t0
+    for name, fm in SAMPLER_RUNS:
+        sp_n = dataclasses.replace(sp, name=name)
+        expected = {"flash_attention_fm": fm, "flash_attention_fm.sm90": fm,
+                    "flash_attention": 1, "flash_attention.wide": 1}
+        _, fields = run_config2(pipe, cond, uncond, sp_n, td, tv, expected, name, n=1)
+        emit("samplers", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16",
+             flags={}, sampler=name, steps=sp_n.steps, cfg_scale=sp_n.cfg_scale,
+             unet_calls_per_image=fm // 10, setup_s=setup_s, expected_launches=expected,
+             **fields)
+    del pipe, cond, uncond
+    torch.cuda.empty_cache()
+
+
 def build_config3():
     """Config 3 on config 2's pipeline (SD1.5 UNet and VAE, random bf16
     weights): Mixture of Diffusers img2img of a 512 x 512 image, Lanczos x4 to
@@ -1083,19 +1278,24 @@ def build_config3():
     return pipe, cond, uncond, sp, td, tv, img
 
 
+# stage -> the pipeline method it times
+STAGE_METHODS = {"upscale": "_prepare_image", "encode": "_encode",
+                 "noise_inversion": "noise_inversion", "sampling": "_sample",
+                 "decode": "_decode_tensor"}
+IMG2IMG_STAGES = ("upscale", "encode", "noise_inversion", "renoise_mask", "decode")
+
+
 @contextlib.contextmanager
-def stage_timer(pipe):
-    """Seconds spent in the pipeline's image preparation (the upscale), encode,
-    noise inversion, renoise mask (on the host) and decode, each ended by a
+def stage_timer(pipe, stages=IMG2IMG_STAGES):
+    """Seconds spent in each of ``stages`` (of ``STAGE_METHODS``, and
+    ``renoise_mask``: the renoise mask on the host), each ended by a
     synchronize, summed per stage while the block runs."""
     import torch
 
     from mdu_tpu_torch import pipeline as pipeline_mod
 
-    spent = {k: 0.0 for k in ("upscale", "encode", "noise_inversion", "renoise_mask",
-                              "decode")}
-    methods = {"upscale": "_prepare_image", "encode": "_encode",
-               "noise_inversion": "noise_inversion", "decode": "_decode_tensor"}
+    spent = {k: 0.0 for k in stages}
+    methods = {k: STAGE_METHODS[k] for k in stages if k in STAGE_METHODS}
 
     def timed(stage, fn):
         def run(*a, **kw):
@@ -1110,7 +1310,8 @@ def stage_timer(pipe):
     for stage, attr in methods.items():
         setattr(pipe, attr, timed(stage, getattr(pipe, attr)))
     mask_fn = pipeline_mod.get_retouch_mask
-    pipeline_mod.get_retouch_mask = timed("renoise_mask", mask_fn)
+    if "renoise_mask" in stages:
+        pipeline_mod.get_retouch_mask = timed("renoise_mask", mask_fn)
     try:
         yield spent
     finally:
@@ -1187,6 +1388,105 @@ def phase_img2img():
     return out
 
 
+def build_config4():
+    """Config 4 on config 2's pipeline (SD1.5 UNet and VAE, random bf16
+    weights) as ``bench.py:545-577`` runs it: MultiDiffusion txt2img at 1536
+    x 1536, tiles 96 at overlap 48 in batches of up to 8, the background
+    drawn, four BACKGROUND regions of 0.5 x 0.5 at the quadrants (seed -1),
+    each with its own cond and the uncond, Euler 20 steps at CFG 7, exact
+    tiled decode (tile 96). Returns (pipe, cond, uncond, sampler,
+    tiled_diffusion, tiled_vae, region_conds)."""
+    import torch
+
+    from mdu_tpu_torch import Method, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
+    from mdu_tpu_torch.utils.bbox import BlendMode, RegionSpec
+
+    pipe, cond, uncond, _, _, _ = build_config2()
+    regions = [RegionSpec(x, y, 0.5, 0.5, blend_mode=BlendMode.BACKGROUND)
+               for x, y in CFG4["quadrants"]]
+    td = TiledDiffusionConfig(method=Method.MULTI_DIFF, tile_w=CFG4["tile"], tile_h=CFG4["tile"],
+                              overlap=CFG4["overlap"], tile_bs=CFG4["tile_bs"], regions=regions,
+                              draw_background=True)
+    tv = TiledVAEConfig(decoder_tile_size=CFG4["decoder_tile"], fast_decoder=False,
+                        fast_encoder=False)
+    sp = SamplerConfig(name="Euler", steps=CFG4["steps"], cfg_scale=CFG4["cfg"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rc = [({"crossattn": (torch.randn(1, 77, 768, generator=gen, device="cuda") * 0.1
+                          ).to(cond["crossattn"].dtype)}, uncond) for _ in regions]
+    return pipe, cond, uncond, sp, td, tv, rc
+
+
+def phase_regional():
+    """Config 4 in bf16 with no flag and with the four flags: 1 warm and 2
+    timed images, ``free_cache()`` before each. Launches per image must equal
+    the pinned counts; the output must be (1, 1536, 1536, 3), the latents
+    finite, and the decode's NaN chain not taken. Returns the launches per
+    image of each run."""
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv, rc = build_config4()
+    setup_s = time.perf_counter() - t0
+    shape = (1, CFG4["height"], CFG4["width"], 3)
+    out = {}
+    for label, flags, expected in CONFIG4_RUNS:
+        def image(seed):
+            pipe.free_cache()
+            res = pipe.txt2img(cond, uncond, width=CFG4["width"], height=CFG4["height"],
+                               sampler=sp, seed=seed, tiled_diffusion=td, tiled_vae=tv,
+                               region_conds=rc)
+            torch.cuda.synchronize()
+            require(tuple(res.images.shape) == shape,
+                    f"config 4 {label}: output shape {tuple(res.images.shape)}")
+            require(bool(torch.isfinite(res.latents).all()),
+                    f"config 4 {label}: non-finite latents")
+            require(pipe.last_decode == "decode",
+                    f"config 4 {label}: the decode's NaN chain gave the image "
+                    f"({pipe.last_decode})")
+            return res
+
+        with flags_set(flags):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = image(0)
+            first_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            want = {k: expected.get(k, 0) for k in launches}
+            require(launches == want, f"config 4 {label}: launches per image {launches}, "
+                                      f"expected {want}")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            n = 2
+            with stage_timer(pipe, ("sampling", "decode")) as stages:
+                t0 = time.perf_counter()
+                for seed in range(1, n + 1):
+                    image(seed)
+                timed_s = time.perf_counter() - t0
+            per_image = {k: v / n for k, v in LAUNCHES.items()}
+            require(per_image == launches, f"config 4 {label}: launches per image differ: "
+                                           f"{per_image} vs {launches}")
+        emit("regional", config="config 4: 4 BACKGROUND regions, MultiDiffusion txt2img "
+                                "1536x1536, SD1.5 bf16", run=label, flags=flags,
+             sampler=sp.name, steps=sp.steps, cfg_scale=sp.cfg_scale,
+             tile=[td.tile_h, td.tile_w], overlap=td.overlap, tile_bs=td.tile_bs,
+             regions=[[r.x, r.y, r.w, r.h, r.blend_mode.value] for r in td.regions],
+             region_seeds=[v["seed"] for v in
+                           res.info["Tiled Diffusion"]["Region control"].values()],
+             decoder_tile=tv.decoder_tile_size, unet_calls_per_image=sp.steps * 6,
+             setup_s=setup_s, first_image_s=first_s, img_per_min=60.0 * n / timed_s,
+             seconds_per_image=timed_s / n,
+             stage_seconds_per_image={k: v / n for k, v in stages.items()},
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             output_shape=list(shape), finite=True, nan_chain_taken=False,
+             launches_per_image=launches, expected_launches=expected)
+        out[label] = launches
+    del pipe, cond, uncond, rc
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_upscale8k():
     """One 2048 x 2048 -> 8192 x 8192 upscale with no flag: config 3's
     settings with the 8K's fast tiled VAE (encoder tile 512, decoder tile 64,
@@ -1232,12 +1532,13 @@ def phase_upscale8k():
     return launches
 
 
-def kernel_rows(checks, launches, config3=None, upscale8k=None):
+def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels, the fp32 image for the
-    fp32 kernels), and beside them its launches per config-3 image (the
-    flagged or the default run, as for config 2) and in the 8K upscale. A kernel with forms also lists the forms checked, the
+    fp32 kernels), and beside them its launches per config-3 and per
+    config-4 image (the flagged or the default run, as for config 2) and in
+    the 8K upscale. A kernel with forms also lists the forms checked, the
     launches of each form in that run, and every config-2 shape with the
     earlier form's time (attention with the MUFU floor, fp32 with the FMA
     bound and, for attention, SDPA under both backends); #1's wide form has
@@ -1270,6 +1571,9 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None):
         counted = launch_key or key
         if config3 is not None:
             extra["config3_launches"] = config3.get(
+                "flagged" if run == "flagged" else "default", {}).get(counted, 0)
+        if config4 is not None:
+            extra["config4_launches"] = config4.get(
                 "flagged" if run == "flagged" else "default", {}).get(counted, 0)
         if upscale8k is not None:
             extra["upscale8k_launches"] = upscale8k.get(counted, 0)
@@ -1321,7 +1625,8 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None):
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,reference,txt2img,img2img,upscale8k",
+    ap.add_argument("--phases",
+                    default="kernels,reference,txt2img,samplers,img2img,regional,upscale8k",
                     help="comma-separated phases after device and build")
     phases = set(ap.parse_args().phases.split(","))
     try:
@@ -1365,11 +1670,14 @@ def main() -> int:
         phase_reference()
     if "txt2img" in phases:
         launches = phase_txt2img()
+    if "samplers" in phases:
+        phase_samplers()
     config3 = phase_img2img() if "img2img" in phases else None
+    config4 = phase_regional() if "regional" in phases else None
     up8k = phase_upscale8k() if "upscale8k" in phases else None
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
-    print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k)}))
+    print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

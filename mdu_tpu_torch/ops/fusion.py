@@ -26,3 +26,12 @@ def scatter_add_tiles(canvas, tiles, bboxes: Sequence[BBox]):
 def weighted_average(canvas, weights):
     """MultiDiffusion normalise: ``where(w > 1, buf / w, buf)``."""
     return torch.where(weights > 1, canvas / weights, canvas)
+
+
+def feather_blend(x_out, feather_buffer, feather_mask, feather_count):
+    """FOREGROUND region feather blending (ref multidiffusion.py:211-216):
+    overlapping regions are averaged, then alpha-blended over the result by
+    the summed feather masks."""
+    buf = torch.where(feather_count > 1, feather_buffer / feather_count, feather_buffer)
+    msk = torch.where(feather_count > 1, feather_mask / feather_count, feather_mask)
+    return torch.where(feather_count > 0, x_out * (1 - msk) + buf * msk, x_out)

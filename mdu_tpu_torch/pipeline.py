@@ -1,16 +1,24 @@
-"""txt2img with MultiDiffusion, and img2img upscaling with MultiDiffusion or
-Mixture of Diffusers and tiled noise inversion, over the exact or fast
-tiled VAE (counterpart of the txt2img and img2img paths of
-``mdu_tpu/pipeline.py``).
+"""txt2img and img2img upscaling with MultiDiffusion or Mixture of Diffusers,
+regional prompt control and tiled noise inversion, any of the 15 samplers,
+over the exact or fast tiled VAE (counterpart of the txt2img and img2img
+paths of ``mdu_tpu/pipeline.py``).
 
-  plan    = plan_tiled_diffusion(...)                    static geometry
-  den_fn  = make_tiled_denoiser(plan, tile_denoise)      CFG'd per-tile denoiser
+  plan    = plan_tiled_diffusion(...)                    static geometry, regions
+  den_fn  = make_tiled_denoiser(plan, tile_denoise,      CFG'd per-tile and
+                                region_denoise)          per-region denoiser
   latent  = sampler(den_fn, noise * sigma_0, sigmas)     Python loop
   image   = tiled_vae_decode(...)                        lockstep or fast
 
 img2img encodes the (pre-upscaled) image with the tiled VAE encoder, samples
 the truncated schedule from it and, with noise inversion, starts from noise
 found by running the sampler backwards over the image's latent.
+
+Seeds: the starting noise of txt2img image i comes from a ``torch.Generator``
+seeded with ``seed + i`` on the pipeline's device; a region's seed of -1
+resolves from a CPU generator seeded with ``derived_seed(seed, 1000 + i)``,
+and the noise of the stochastic samplers comes from a generator seeded with
+``derived_seed(seed, 7)`` (the JAX package folds 1000 + i and 7 into the
+seed's key for the same draws).
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
 Features of ``mdu_tpu`` that this slice does not port raise
@@ -33,9 +41,11 @@ from .models.unet import UNet2DCondition
 from .models.vae import AutoencoderKL, sample_from_moments
 from .ops.resize import resize_nchw
 from .samplers.denoiser import cfg_combine, denoised_from_model, scalings
-from .samplers.samplers import get_sampler
+from .samplers.samplers import (CHURN_SAMPLERS, STOCHASTIC_SAMPLERS, NoiseFn, base_name,
+                                 generator_noise, get_sampler)
 from .samplers.schedule import NoiseSchedule
 from .tiling.conds import Cond, concat_conds, tile_cond
+from .tiling.regions import compose_region_noise, resolve_seed
 from .tiling.schedulers import DiffusionTilePlan, make_tiled_denoiser, plan_tiled_diffusion
 from .tiling.tiled_vae import (DECODER_PAD, ENCODER_PAD, lockstep_footprint_bytes,
                                plan_vae_tiles, tiled_vae_decode, tiled_vae_encode_moments)
@@ -54,6 +64,17 @@ _WAITING = {
     "__and__": "AND prompt composition (ROADMAP queue 1, item 15)",
     "__bank__": "scheduled prompts (ROADMAP queue 1, item 15)",
 }
+# tags of the derived seeds (see the module's docstring)
+SAMPLER_SEED_TAG = 7
+REGION_SEED_TAG = 1000
+
+
+def derived_seed(seed: int, tag: int) -> int:
+    """The seed of the draws tagged ``tag``: numpy's ``SeedSequence`` of
+    (seed, tag), which mixes every bit into the result (a CPU generator
+    keeps only the low 32 bits of its seed, so an offset in the high bits
+    would repeat the seed's own draws)."""
+    return int(np.random.SeedSequence([seed % 2**64, tag]).generate_state(1, np.uint64)[0])
 
 
 @dataclass
@@ -187,30 +208,64 @@ class DiffusionPipeline:
         return guided
 
     def _make_denoised_fn(self, plan: Optional[DiffusionTilePlan], cond, uncond,
-                          cfg_scale: float):
+                          cfg_scale: float, region_conds: Sequence = ()):
+        """The CFG'd denoiser over the plan's tiles and regions; region i is
+        guided with its own ``(cond, uncond)``, cut to its bbox (ref
+        multidiffusion.py:170-187)."""
         guided = self._make_guided(cfg_scale)
         if plan is None:
             return lambda x, sigma, step: guided(x, sigma, cond, uncond)
         hw = (plan.h, plan.w)
+        if len(region_conds) < len(plan.regions):
+            raise ValueError(f"{len(plan.regions)} regions need as many (cond, uncond) "
+                             f"pairs in region_conds, got {len(region_conds)}")
 
         def tile_denoise(flat, sigma, step, bboxes, batch_i):
             c = tile_cond(cond, bboxes, hw)
             u = tile_cond(uncond, bboxes, hw) if uncond is not None else None
             return guided(flat, sigma, c, u)
 
-        return make_tiled_denoiser(plan, tile_denoise)
+        def region_denoise(xr, sigma, step, i):
+            rc, ru = region_conds[i]
+            c = tile_cond(rc, [plan.regions[i]], hw)
+            u = tile_cond(ru, [plan.regions[i]], hw) if ru is not None else None
+            return guided(xr, sigma, c, u)
+
+        return make_tiled_denoiser(plan, tile_denoise, region_denoise)
 
     def _plan(self, td: Optional[TiledDiffusionConfig], h: int, w: int):
         if td is None or not td.enabled:
             return None
-        if td.regions:
-            raise _unported("regional prompts (ROADMAP queue 1, item 17)")
-        if not (splitable(w, h, td.tile_w, td.tile_h, td.overlap) or td.noise_inverse):
+        if not (splitable(w, h, td.tile_w, td.tile_h, td.overlap) or td.regions
+                or td.noise_inverse):
             return None
         return plan_tiled_diffusion(td.method, h, w, tile_h=td.tile_h,
                                     tile_w=td.tile_w, overlap=td.overlap,
                                     tile_bs=td.tile_bs,
-                                    uniform_batches=td.deterministic)
+                                    uniform_batches=td.deterministic,
+                                    regions=td.regions, draw_background=td.draw_background)
+
+    @staticmethod
+    def _check_region_params(region_unet_params) -> None:
+        if region_unet_params:
+            raise _unported("per-region LoRA weights (ROADMAP queue 1, item 16)")
+
+    @staticmethod
+    def _region_seeds(plan: Optional[DiffusionTilePlan], seed: int) -> Optional[list]:
+        """The regions' seeds, -1 resolved from a CPU generator of its own for
+        each region (so that the card and the CPU resolve the same seeds)."""
+        if plan is None or not plan.regions:
+            return None
+        return [resolve_seed(r.seed, torch.Generator().manual_seed(
+            derived_seed(seed, REGION_SEED_TAG + i))) for i, r in enumerate(plan.regions)]
+
+    @staticmethod
+    def _resolve_sampler(sp: Optional[SamplerConfig]) -> SamplerConfig:
+        """A1111's '<name> Karras' selects the Karras schedule."""
+        sp = sp or SamplerConfig()
+        if sp.name.endswith(" Karras") and sp.schedule == "automatic":
+            sp = dataclasses.replace(sp, schedule="karras")
+        return sp
 
     @staticmethod
     def _check_sampler(sp: SamplerConfig) -> None:
@@ -218,9 +273,30 @@ class DiffusionPipeline:
             raise _unported("DeepCache (ROADMAP queue 1, item 20)")
         if sp.image_cfg_scale is not None:
             raise _unported("edit-model image CFG (ROADMAP queue 1, item 12)")
-        if sp.s_churn > 0:
-            raise _unported("sigma churn (ROADMAP queue 1, item 14)")
         get_sampler(sp.name)
+
+    def _sampler_noise(self, noise, seed: int) -> NoiseFn:
+        """The stochastic samplers' noise: ``noise(like)`` as given, drawn
+        from a given generator, or by default from a generator of its own."""
+        if noise is None:
+            noise = torch.Generator(device=self.device).manual_seed(
+                derived_seed(seed, SAMPLER_SEED_TAG))
+        return generator_noise(noise) if isinstance(noise, torch.Generator) else noise
+
+    @staticmethod
+    def _sample(sp: SamplerConfig, den_fn, x, sigmas, noise: NoiseFn):
+        """Run the sampler as the JAX package dispatches it: churn for Euler,
+        Heun and DPM2 when ``s_churn > 0``; the noise for the stochastic
+        samplers; the others without noise. The sets are keyed on the name
+        without " Karras" (the JAX package keys them on the full name, so
+        that "Euler a Karras" misses its key there)."""
+        base, fn = base_name(sp.name), get_sampler(sp.name)
+        if sp.s_churn > 0 and base in CHURN_SAMPLERS:
+            return fn(den_fn, x, sigmas, noise, s_churn=sp.s_churn, s_tmin=sp.s_tmin,
+                      s_tmax=sp.s_tmax, s_noise=sp.s_noise)
+        if base in STOCHASTIC_SAMPLERS:
+            return fn(den_fn, x, sigmas, noise)
+        return fn(den_fn, x, sigmas)
 
     # --------------------------------------------------------------- txt2img
 
@@ -229,43 +305,60 @@ class DiffusionPipeline:
                 seed: int = 0,
                 tiled_diffusion: Optional[TiledDiffusionConfig] = None,
                 tiled_vae: Optional[TiledVAEConfig] = None,
-                region_conds: Sequence = (), batch_size: int = 1,
-                decode: bool = True, step_callback=None) -> GenerationResult:
+                region_conds: Sequence = (), region_unet_params=None,
+                batch_size: int = 1, decode: bool = True,
+                step_callback=None) -> GenerationResult:
         """Generate ``batch_size`` images; image i starts from the noise of a
-        ``torch.Generator`` seeded with ``seed + i``."""
-        if region_conds:
-            raise _unported("regional prompts (ROADMAP queue 1, item 17)")
+        ``torch.Generator`` seeded with ``seed + i``, with each region's
+        seeded patch pasted in. Region i of ``tiled_diffusion.regions`` is
+        guided with ``region_conds[i]`` = ``(cond, uncond)``."""
         if step_callback is not None:
             raise _unported("step callbacks (ROADMAP queue 1, item 21)")
+        self._check_region_params(region_unet_params)
         h, w = height // 8, width // 8
         C = self.unet.cfg.out_channels
         noise = []
         for i in range(batch_size):
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
             noise.append(torch.randn((1, C, h, w), generator=gen, device=self.device))
-        return self._txt2img_from_noise(torch.cat(noise), cond, uncond, sampler,
-                                        seed, tiled_diffusion, tiled_vae, decode)
+        noise = torch.cat(noise)
+        plan = self._plan(tiled_diffusion, h, w)
+        region_seeds = self._region_seeds(plan, seed)
+        if region_seeds is not None:
+            noise = compose_region_noise(noise, plan.regions, region_seeds)
+        return self._txt2img_from_noise(noise, cond, uncond, sampler, seed, tiled_diffusion,
+                                        tiled_vae, decode, region_conds=region_conds,
+                                        region_seeds=region_seeds, plan=plan)
 
     @torch.inference_mode()
     def _txt2img_from_noise(self, noise, cond: Cond, uncond: Optional[Cond],
                             sampler: Optional[SamplerConfig] = None, seed: int = 0,
                             tiled_diffusion: Optional[TiledDiffusionConfig] = None,
                             tiled_vae: Optional[TiledVAEConfig] = None,
-                            decode: bool = True) -> GenerationResult:
-        """txt2img from given unit-variance noise [B, 4, h, w]."""
-        sp = sampler or SamplerConfig()
+                            decode: bool = True, region_conds: Sequence = (),
+                            sampler_noise=None, region_seeds: Optional[Sequence[int]] = None,
+                            plan: Optional[DiffusionTilePlan] = None) -> GenerationResult:
+        """txt2img from given unit-variance noise [B, 4, h, w], the regions'
+        patches already in it (``region_seeds`` only names them in the
+        info). ``sampler_noise``: a noise function or generator for the
+        stochastic samplers (by default a generator seeded from ``seed``).
+        ``plan``: the tile plan when the caller already made it."""
+        sp = self._resolve_sampler(sampler)
         self._check_sampler(sp)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
         h, w = noise.shape[2], noise.shape[3]
-        plan = self._plan(tiled_diffusion, h, w)
+        if plan is None:
+            plan = self._plan(tiled_diffusion, h, w)
         den_fn = self._make_denoised_fn(plan, self._cond(cond), self._cond(uncond),
-                                        sp.cfg_scale)
+                                        sp.cfg_scale,
+                                        [(self._cond(c), self._cond(u)) for c, u in region_conds])
         sigmas = torch.as_tensor(self.schedule.sampling_sigmas(sp.steps, sp.schedule),
                                  device=self.device)
-        latents = get_sampler(sp.name)(den_fn, noise * sigmas[0], sigmas)
+        latents = self._sample(sp, den_fn, noise * sigmas[0], sigmas,
+                               self._sampler_noise(sampler_noise, seed))
         images = self._decode(latents, tiled_vae) if decode else None
         return GenerationResult(images, latents, seed,
-                                self._info(sp, tiled_diffusion, seed))
+                                self._info(sp, tiled_diffusion, seed, region_seeds))
 
     # --------------------------------------------------------------- img2img
 
@@ -289,13 +382,16 @@ class DiffusionPipeline:
                 sampler: Optional[SamplerConfig] = None, seed: int = 0,
                 tiled_diffusion: Optional[TiledDiffusionConfig] = None,
                 tiled_vae: Optional[TiledVAEConfig] = None,
-                region_conds: Sequence = (), inversion_cond: Optional[Cond] = None,
+                region_conds: Sequence = (), region_unet_params=None,
+                inversion_cond: Optional[Cond] = None,
                 mask: Optional[np.ndarray] = None, init_latents=None, decode: bool = True,
                 step_callback=None,
                 target_size: Optional[Tuple[int, int]] = None) -> GenerationResult:
         """img2img from a uint8 image (or from ``init_latents``). The encoder's
         sample and then the sampling noise are drawn from one
-        ``torch.Generator`` seeded with ``seed``."""
+        ``torch.Generator`` seeded with ``seed``; the regions' patches are
+        pasted into the sampling noise as in ``txt2img``."""
+        self._check_region_params(region_unet_params)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._img2img_from_noise(
             image, gen, gen, cond, uncond, sampler, seed, tiled_diffusion, tiled_vae,
@@ -322,17 +418,17 @@ class DiffusionPipeline:
                             inversion_cond: Optional[Cond] = None,
                             mask: Optional[np.ndarray] = None, init_latents=None,
                             decode: bool = True, step_callback=None,
-                            target_size: Optional[Tuple[int, int]] = None
-                            ) -> GenerationResult:
+                            target_size: Optional[Tuple[int, int]] = None,
+                            sampler_noise=None) -> GenerationResult:
         """img2img with the encoder's unit-variance sample noise ``enc_noise``
         (the moments' dtype, [B, 4, h, w]) and the sampling noise ``noise``
         (fp32, [B, 4, h, w]), each a tensor or a ``torch.Generator`` to draw it
-        from (``mdu_tpu/pipeline.py:767-970``)."""
-        if region_conds:
-            raise _unported("regional prompts (ROADMAP queue 1, item 17)")
+        from (``mdu_tpu/pipeline.py:767-970``). Drawn from a generator, the
+        sampling noise gets the regions' patches; a given tensor is taken as
+        it is. ``sampler_noise`` as in ``_txt2img_from_noise``."""
         if step_callback is not None:
             raise _unported("step callbacks (ROADMAP queue 1, item 21)")
-        sp = sampler or SamplerConfig()
+        sp = self._resolve_sampler(sampler)
         td = tiled_diffusion
         if td is not None and td.noise_inverse and sp.name != "Euler":
             # the reference forces Euler under noise inversion (ref
@@ -361,7 +457,11 @@ class DiffusionPipeline:
         h, w = init_latent.shape[-2], init_latent.shape[-1]
 
         plan = self._plan(td, h, w)
+        drawn = isinstance(noise, torch.Generator)
         noise = self._noise(noise, tuple(init_latent.shape), torch.float32, self.device)
+        region_seeds = self._region_seeds(plan, seed) if drawn else None
+        if region_seeds is not None:
+            noise = compose_region_noise(noise, plan.regions, region_seeds)
         # the truncated schedule (A1111 setup_img2img_steps)
         steps, t_enc = self.schedule.img2img_steps(sp.steps, sp.denoising_strength)
         all_sigmas = torch.as_tensor(self.schedule.sampling_sigmas(steps, sp.schedule),
@@ -375,7 +475,9 @@ class DiffusionPipeline:
                 else cond, sigma0=all_sigmas[0])
 
         x = init_latent + noise * sigmas[0]
-        den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale)
+        den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale,
+                                        [(self._cond(c), self._cond(u))
+                                         for c, u in region_conds])
         if mask is not None:
             # masked redraw: the denoised estimate blends with the initial
             # latent each step (A1111 semantics)
@@ -388,9 +490,9 @@ class DiffusionPipeline:
             def den_fn(xx, ss, ii):  # noqa: F811
                 return init_latent * (1 - lm) + inner(xx, ss, ii) * lm
 
-        latents = get_sampler(sp.name)(den_fn, x, sigmas)
+        latents = self._sample(sp, den_fn, x, sigmas, self._sampler_noise(sampler_noise, seed))
         images = self._decode(latents, tiled_vae) if decode else None
-        info = self._info(sp, td, seed)
+        info = self._info(sp, td, seed, region_seeds)
         if target_size is not None:
             info["Target size"] = [int(target_size[0]), int(target_size[1])]
         return GenerationResult(images, latents, seed, info)
@@ -430,9 +532,9 @@ class DiffusionPipeline:
     def noise_inversion(self, init_latent, cond: Cond, steps: int, retouch: float = 1.0,
                         plan: Optional[DiffusionTilePlan] = None):
         """Tiled reverse Euler over the ``steps`` ascending sigmas with the
-        positive cond only and no CFG (ref abstractdiffusion.py:683-742,
-        multidiffusion.py:220-243); the carry is fp32 and the result is
-        divided by the largest sigma."""
+        positive cond only and no CFG, the regions included (ref
+        abstractdiffusion.py:683-742, multidiffusion.py:220-243); the carry is
+        fp32 and the result is divided by the largest sigma."""
         cond = self._cond(cond)
         sch = self.schedule
         sig_asc = torch.as_tensor(sch.sampling_sigmas(steps)[:-1][::-1].copy(),
@@ -448,7 +550,11 @@ class DiffusionPipeline:
                 c = tile_cond(cond, bboxes, (plan.h, plan.w))
                 return self._raw_eps(model_fn, flat, sigma, c, retouch)
 
-            tiled_eps = make_tiled_denoiser(plan, eps_tile)
+            def eps_region(xr, sigma, step, i):
+                c = tile_cond(cond, [plan.regions[i]], (plan.h, plan.w))
+                return self._raw_eps(model_fn, xr, sigma, c, retouch)
+
+            tiled_eps = make_tiled_denoiser(plan, eps_tile, eps_region)
         else:
             tiled_eps = eps_org
         x = torch.as_tensor(init_latent, device=self.device).float()
@@ -548,7 +654,10 @@ class DiffusionPipeline:
     # ------------------------------------------------------------------ misc
 
     @staticmethod
-    def _info(sp: SamplerConfig, td: Optional[TiledDiffusionConfig], seed: int):
+    def _info(sp: SamplerConfig, td: Optional[TiledDiffusionConfig], seed: int,
+              region_seeds: Optional[Sequence[int]] = None):
+        """The image's settings (ref tilediffusion.py:321-342); each region's
+        entry carries its resolved seed (ref :521)."""
         info: Dict[str, Any] = {"Sampler": sp.name, "Steps": sp.steps,
                                 "CFG scale": sp.cfg_scale, "Seed": seed}
         if td is not None and td.enabled:
@@ -564,5 +673,13 @@ class DiffusionPipeline:
                     "NoiseInv Retouch": td.noise_inverse_retouch,
                     "NoiseInv Renoise strength": td.noise_inverse_renoise_strength,
                     "NoiseInv Kernel size": td.noise_inverse_renoise_kernel})
+            if td.regions:
+                region_info = {}
+                for i, r in enumerate(td.regions):
+                    d = dataclasses.asdict(r)
+                    if region_seeds is not None and i < len(region_seeds):
+                        d["seed"] = int(region_seeds[i])
+                    region_info[f"Region {i + 1}"] = d
+                block["Region control"] = region_info
             info["Tiled Diffusion"] = block
         return info

@@ -46,12 +46,14 @@ class NoiseSchedule:
         return idx.reshape(sigma.shape)
 
     def sampling_sigmas(self, steps: int, schedule: str = "automatic") -> np.ndarray:
-        """[steps + 1] descending sigmas ending at 0: evenly spaced fractional
-        timesteps from T-1 down to 0, log-interpolated into the table."""
-        if schedule != "automatic":
-            raise NotImplementedError(
-                f"the {schedule!r} sigma schedule waits for ROADMAP queue 1, item 14")
+        """[steps + 1] descending sigmas ending at 0. ``"karras"`` is the
+        Karras et al. rho = 7 ramp between the table's ends; any other name,
+        as in the JAX package, gives k-diffusion's discrete schedule: evenly
+        spaced fractional timesteps from T-1 down to 0, log-interpolated into
+        the table."""
         table = self.sigmas
+        if schedule == "karras":
+            return sigmas_karras(steps, float(table[-1]), float(table[0]))
         t = np.linspace(len(table) - 1, 0, steps)
         log_t = np.interp(t, np.arange(len(table)), np.log(table))
         return np.append(np.exp(log_t), 0.0).astype(np.float32)
@@ -73,3 +75,18 @@ def _alphas_cumprod(T: int, b0: float, b1: float, kind: str) -> np.ndarray:
     else:
         raise ValueError(f"unknown beta schedule {kind}")
     return np.cumprod(1.0 - betas).astype(np.float32)
+
+
+def sigmas_karras(n: int, sigma_max: float, sigma_min: float, rho: float = 7.0) -> np.ndarray:
+    """Karras et al. (2022) noise schedule, descending, with a trailing 0."""
+    ramp = np.linspace(0, 1, n)
+    min_inv = sigma_min ** (1 / rho)
+    max_inv = sigma_max ** (1 / rho)
+    sig = (max_inv + ramp * (min_inv - max_inv)) ** rho
+    return np.append(sig, 0.0).astype(np.float32)
+
+
+def ddim_timesteps(num_train_timesteps: int, steps: int) -> np.ndarray:
+    """Uniform DDIM timestep subset (leading spacing), descending."""
+    step_ratio = num_train_timesteps // steps
+    return (np.arange(steps) * step_ratio).round()[::-1].astype(np.int32)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of one config-2 or config-3 image goes in the PyTorch port,
-on the card.
+"""Where the time of one config-2, config-3 or config-4 image goes in the
+PyTorch port, on the card.
 
-    python3 scripts/profile_torch_config2.py [--config 2|3] [--dtype bfloat16|float32]
+    python3 scripts/profile_torch_config2.py [--config 2|3|4] [--dtype bfloat16|float32]
                                              [--out PATH]
 
 Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 random weights, in
@@ -11,8 +11,10 @@ default dtype gives;
 MultiDiffusion 2048 x 512, Euler 20 steps at CFG 7, exact tiled decode), or
 with ``--config 3`` config 3 as ``chip_smoke.build_config3`` does (bf16 only:
 MoD img2img x4 of a 512 x 512 image with noise inversion, exact tiled encode
-and decode; the noise-inversion cache is freed before every image), runs one
-warm-up image, one image timed on the host clock (ending in a
+and decode; the noise-inversion cache is freed before every image), or with
+``--config 4`` config 4 as ``chip_smoke.build_config4`` does (bf16 only:
+MultiDiffusion txt2img at 1536 x 1536 with four BACKGROUND regions, exact
+tiled decode), runs one warm-up image, one image timed on the host clock (ending in a
 synchronize), then one image under ``torch.profiler``. Prints one JSON line:
 the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
@@ -71,11 +73,12 @@ def main() -> int:
     ap.add_argument("--out", help="also write the result as JSON to this file")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the models' dtype (default bfloat16, as config 2 runs)")
-    ap.add_argument("--config", choices=("2", "3"), default="2",
-                    help="config 2 (txt2img, the default) or config 3 (img2img, bf16)")
+    ap.add_argument("--config", choices=("2", "3", "4"), default="2",
+                    help="config 2 (txt2img, the default), config 3 (img2img, bf16) or "
+                         "config 4 (regional txt2img, bf16)")
     args = ap.parse_args()
-    if args.config == "3" and args.dtype != "bfloat16":
-        ap.error("config 3 runs in bf16")
+    if args.config != "2" and args.dtype != "bfloat16":
+        ap.error(f"config {args.config} runs in bf16")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -98,6 +101,15 @@ def main() -> int:
             pipe.free_cache()
             pipe.img2img(img, cond, uncond, sampler=sp, seed=seed, tiled_diffusion=td,
                          tiled_vae=tv)
+            torch.cuda.synchronize()
+    elif args.config == "4":
+        pipe, cond, uncond, sp, td, tv, rc = chip_smoke.build_config4()
+
+        def image(seed):
+            pipe.free_cache()
+            pipe.txt2img(cond, uncond, width=chip_smoke.CFG4["width"],
+                         height=chip_smoke.CFG4["height"], sampler=sp, seed=seed,
+                         tiled_diffusion=td, tiled_vae=tv, region_conds=rc)
             torch.cuda.synchronize()
     else:
         pipe, cond, uncond, sp, td, tv = chip_smoke.build_config2(getattr(torch, args.dtype))

@@ -33,8 +33,11 @@ CASES = [
     ("flash_attention_fm", (1, 1, 260, 128, 16), "sm90"),    # one kv tile, DP = 16
     ("flash_attention_fm", (1, 1, 70, 90, 13), "mma"),       # D not a multiple of 8
     ("flash_attention_fm", (2, 8, 576, 576, 160), "sm90"),   # config 3's UNet level 2
+    ("flash_attention_fm", (2, 8, 9216, 9216, 40), "sm90"),  # config 4's region calls, level 0
+    ("flash_attention_fm", (2, 8, 2304, 2304, 80), "sm90"),  # and level 1
     ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
     ("flash_attention", (1, 1, 17424, 17424, 512), "wide"),  # config 3's encoder mid-block
+    ("flash_attention", (4, 1, 13924, 13924, 512), "wide"),  # config 4's decoder mid-block
     ("flash_attention", (2, 1, 513, 700, 512), "wide"),      # Lq, Lk off the 64 / 32 tiles
     ("flash_attention", (1, 2, 300, 300, 200), "wide"),      # D off 64: DP = 256
     ("flash_attention", (1, 1, 200, 150, 192), "wide"),
@@ -48,6 +51,9 @@ CASES = [
     ("flash_attention_t", (1, 1, 260, 128, 16), "sm90"),
     ("flash_attention_t", (1, 1, 70, 90, 13), "mma"),
     ("flash_attention_t", (1, 1, 40, 40, 4), "mma"),         # DP = 16
+    ("flash_attention_t", (2, 8, 9216, 9216, 40), "sm90"),   # config 4's region calls
+    ("flash_attention_t", (2, 8, 2304, 2304, 80), "sm90"),
+    ("flash_attention_t", (2, 8, 576, 576, 160), "sm90"),
 ]
 # (kernel, (B, H, Lq, Lk, D), the fp32 form the wrapper must pick)
 CASES_F32 = [
@@ -408,6 +414,8 @@ def test_fm_bf16_exp_takes_the_mma_form_by_rule(D, unaligned):
     ((10, 416, 67, 93), torch.bfloat16, "cluster"),     # ragged, 8 parts: groups off 16-byte lines
     ((1, 96, 7, 9), torch.float32, "two_read"),
     ((1, 416, 128, 256), torch.float32, "two_read"),    # 1.7 MB a group: past what a cluster holds
+    ((2, 320, 96, 96), torch.bfloat16, "two_read"),     # config 4's region calls, level 0
+    ((2, 640, 48, 48), torch.bfloat16, "two_read"),     # and level 1
 ])
 def test_group_norm_kernel_matches_plain(shape, dtype, form):
     dev = _card()
@@ -467,6 +475,7 @@ def test_group_norm_cluster_form_at_any_split(shape, dtype):
     (64, 256, 64, 96, 48, 4, True, torch.float32),
     (61, 97, 24, 24, 8, 3, True, torch.float32),
     (64, 256, 64, 96, 48, 4, True, torch.bfloat16),
+    (192, 192, 96, 96, 48, 4, False, torch.float32),    # config 4: 9 tiles of 96
 ])
 def test_tile_blend_kernel_matches_plain(h, w, th, tw, ov, BC, normalize, dtype):
     dev = _card()
@@ -522,6 +531,8 @@ def test_tile_blend_kernel_on_mod_weighted_tiles(h, w, BC):
     (1, 7, 9, 64, 20, torch.bfloat16, "mma"),        # Co % 8 != 0
     (2, 16, 16, 24, 8, torch.bfloat16, "mma"),       # tiny UNet widths
     (2, 7, 9, 12, 20, torch.bfloat16, "mma"),        # odd H, W, C: no 16-byte loads
+    (2, 96, 96, 320, 320, torch.bfloat16, "sm90"),   # config 4's region calls, level 0
+    (2, 48, 48, 640, 640, torch.bfloat16, "sm90"),   # and level 1
     (2, 64, 96, 320, 320, torch.float32, "sm90"),   # config 2's four widths
     (2, 64, 96, 640, 320, torch.float32, "sm90"),
     (2, 32, 48, 320, 640, torch.float32, "sm90"),

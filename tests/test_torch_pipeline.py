@@ -238,10 +238,9 @@ def test_unported_features_raise(pipes):
     tiny = dict(width=128, height=128, sampler=SamplerConfig(steps=1))
     cases = [
         dict(sampler=SamplerConfig(steps=1, image_cfg_scale=1.5)),   # edit-model CFG
-        dict(sampler=SamplerConfig(name="DPM++ 2M", steps=1)),
+        dict(region_unet_params=[object()]),                          # per-region LoRA
         dict(sampler=SamplerConfig(steps=1, deepcache=2)),
         dict(step_callback=lambda i, x: None),
-        dict(region_conds=[(c, u)]),
         dict(tiled_diffusion=TiledDiffusionConfig(method=Method.DEMO_FU, tile_w=8,
                                                   tile_h=8, overlap=4)),
         dict(tiled_vae=TiledVAEConfig(streaming=True, fast_decoder=False)),
@@ -253,10 +252,10 @@ def test_unported_features_raise(pipes):
     i2i = dict(sampler=SamplerConfig(steps=2, denoising_strength=0.5))
     for extra in (dict(cond={**c, "adm": np.zeros((1, 8), np.float32)}),   # unCLIP
                   dict(tiled_diffusion=TiledDiffusionConfig(upscaler="R-ESRGAN 4x+")),
-                  dict(tiled_diffusion=TiledDiffusionConfig(regions=[object()])),
-                  dict(region_conds=[(c, u)])):
+                  dict(region_unet_params=[object()]),
+                  dict(tiled_vae=TiledVAEConfig(streaming=True))):
         kw = {"cond": c, **i2i, **extra}
-        with pytest.raises(NotImplementedError, match="item 1[27]"):
+        with pytest.raises(NotImplementedError, match="item 1[236]"):
             port.img2img(img, kw.pop("cond"), u, **kw)
     with pytest.raises(NotImplementedError, match="ControlNet"):
         port.txt2img({**c, "control": [np.zeros((1, 3, 128, 128), np.float32)]}, u, **tiny)
