@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,img2img,regional,upscale8k]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,img2img,regional,
+                                    upscale8k,demofusion]
 
 Phases, one JSON line each (all of them unless ``--phases`` names some;
 ``device`` and ``build`` always run):
@@ -79,7 +80,13 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  decoder mid-block [4, 1, 13924, 512] (4 tiles of 118
                  latent), #4 at [2, 320, 96, 96] and [2, 640, 48, 48], #5 on
                  its 9 tiles of 96 over the 192 x 192 canvas, #6 at [2, 96,
-                 96, 320] -> 320 and [2, 48, 48, 640] -> 640. ``device_ms`` and
+                 96, 320] -> 320 and [2, 48, 48, 640] -> 640. Config 5's (SDXL,
+                 D = 64): #1 and #3 at [4, 10, 4096, 64], [4, 20, 1024, 64]
+                 and their batch-2 forms, #4 at [4, 320, 128, 128] (cluster),
+                 [4, 640, 64, 64], [4, 1280, 32, 32] and [4, 2560, 32, 32],
+                 #6 at [4, 128, 128, 320] -> 320, [4, 64, 64, 640] -> 640,
+                 the [4, 64, 64, 320] -> 640 transition and levels 0 and 1 at
+                 batch 2. ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
                  and the yardstick's launches (torch.profiler's kernel
                  durations, summed, per call). Bounds: max(flops / peak, bytes /
@@ -99,12 +106,18 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  sm90 form). With each, a tiny regional txt2img (one
                  BACKGROUND and one FOREGROUND region) under MultiDiffusion
                  and under Mixture of Diffusers, its noise composed on the
-                 CPU. Then, with no flag, the tiny pipeline (untiled, 1024
-                 tokens at level 0) under each of the 15 samplers, "DPM++ 2M
-                 Karras" and Euler with churn, the samplers' noise drawn on
-                 the CPU and copied to the card; DPM adaptive must take the
-                 same accept / reject decisions on the card as on the CPU in
-                 fp32, and prints both devices' decisions in bf16.
+                 CPU. With each, a tiny SDXL UNet + ControlNet (random zero
+                 gates, a nonzero hint) DemoFusion x2 from a 48 x 48 latent,
+                 its base and phase noise drawn on the CPU, both phases'
+                 latents held. Then, with no flag, the tiny pipeline
+                 (untiled, 1024 tokens at level 0) under each of the 15
+                 samplers, "DPM++ 2M Karras" and Euler with churn, the
+                 samplers' noise drawn on the CPU and copied to the card; DPM
+                 adaptive must take the same accept / reject decisions on the
+                 card as on the CPU in fp32; in bf16 both devices' decisions
+                 are printed, with the first that differs, both factors
+                 there, the 0.81 they are held against and bf16's rounding
+                 of the factor (``_first_difference``).
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
@@ -148,6 +161,19 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  tiled VAE, encoder tile 512, decoder tile 64, ``tile_batch``
                  8), ``decode=False`` and then ``_decode_tensor``; launches
                  pinned, the output finite.
+10. ``demofusion`` config 5 through ``DiffusionPipeline.demofusion`` as
+                 ``bench.py:579-640`` builds it: the SDXL UNet and a ControlNet
+                 of its config (and the SD VAE, built and not run), random
+                 bf16 weights drawn on the card, the ControlNet's gates zero;
+                 crossattn [1, 77, 2048], vector zeros, a zero 1024 x 1024
+                 hint; DemoFusion x3 from 1024 x 1024 (windows 128 at overlap
+                 64, window and view batches of 2), Euler 20 steps, CFG 7,
+                 denoise 0.45, no decode. Last, after the other phases'
+                 pipelines are released. A warm x2 image, one timed x3 image
+                 with no flag (seconds per phase, img/min, peak memory; a
+                 finite [1, 4, 384, 384] final latent and three phase
+                 latents) and one x2 image under the four flags; launches
+                 pinned in each (270 guided calls a x3 image, 90 a x2 one).
 
 Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
 (every kernel of the port), the nvidia-smi line, and as the last line
@@ -233,6 +259,32 @@ EXPECTED_CONFIG4_FLAGGED = {"flash_attention_t": 1800, "flash_attention_t.sm90":
                             "fused_group_norm.two_read": 1800, "fused_conv3x3": 1920,
                             "fused_conv3x3.sm90": 1920, "fused_tile_blend": 20}
 CONFIG4_RUNS = (("default", {}, EXPECTED_CONFIG4), ("flagged", FLAGS, EXPECTED_CONFIG4_FLAGGED))
+# config 5 (bench.py:579-640): SDXL DemoFusion x3 with ControlNet from a 1024 x
+# 1024 base; windows 128 at overlap 64, window and view batches of 2
+# (MDU_BENCH_C5_TILE_BS's default), Euler 20 steps at CFG 7, denoise 0.45
+# (t_enc 9: 10 steps a phase), seed 0, no decode
+CFG5 = dict(size=1024, window=128, overlap=64, scale=3, tile_bs=2, steps=20, cfg=7.0,
+            denoise=0.45)
+# guided calls (UNet + ControlNet at batch 2 x CFG) an image: phase 1 20
+# (untiled 128^2); phase 2 (256^2) 10 steps x (5 window + 2 view batches);
+# phase 3 (384^2) 10 x (13 + 5). 104 self-attentions at L >= 512 a call: the
+# UNet's 70 (down 4 + 20, mid 10, up 30 + 6), the ControlNet's 34
+C5_CALLS = {2: 20 + 70, 3: 20 + 70 + 180}
+EXPECTED_CONFIG5 = {"flash_attention_fm": 104 * C5_CALLS[3],
+                    "flash_attention_fm.sm90": 104 * C5_CALLS[3]}
+EXPECTED_CONFIG5_X2 = {"flash_attention_fm": 104 * C5_CALLS[2],
+                       "flash_attention_fm.sm90": 104 * C5_CALLS[2]}
+# x2 under the four flags: #3 as #1; #4 17 a call (the transformer norms, 11 +
+# 5, and the UNet's norm_out; the ResBlock norms fold into #6), the cluster
+# form for norm_out at batch 4 (42 MB: 60 calls of phase 2); #6 22 a call
+# (levels 0 and 1 where C, Co <= 640 and the JAX planner fits the conv: the
+# UNet's 14, the ControlNet's 8); no #5 (DemoFusion fuses its windows itself)
+EXPECTED_CONFIG5_FLAGGED = {"flash_attention_t": 104 * C5_CALLS[2],
+                            "flash_attention_t.sm90": 104 * C5_CALLS[2],
+                            "fused_group_norm": 17 * C5_CALLS[2], "fused_group_norm.cluster": 60,
+                            "fused_group_norm.two_read": 17 * C5_CALLS[2] - 60,
+                            "fused_conv3x3": 22 * C5_CALLS[2],
+                            "fused_conv3x3.sm90": 22 * C5_CALLS[2]}
 # config 2 under two more samplers: (name, #1 launches per image = 10 a UNet call)
 SAMPLER_RUNS = (("DPM++ 2M Karras", 200), ("DPM++ SDE", 390))
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
@@ -247,10 +299,12 @@ KERNELS = {
         # D % 8 != 0)
         # config 3's levels 0, 1, 2 (D = 160: the sm90 form's widest head)
         # config 4's region calls (batch 2) at levels 0, 1, 2
+        # config 5's SDXL levels 1 and 2 (D = 64) at batch 4 and 2
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                 (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
                 (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
-                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160)],
+                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160),
+                (4, 10, 4096, 64), (4, 20, 1024, 64), (2, 10, 4096, 64), (2, 20, 1024, 64)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
@@ -272,10 +326,11 @@ KERNELS = {
         source="mdu_tpu_torch/csrc/flash_attention_t.cu",
         replaces="mdu_tpu/ops/pallas/flash_attention.py:282",
         # under MDU_FLASH=trans: config 2's UNet self-attention; ragged; D = 13;
-        # config 3's; config 4's region calls
+        # config 3's; config 4's region calls; config 5's
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (1, 1, 700, 13),
                 (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
-                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160)]),
+                (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160),
+                (4, 10, 4096, 64), (4, 20, 1024, 64), (2, 10, 4096, 64), (2, 20, 1024, 64)]),
     "fused_group_norm": dict(
         source="mdu_tpu_torch/csrc/group_norm.cu",
         replaces="mdu_tpu/ops/pallas/group_norm.py:33",
@@ -289,10 +344,12 @@ KERNELS = {
         # form, the others (which fit L2) the two_read form.
         # Then config 3's level 0 in a sampling batch (cluster) and in an
         # inversion batch (two_read); config 4's region calls at levels 0 and
-        # 1 (two_read).
+        # 1 (two_read). Config 5's: the UNet's norm_out at batch 4 (cluster),
+        # the transformer norms of levels 1 and 2, an up-block concat of 2560.
         shapes=[(10, 320, 64, 96), (10, 640, 32, 48), (10, 1280, 16, 24), (10, 1280, 8, 12),
                 (10, 2560, 16, 24), (10, 960, 64, 96), (1, 96, 7, 9), (10, 320, 96, 96),
-                (4, 320, 96, 96), (2, 320, 96, 96), (2, 640, 48, 48)],
+                (4, 320, 96, 96), (2, 320, 96, 96), (2, 640, 48, 48),
+                (4, 320, 128, 128), (4, 640, 64, 64), (4, 1280, 32, 32), (4, 2560, 32, 32)],
         # fp32 (a model built in fp32): level 0 (a cluster of 8); a group
         # past what a cluster holds (1.7 MB: the two_read form)
         f32_shapes=[(10, 320, 64, 96), (1, 416, 128, 256)]),
@@ -312,11 +369,13 @@ KERNELS = {
         # two are its level-0 and level-1 convs); H and W off the warpgroup
         # form's 32 x 8 tile; Co off its 160 channels; odd H, W and C (the
         # mma.sync form, no 16-byte vectors); config 3's level-0 conv;
-        # config 4's region calls at levels 0 and 1
+        # config 4's region calls at levels 0 and 1; config 5's levels 0 and 1
+        # and its 320 -> 640 transition at batch 4, and levels 0 and 1 at 2
         shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
                 (2, 7, 9, 12, 20), (10, 96, 96, 320, 320), (2, 96, 96, 320, 320),
-                (2, 48, 48, 640, 640)],
+                (2, 48, 48, 640, 640), (4, 128, 128, 320, 320), (4, 64, 64, 640, 640),
+                (4, 64, 64, 320, 640), (2, 128, 128, 320, 320), (2, 64, 64, 640, 640)],
         # fp32: config 2's four shapes (sm90); H, W and Co off the 32 x 8 x 80
         # tile (sm90); C = 12 (simt)
         f32_shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
@@ -1001,6 +1060,60 @@ def _tiny_regional(method):
     return run
 
 
+def _tiny_sdxl_pipeline(device: str, dtype):
+    """The tiny SDXL UNet and a ControlNet of its config, with random weights
+    drawn on the CPU and the ControlNet's zero gates filled with random
+    values (so that a wrong residual path shows), and the tiny VAE: returns
+    (pipe, cond, uncond, the CPU generator that drew them). The cond has a
+    vector and a nonzero 384 x 384 hint; the uncond zero text."""
+    import torch
+
+    from mdu_tpu_torch import DiffusionPipeline
+    from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, UNet2DCondition,
+                                      random_state_dict, tiny_sdxl_unet_config,
+                                      tiny_vae_config)
+
+    cfg = tiny_sdxl_unet_config()
+    unet, cn = UNet2DCondition(cfg, dtype=dtype), ControlNet(cfg, dtype=dtype)
+    vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
+    gen = torch.Generator().manual_seed(11)
+    cn_sd = random_state_dict(cn, 2, dtype, device="cpu")
+    for name in cn_sd:
+        if name.split(".")[0].startswith("zero") or name.startswith("cond_embedding.conv_out"):
+            cn_sd[name] = (torch.randn(cn_sd[name].shape, generator=gen) * 0.3).to(dtype)
+    unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
+    cn.load_state_dict(cn_sd)
+    vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
+    pipe = DiffusionPipeline(unet, vae, device=device, controlnet=cn)
+    ctx = (torch.randn(1, 7, 16, generator=gen) * 0.5).to(dtype)
+    vec = torch.randn(1, 16, generator=gen).to(dtype)
+    hint = torch.rand(1, 3, 384, 384, generator=gen)
+    c = {"crossattn": ctx, "vector": vec, "control": [hint]}
+    u = {"crossattn": torch.zeros_like(ctx), "vector": vec, "control": [hint]}
+    return pipe, c, u, gen
+
+
+def _tiny_demofusion(device: str, dtype):
+    """DemoFusion x2 on the tiny SDXL UNet + ControlNet: a 48 x 48 latent
+    (576 tokens at UNet level 1: a flash kernel on the card) to 96 x 96,
+    windows of 48 at overlap 24 in batches of 4 (9 windows, jitter drawn
+    from the seed), the 4 dilated views in batches of 2 with the gaussian
+    filter, Euler 3 steps at denoise 0.6; the base and phase noise drawn on
+    the CPU. Returns (phase 1 latent, phase 2 latent) on the CPU in fp32."""
+    import torch
+
+    from mdu_tpu_torch import DemoFusionConfig, SamplerConfig
+
+    pipe, c, u, gen = _tiny_sdxl_pipeline(device, dtype)
+    base = torch.randn(1, 4, 48, 48, generator=gen)
+    phase = torch.randn(1, 4, 96, 96, generator=gen)
+    cfg = DemoFusionConfig(window_size=48, overlap=24, tile_bs=4, tile_bs_g=2, scale_factor=2)
+    res = pipe._demofusion_from_noise(base, [phase], c, u, 384, 384, cfg,
+                                      SamplerConfig(steps=3, denoising_strength=0.6), seed=3,
+                                      decode=False)
+    return tuple(p.float().cpu() for p in res.phase_latents)
+
+
 # the reference phase's samplers: every sampler, a Karras name, Euler with churn
 TINY_SAMPLERS = [(name, {}) for name in (
     "Euler", "Euler a", "Heun", "DPM2", "DPM2 a", "DPM++ 2M", "DPM++ 2S a", "DPM++ SDE",
@@ -1008,12 +1121,13 @@ TINY_SAMPLERS = [(name, {}) for name in (
     "DPM++ 2M Karras")] + [("Euler", {"s_churn": 1.0, "s_tmin": 0.5, "s_tmax": 10.0})]
 
 
-def _tiny_sampler(name, churn, decisions):
+def _tiny_sampler(name, churn, decisions, factors):
     """The tiny pipeline untiled on a 32 x 32 latent (1024 tokens at UNet
     level 0, a flash kernel on the card) under sampler ``name``, 3 steps,
     the samplers' noise drawn from a CPU generator (the same draws on both
     devices). DPM adaptive's accept / reject decisions go to
-    ``decisions[(device, dtype)]``. Returns ``run(device, dtype) -> (latents,)``."""
+    ``decisions[(device, dtype)]`` and the controller's factor of each to
+    ``factors[(device, dtype)]``. Returns ``run(device, dtype) -> (latents,)``."""
 
     def run(device, dtype):
         import functools
@@ -1026,8 +1140,10 @@ def _tiny_sampler(name, churn, decisions):
         pipe, c, u, gen = _tiny_pipeline(device, dtype)
         noise = torch.randn(1, 4, 32, 32, generator=gen)
         adaptive = samplers.SAMPLERS["DPM adaptive"]
+        key = (device, _dtype_name(dtype))
         samplers.SAMPLERS["DPM adaptive"] = functools.partial(
-            adaptive, decisions=decisions.setdefault((device, _dtype_name(dtype)), []))
+            adaptive, decisions=decisions.setdefault(key, []),
+            factors=factors.setdefault(key, []))
         try:
             res = pipe._txt2img_from_noise(noise, c, u, SamplerConfig(name=name, steps=3, **churn),
                                            0, None, decode=False,
@@ -1039,11 +1155,12 @@ def _tiny_sampler(name, churn, decisions):
     return run
 
 
-def _hold_to_cpu(label, run, parts, must_launch, dtypes=None):
+def _hold_to_cpu(label, run, parts, must_launch, dtypes=None, off_path=()):
     """``run`` on the card against the CPU in each dtype (fp32 within 1e-4 of
     the largest CPU value; bf16 within 2x the CPU bf16 run's own error
     against the CPU fp32 run plus 1e-3 of it); each card run must launch
-    ``must_launch[dtype]``. Returns the ``reference`` lines' fields by dtype."""
+    ``must_launch[dtype]``, but for the kernels ``off_path`` names. Returns
+    the ``reference`` lines' fields by dtype."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -1056,7 +1173,8 @@ def _hold_to_cpu(label, run, parts, must_launch, dtypes=None):
         got = run("cuda", dtype)
         launches = dict(LAUNCHES)
         for key in must_launch[dtype]:
-            require(launches[key] > 0, f"{label} {dtype} launched no {key}")
+            if key not in off_path:
+                require(launches[key] > 0, f"{label} {dtype} launched no {key}")
         fields = {"launches": launches}
         for i, part in enumerate(parts):
             scale = ref[i].abs().max().item()
@@ -1078,9 +1196,16 @@ def phase_reference():
     1e-4 of the largest CPU value; in bf16 within 2x the CPU bf16 run's own
     error against the CPU fp32 run plus 1e-3 of the largest value. With no
     flag each card run must launch its fm kernel (in fp32 its sm90 form: the
-    heads are D = 4 and 16); with the four flags, each flagged kernel. Then
-    the tiny pipeline under every sampler, with no flag, held the same way;
-    DPM adaptive's decisions on the card must equal the CPU's in fp32."""
+    heads are D = 4 and 16); with the four flags, each flagged kernel (but
+    #5 in DemoFusion, which fuses its windows itself). The same for the tiny
+    SDXL + ControlNet DemoFusion x2 (``_tiny_demofusion``). Then the tiny pipeline under every
+    sampler, with no flag, held the same way; DPM adaptive's decisions on
+    the card must equal the CPU's in fp32. In bf16 the first decision where
+    the card and the CPU differ is printed with both devices' factors, the
+    0.81 they are held against, and the yardstick of bf16's rounding: the
+    largest gap between the CPU's bf16 and fp32 factors over the decisions
+    both dtypes take alike up to that one (``within_bf16_rounding``: the
+    card's gap at most twice that, the form of the bf16 bar)."""
     import torch
 
     from mdu_tpu_torch.config import Method
@@ -1092,39 +1217,100 @@ def phase_reference():
                                      "fused_tile_blend"],
                      torch.bfloat16: ["flash_attention_t", "fused_group_norm",
                                       "fused_conv3x3", "fused_tile_blend"]})]
-    pipelines = (("txt2img", _tiny_run, ("latent", "image")),
+    pipelines = (("DemoFusion SDXL + ControlNet", _tiny_demofusion,
+                  ("phase1_latent", "latent"), ("fused_tile_blend",)),
+                 ("txt2img", _tiny_run, ("latent", "image"), ()),
                  ("img2img", _tiny_img2img, ("latent", "image", "fast_moments",
-                                             "fast_image")),
+                                             "fast_image"), ()),
                  ("regional MultiDiffusion", _tiny_regional(Method.MULTI_DIFF),
-                  ("latent", "image")),
+                  ("latent", "image"), ()),
                  ("regional Mixture of Diffusers", _tiny_regional(Method.MIX_DIFF),
-                  ("latent", "image")))
+                  ("latent", "image"), ()))
     for flags, must_launch in runs:
         with flags_set(flags):
-            for pipeline, run, parts in pipelines:
+            for pipeline, run, parts, off_path in pipelines:
                 label = f"tiny {pipeline} (flags {flags})"
-                for dtype, fields in _hold_to_cpu(label, run, parts, must_launch).items():
+                for dtype, fields in _hold_to_cpu(label, run, parts, must_launch,
+                                                  off_path=off_path).items():
                     emit("reference", dtype=_dtype_name(dtype), pipeline=pipeline, flags=flags,
                          **fields)
     must_launch = runs[0][1]
     for name, churn in TINY_SAMPLERS:
-        decisions = {}
+        decisions, factors = {}, {}
         fields = _hold_to_cpu(f"tiny sampler {name} {churn}",
-                              _tiny_sampler(name, churn, decisions), ("latent",), must_launch)
+                              _tiny_sampler(name, churn, decisions, factors), ("latent",),
+                              must_launch)
         for dtype, f in fields.items():
             extra = {}
             if name == "DPM adaptive":
                 # in fp32 the card must decide as the CPU does; in bf16 the two
-                # UNets round differently and the decisions are printed (a
-                # difference stands in ROADMAP queue 3), the latents held to
-                # the bf16 bar above
+                # UNets round differently, and where they part it is at the
+                # loop's end, not at an accept / reject decision (ROADMAP queue
+                # 3; scripts/dpm_adaptive_bf16.py): printed, the latents held
+                # to the bf16 bar above
                 cpu, card = (decisions[(d, _dtype_name(dtype))] for d in ("cpu", "cuda"))
                 if dtype == torch.float32:
                     require(card == cpu, f"DPM adaptive {dtype}: accept / reject decisions on "
                                          f"the card {card} differ from the CPU's {cpu}")
+                else:
+                    extra.update(first_difference=_first_difference(decisions, factors))
                 extra.update(decisions=card, cpu_decisions=cpu, decisions_match=card == cpu)
             emit("reference", dtype=_dtype_name(dtype), pipeline="tiny sampler", sampler=name,
                  churn=churn, flags={}, **f, **extra)
+
+
+def _first_difference(decisions, factors, safety=0.81, h_init=0.05, steps=3):
+    """DPM adaptive in bf16, card against CPU: None if both take the same
+    decisions. Else the first iteration where they differ: a decision
+    (accept / reject), or the loop's end (the same decisions, then one
+    device takes one more iteration). With it each device's factor there,
+    the ``safety`` it is held against, and each device's position s after
+    every decision, replayed on the host from ``h_init`` and the factors as
+    the controller steps (t = min(t_end, s + h), s = t on accept, h *=
+    factor), against the loop's stop t_end - 1e-5. And bf16's rounding of
+    the factor: at the first decision every run sees the same x, s and h,
+    so the gap between the CPU's bf16 and fp32 factors there is what bf16
+    does to the error estimate, and the card's gap to the CPU there is held
+    against twice it (``within_bf16_rounding``, the form of the bf16 bar)."""
+    import numpy as np
+
+    from mdu_tpu_torch.samplers.schedule import NoiseSchedule
+
+    card, cpu = decisions[("cuda", "bfloat16")], decisions[("cpu", "bfloat16")]
+    f_card, f_cpu = factors[("cuda", "bfloat16")], factors[("cpu", "bfloat16")]
+    f32 = factors[("cpu", "float32")]
+    n = min(len(card), len(cpu))
+    k = next((i for i in range(n) if card[i] != cpu[i]), None if len(card) == len(cpu) else n)
+    if k is None:
+        return None
+    sig = NoiseSchedule().sampling_sigmas(steps)
+    t_end = float(-np.log(sig[-2]))
+
+    def positions(dec, fac):
+        s, h, out = float(-np.log(sig[0])), h_init, []
+        for accept, f in zip(dec, fac):
+            t = min(t_end, s + h)
+            s = t if accept else s
+            h *= f
+            out.append(s)
+        return out
+
+    p_card, p_cpu = positions(card, f_card), positions(cpu, f_cpu)
+    gap0, rounding0 = abs(f_card[0] - f_cpu[0]), abs(f_cpu[0] - f32[0])
+    return {"index": k, "kind": "decision" if k < n else "loop end",
+            "card_factor": f_card[k] if k < len(f_card) else None,
+            "cpu_factor": f_cpu[k] if k < len(f_cpu) else None, "threshold": safety,
+            "card_decisions": len(card), "cpu_decisions": len(cpu),
+            "t_end": t_end, "stop": t_end - 1e-5,
+            "card_s_before": p_card[k - 1] if k else None,
+            "cpu_s_before": p_cpu[k - 1] if k else None,
+            "max_rel_factor_gap_shared": max(abs(a - b) / b for a, b in
+                                             zip(f_card[:k], f_cpu[:k])) if k else None,
+            "first_factor": {"card": f_card[0], "cpu": f_cpu[0], "cpu_fp32": f32[0]},
+            "first_factor_gap": gap0, "bf16_rounding_of_first_factor": rounding0,
+            "within_bf16_rounding": gap0 <= 2.0 * rounding0,
+            "card_factors": f_card[:k + 1], "cpu_factors": f_cpu[:k + 1],
+            "card_s": p_card[:k + 1], "cpu_s": p_cpu[:k + 1]}
 
 
 def build_config2(dtype=None):
@@ -1532,13 +1718,131 @@ def phase_upscale8k():
     return launches
 
 
-def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None):
+def build_config5():
+    """Config 5 as ``bench.py:579-640`` builds it: the SDXL UNet, the SD VAE
+    (built, not run) and a ControlNet of the UNet's config, random bf16
+    weights drawn on the card (the ControlNet's gates zero, as the JAX
+    package's ``random_params`` makes them); crossattn randn [1, 77, 2048] x
+    0.1, vector zeros [1, 1280], control [zeros [1, 3, 1024, 1024]], the
+    uncond's crossattn zeros; DemoFusion x3 (windows 128 at overlap 64,
+    batches of 2), Euler 20 steps at CFG 7 and denoise 0.45. Returns (pipe,
+    cond, uncond, demofusion config, sampler)."""
+    import torch
+
+    from mdu_tpu_torch import DemoFusionConfig, DiffusionPipeline, SamplerConfig
+    from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, UNet2DCondition, VAEConfig,
+                                      random_state_dict, sdxl_unet_config)
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    ucfg = sdxl_unet_config()
+    with torch.device("meta"):
+        unet = UNet2DCondition(ucfg, dtype=bf16)
+        vae = AutoencoderKL(VAEConfig(), dtype=bf16)
+        cn = ControlNet(ucfg, dtype=bf16)
+    for i, mod in enumerate((unet, vae, cn)):
+        mod.load_state_dict(random_state_dict(mod, i, bf16, dev), strict=True, assign=True)
+    pipe = DiffusionPipeline(unet, vae, controlnet=cn)
+    require(pipe.device.type == "cuda", "pipeline did not resolve to the card")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    size = CFG5["size"]
+    cond = {"crossattn": (torch.randn(1, 77, 2048, generator=gen, device=dev) * 0.1).to(bf16),
+            "vector": torch.zeros(1, ucfg.addition_pooled_dim, dtype=bf16, device=dev),
+            "control": [torch.zeros(1, 3, size, size, dtype=bf16, device=dev)]}
+    uncond = dict(cond, crossattn=torch.zeros(1, 77, 2048, dtype=bf16, device=dev))
+    cfg = DemoFusionConfig(window_size=CFG5["window"], overlap=CFG5["overlap"],
+                           scale_factor=CFG5["scale"], tile_bs=CFG5["tile_bs"],
+                           tile_bs_g=CFG5["tile_bs"], scan_windows=True)
+    sp = SamplerConfig(name="Euler", steps=CFG5["steps"], cfg_scale=CFG5["cfg"],
+                       denoising_strength=CFG5["denoise"])
+    return pipe, cond, uncond, cfg, sp
+
+
+def phase_demofusion():
+    """Config 5 through ``DiffusionPipeline.demofusion``: a warm x2 image
+    (every shape of the x3 one) with its launches pinned; one timed x3
+    image with no flag (seconds per phase, img/min, peak memory; the final
+    latent [1, 4, 384, 384] and finite, three phase latents; launches
+    pinned); one x2 image under the four flags (launches pinned, seconds).
+    Returns the launches of the x3 image and of the flagged one."""
+    import dataclasses
+
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, cfg, sp = build_config5()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_bytes = sum(p.numel() * p.element_size()
+                        for m in (pipe.unet, pipe.controlnet) for p in m.parameters())
+    phase_s = []
+    sample = pipe._sample
+
+    def timed_sample(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sample(*a, **kw)
+        torch.cuda.synchronize()
+        phase_s.append(time.perf_counter() - t)
+        return out
+
+    pipe._sample = timed_sample
+    size, latent = CFG5["size"], CFG5["size"] // 8
+    out = {}
+    runs = (("warm x2", {}, 2, EXPECTED_CONFIG5_X2), ("default", {}, 3, EXPECTED_CONFIG5),
+            ("flagged x2", FLAGS, 2, EXPECTED_CONFIG5_FLAGGED))
+    for label, flags, scale, expected in runs:
+        phase_s.clear()
+        with flags_set(flags):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = pipe.demofusion(cond, uncond, size, size,
+                                  dataclasses.replace(cfg, scale_factor=scale), sp, seed=0,
+                                  decode=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        want = {k: expected.get(k, 0) for k in launches}
+        require(launches == want, f"config 5 {label}: launches {launches}, expected {want}")
+        side = latent * scale
+        require(tuple(res.latents.shape) == (1, 4, side, side),
+                f"config 5 {label}: final latent {tuple(res.latents.shape)}")
+        require(len(res.phase_latents) == scale, f"config 5 {label}: "
+                                                 f"{len(res.phase_latents)} phase latents")
+        require(all(bool(torch.isfinite(p).all()) for p in res.phase_latents),
+                f"config 5 {label}: non-finite latents")
+        require(res.info["DemoFusion"]["Phase sizes"]
+                == [[size * k, size * k] for k in range(1, scale + 1)],
+                f"config 5 {label}: phase sizes {res.info['DemoFusion']['Phase sizes']}")
+        emit("demofusion", config="config 5: SDXL DemoFusion with ControlNet, 1024 -> "
+                                  f"{size * scale}, bf16", run=label, flags=flags, scale=scale,
+             sampler=sp.name, steps=sp.steps, cfg_scale=sp.cfg_scale,
+             denoising_strength=sp.denoising_strength, window=cfg.window_size,
+             overlap=cfg.overlap, tile_bs=cfg.tile_bs, tile_bs_g=cfg.tile_bs_g,
+             guided_calls=C5_CALLS[scale], setup_s=setup_s, seconds=seconds,
+             img_per_min=60.0 / seconds, phase_seconds=list(phase_s),
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             unet_controlnet_weight_bytes=weights_bytes,
+             final_latent_shape=list(res.latents.shape),
+             phase_latent_shapes=[list(p.shape) for p in res.phase_latents],
+             latent_std=[float(p.float().std()) for p in res.phase_latents], finite=True,
+             launches=launches, expected_launches=expected)
+        out[label] = launches
+    del pipe, cond, uncond, res
+    torch.cuda.empty_cache()
+    return {"default": out["default"], "flagged": out["flagged x2"]}
+
+
+def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, config5=None):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels, the fp32 image for the
     fp32 kernels), and beside them its launches per config-3 and per
-    config-4 image (the flagged or the default run, as for config 2) and in
-    the 8K upscale. A kernel with forms also lists the forms checked, the
+    config-4 image (the flagged or the default run, as for config 2), in
+    the 8K upscale and per config-5 image (the x3 image with no flag, the x2
+    one under the four flags). A kernel with forms also lists the forms checked, the
     launches of each form in that run, and every config-2 shape with the
     earlier form's time (attention with the MUFU floor, fp32 with the FMA
     bound and, for attention, SDPA under both backends); #1's wide form has
@@ -1577,6 +1881,9 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None):
                 "flagged" if run == "flagged" else "default", {}).get(counted, 0)
         if upscale8k is not None:
             extra["upscale8k_launches"] = upscale8k.get(counted, 0)
+        if config5 is not None:
+            extra["config5_launches"] = config5.get(
+                "flagged" if run == "flagged" else "default", {}).get(counted, 0)
         forms = sorted({c["form"] for c in checked if c.get("form")})
         if forms:
             extra.update(forms=forms,
@@ -1626,7 +1933,8 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,reference,txt2img,samplers,img2img,regional,upscale8k",
+                    default="kernels,reference,txt2img,samplers,img2img,regional,upscale8k,"
+                            "demofusion",
                     help="comma-separated phases after device and build")
     phases = set(ap.parse_args().phases.split(","))
     try:
@@ -1675,9 +1983,11 @@ def main() -> int:
     config3 = phase_img2img() if "img2img" in phases else None
     config4 = phase_regional() if "regional" in phases else None
     up8k = phase_upscale8k() if "upscale8k" in phases else None
+    config5 = phase_demofusion() if "demofusion" in phases else None
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
-    print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4)}))
+    print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4,
+                                             config5)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,16 +1,17 @@
-"""Configuration dataclasses of the port's txt2img and img2img paths, and the
-region JSON.
+"""Configuration dataclasses of the port's txt2img, img2img and DemoFusion
+paths, the region JSON and the DemoFusion info block.
 
-A copy of the knobs of ``mdu_tpu.config`` that the txt2img, regional and
-img2img upscaling paths read, with the same names and defaults. A knob of a
+A copy of the knobs of ``mdu_tpu.config`` that the txt2img, regional,
+img2img upscaling and DemoFusion paths read, with the same names and defaults. A knob of a
 feature the port does not have yet is kept only where the pipeline checks it
 and raises ``NotImplementedError`` when it is switched on.
 """
 from __future__ import annotations
 
 import json
+import re
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from .utils.bbox import BlendMode, RegionSpec
 
@@ -63,6 +64,33 @@ class TiledVAEConfig:
 
 
 @dataclass
+class DemoFusionConfig:
+    """DemoFusion knobs (ref scripts/tileglobal.py:55-124 UI)."""
+
+    enabled: bool = True
+    window_size: int = 128
+    overlap: int = 64
+    tile_bs: int = 4
+    tile_bs_g: int = 4           # global dilated-view batch size
+    scale_factor: int = 3
+    cosine_scale_1: float = 3.0  # skip-residual schedule
+    cosine_scale_2: float = 1.0  # local/global mix schedule
+    cosine_scale_3: float = 1.0  # gaussian blur sigma schedule
+    sigma: float = 0.6
+    random_jitter: bool = True
+    mixture: bool = False        # run half the global views unblurred
+    gaussian_filter: bool = True
+    keep_intermediate: bool = True
+    denoise_strengths: Tuple[float, ...] = (0.45,)  # per-phase strengths
+    # accepted for the JAX signature's sake and never read: the JAX package
+    # can run the window and view batches as a ``lax.scan`` to bound its
+    # compile memory, which gives the unrolled form's result
+    # (tests/test_demofusion.py::test_demofusion_scan_matches_unrolled);
+    # the port always runs them one after another
+    scan_windows: Optional[bool] = None
+
+
+@dataclass
 class SamplerConfig:
     name: str = "Euler"          # one of samplers.SAMPLERS, optionally + " Karras"
     steps: int = 20
@@ -98,11 +126,19 @@ def regions_to_json(regions: List[RegionSpec]) -> str:
     return json.dumps(payload, indent=2)
 
 
+def _natural_key(key: str):
+    """Sort key that compares the digit runs of ``key`` as numbers: "Region
+    2" before "Region 10". Below ten regions this is the order of the keys
+    sorted as strings, which the JAX package uses for any count."""
+    return [int(t) if i % 2 else t for i, t in enumerate(re.split(r"(\d+)", key))]
+
+
 def regions_from_json(text: str) -> List[RegionSpec]:
-    """The regions of a region-config JSON, in the order of their keys
-    sorted as strings (as the JAX package reads them)."""
+    """The regions of a region-config JSON, in the order of N in the "Region
+    N" keys that ``regions_to_json`` writes (the JAX package sorts the keys
+    as strings, which puts "Region 10" before "Region 2")."""
     out = []
-    for _, d in sorted(json.loads(text).items()):
+    for _, d in sorted(json.loads(text).items(), key=lambda kv: _natural_key(kv[0])):
         out.append(RegionSpec(
             x=round(float(d["x"]), 4), y=round(float(d["y"]), 4),
             w=round(float(d["w"]), 4), h=round(float(d["h"]), 4),
@@ -120,3 +156,28 @@ def regions_from_png_info(info: dict) -> List[RegionSpec]:
     javascript/bboxHint.js:171-221)."""
     block = (info.get("Tiled Diffusion") or {}).get("Region control") or {}
     return regions_from_json(json.dumps(block))
+
+
+def demofusion_from_png_info(info: dict) -> Tuple[DemoFusionConfig, SamplerConfig]:
+    """The DemoFusion and sampler settings from a DemoFusion image's info dict
+    (``GenerationResult.info``; ref tileglobal.py:28-40, 172-191)."""
+    b = info.get("DemoFusion") or {}
+    cfg = DemoFusionConfig(
+        scale_factor=int(b.get("Scale factor", 3)),
+        window_size=int(b.get("Window size", 128)),
+        overlap=int(b.get("Overlap", 64)),
+        tile_bs=int(b.get("Tile batch size", 4)),
+        tile_bs_g=int(b.get("Global batch size", 4)),
+        cosine_scale_1=float(b.get("Cosine scale 1", 3.0)),
+        cosine_scale_2=float(b.get("Cosine scale 2", 1.0)),
+        cosine_scale_3=float(b.get("Cosine scale 3", 1.0)),
+        sigma=float(b.get("Sigma", 0.6)),
+        random_jitter=bool(b.get("Random jitter", True)),
+        mixture=bool(b.get("Mixture", False)),
+        gaussian_filter=bool(b.get("Gaussian filter", True)),
+        keep_intermediate=bool(b.get("Keep intermediate", True)),
+        denoise_strengths=tuple(float(s) for s in b.get("Denoise strengths", (0.45,))),
+    )
+    sp = SamplerConfig(name=info.get("Sampler", "Euler"), steps=int(info.get("Steps", 20)),
+                       cfg_scale=float(info.get("CFG scale", 7.0)))
+    return cfg, sp

@@ -5,8 +5,9 @@
   [out, in]), so a ``/``-path becomes a ``.``-path and no array is
   transposed.
 * ``random_state_dict`` draws random weights on the device, in the scheme of
-  the JAX package's ``random_params``: zero biases, unit norm scales, and
-  uniform +-sqrt(3 / fan_in) for every other weight.
+  the JAX package's ``random_params``: zero biases, unit norm scales, zero
+  ControlNet gates (every ``zero*`` module and ``cond_embedding.conv_out``),
+  and uniform +-sqrt(3 / fan_in) for every other weight.
 """
 from __future__ import annotations
 
@@ -56,7 +57,10 @@ def random_state_dict(module: nn.Module, seed: int, dtype: torch.dtype = torch.f
     for name, ref in module.state_dict().items():
         shape = tuple(ref.shape)
         last = name.rsplit(".", 1)[-1]
-        if last == "bias":
+        if (any(seg.startswith("zero") for seg in name.split("."))
+                or "cond_embedding.conv_out" in name):
+            val = torch.zeros(shape, device=device)
+        elif last == "bias":
             val = torch.zeros(shape, device=device)
         elif last == "weight" and len(shape) == 1:
             val = torch.ones(shape, device=device)

@@ -1,9 +1,13 @@
-"""SD1.5 UNet2DCondition in NCHW (counterpart of ``mdu_tpu/models/unet.py``).
+"""The SD1.5 and SDXL UNet2DCondition in NCHW (counterpart of
+``mdu_tpu/models/unet.py``).
 
 Submodule names follow the flax modules (``down_0_res_0``, ``mid_attn``,
 ``up_1_upsample`` ...), so a flattened JAX parameter tree is this module's
-``state_dict`` (see ``models/convert.py``). This slice ports the SD1.5
-family: conv projections, fixed head count, no addition embedding.
+``state_dict`` (see ``models/convert.py``). SD1.5: conv projections and a
+fixed head count. SDXL: linear projections, head_dim 64, per-level
+transformer depths and the ``text_time`` addition embedding (pooled text
+and size micro-conditions). ControlNet residuals add to the skips and the
+mid state (``residuals``).
 """
 from __future__ import annotations
 
@@ -30,7 +34,10 @@ class UNetConfig:
     head_dim: Optional[int] = None
     transformer_layers: Tuple[int, ...] = (1, 1, 1, 0)   # 0 = no attn block
     use_linear_projection: bool = False
-    addition_embed_type: Optional[str] = None
+    addition_embed_type: Optional[str] = None            # 'text_time' for SDXL
+    addition_time_embed_dim: int = 256
+    addition_pooled_dim: int = 1280
+    num_time_ids: int = 6
     norm_num_groups: int = 32
     adm_in_channels: Optional[int] = None
 
@@ -48,10 +55,24 @@ def sd15_unet_config() -> UNetConfig:
     return UNetConfig()
 
 
+def sdxl_unet_config() -> UNetConfig:
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+        num_heads=None, head_dim=64, transformer_layers=(0, 2, 10),
+        use_linear_projection=True, addition_embed_type="text_time")
+
+
 def tiny_unet_config() -> UNetConfig:
     """Small SD1.5-shaped config for tests (full depth, thin width)."""
     return UNetConfig(block_out_channels=(8, 16, 16, 16), cross_attention_dim=16,
                       num_heads=2, transformer_layers=(1, 1, 1, 0), norm_num_groups=4)
+
+
+def tiny_sdxl_unet_config() -> UNetConfig:
+    return UNetConfig(block_out_channels=(8, 16, 16), cross_attention_dim=16,
+                      num_heads=None, head_dim=8, transformer_layers=(0, 1, 2),
+                      use_linear_projection=True, addition_embed_type="text_time",
+                      addition_time_embed_dim=8, addition_pooled_dim=16, norm_num_groups=4)
 
 
 class CrossAttention(nn.Module):
@@ -106,26 +127,36 @@ class Transformer2D(nn.Module):
     def __init__(self, cfg: UNetConfig, channels: int, depth: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.use_linear_projection:
-            raise NotImplementedError(
-                "linear projections (SD2/SDXL) wait for ROADMAP queue 1, item 18")
         C = channels
+        self.linear = cfg.use_linear_projection
         self.norm = GroupNorm(C, cfg.norm_num_groups, eps=1e-6, dtype=dtype)
-        self.proj_in = Conv2D(C, C, kernel_size=(1, 1), padding=0, dtype=dtype)
+        if self.linear:
+            self.proj_in = Linear(C, C, dtype=dtype)
+        else:
+            self.proj_in = Conv2D(C, C, kernel_size=(1, 1), padding=0, dtype=dtype)
         for d in range(depth):
             self.add_module(f"block_{d}", BasicTransformerBlock(
                 C, cfg.heads_for(C), cfg.cross_attention_dim, dtype=dtype))
-        self.proj_out = Conv2D(C, C, kernel_size=(1, 1), padding=0, dtype=dtype)
+        if self.linear:
+            self.proj_out = Linear(C, C, dtype=dtype)
+        else:
+            self.proj_out = Conv2D(C, C, kernel_size=(1, 1), padding=0, dtype=dtype)
         self.depth = depth
 
     def forward(self, x, context):
         B, C, H, W = x.shape
-        h = self.proj_in(self.norm(x))
-        h = h.reshape(B, C, H * W).transpose(1, 2)
+        h = self.norm(x)
+        if self.linear:
+            h = self.proj_in(h.reshape(B, C, H * W).transpose(1, 2))
+        else:
+            h = self.proj_in(h).reshape(B, C, H * W).transpose(1, 2)
         for d in range(self.depth):
             h = getattr(self, f"block_{d}")(h, context)
-        h = h.transpose(1, 2).reshape(B, C, H, W)
-        return x + self.proj_out(h)
+        if self.linear:
+            h = self.proj_out(h).transpose(1, 2).reshape(B, C, H, W)
+        else:
+            h = self.proj_out(h.transpose(1, 2).reshape(B, C, H, W))
+        return x + h
 
 
 class ResBlock(nn.Module):
@@ -187,9 +218,11 @@ class Upsample2D(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.addition_embed_type is not None or cfg.adm_in_channels is not None:
+        if cfg.adm_in_channels is not None:
             raise NotImplementedError(
-                "addition embeddings (SDXL, unCLIP) wait for ROADMAP queue 1, item 18")
+                "the unCLIP image embedding waits for ROADMAP queue 1, item 12")
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
         self.cfg = cfg
         self.dtype = dtype
         bc = cfg.block_out_channels
@@ -198,6 +231,10 @@ class UNet2DCondition(nn.Module):
         g = cfg.norm_num_groups
         self.time_embed_1 = Linear(bc[0], ted, dtype=dtype)
         self.time_embed_2 = Linear(ted, ted, dtype=dtype)
+        if cfg.addition_embed_type == "text_time":
+            add_in = cfg.addition_pooled_dim + cfg.num_time_ids * cfg.addition_time_embed_dim
+            self.add_embed_1 = Linear(add_in, ted, dtype=dtype)
+            self.add_embed_2 = Linear(ted, ted, dtype=dtype)
         self.conv_in = Conv2D(cfg.in_channels, bc[0], dtype=dtype)
 
         skip_ch = [bc[0]]
@@ -236,13 +273,19 @@ class UNet2DCondition(nn.Module):
         self.norm_out = GroupNorm(ch, g, eps=1e-5, dtype=dtype)
         self.conv_out = Conv2D(ch, cfg.out_channels, dtype=dtype)
 
-    def forward(self, x, timesteps, context):
-        """x [B, C, H, W]; timesteps [B]; context [B, L, D] -> [B, C, H, W]."""
+    def forward(self, x, timesteps, context, added_cond: Optional[dict] = None,
+                residuals: Optional[tuple] = None):
+        """x [B, C, H, W]; timesteps [B]; context [B, L, D] -> [B, C, H, W].
+        ``added_cond`` (SDXL): {"text_embeds": [B, pooled], "time_ids": [B, 6]}.
+        ``residuals``: a ControlNet's (down_residuals, mid_residual), added to
+        the skips and to the mid state (diffusers semantics)."""
         cfg = self.cfg
         bc = cfg.block_out_channels
         L = len(bc)
         temb = timestep_embedding(timesteps, bc[0])
         temb = self.time_embed_2(silu(self.time_embed_1(temb)))
+        if cfg.addition_embed_type == "text_time":
+            temb = temb + text_time_embedding(self, cfg, added_cond, x.shape[0])
 
         h = self.conv_in(x)
         skips = [h]
@@ -256,9 +299,15 @@ class UNet2DCondition(nn.Module):
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
+        if residuals is not None:
+            down_res, mid_res = residuals
+            skips = [s + r for s, r in zip(skips, down_res)]
+
         h = self.mid_res_0(h, temb)
         h = self.mid_attn(h, context)
         h = self.mid_res_1(h, temb)
+        if residuals is not None:
+            h = h + mid_res
 
         for i in range(L):
             level = L - 1 - i
@@ -273,3 +322,16 @@ class UNet2DCondition(nn.Module):
 
         h = self.norm_out(h)
         return self.conv_out(silu(h))
+
+
+def text_time_embedding(module: nn.Module, cfg: UNetConfig, added_cond: Optional[dict],
+                        batch: int):
+    """SDXL's addition embedding: ``add_embed_2(silu(add_embed_1([text_embeds,
+    timestep_embedding(time_ids)])))`` of ``module``, in fp32 before the
+    first layer casts it (``mdu_tpu/models/unet.py:330-338``)."""
+    if added_cond is None or added_cond.get("text_embeds") is None:
+        raise ValueError("an SDXL UNet needs added_cond text_embeds (cond['vector'])")
+    tids = added_cond["time_ids"].reshape(-1)
+    tid_emb = timestep_embedding(tids, cfg.addition_time_embed_dim).reshape(batch, -1)
+    add = torch.cat([added_cond["text_embeds"].float(), tid_emb], dim=-1)
+    return module.add_embed_2(silu(module.add_embed_1(add)))

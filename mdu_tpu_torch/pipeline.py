@@ -1,7 +1,8 @@
 """txt2img and img2img upscaling with MultiDiffusion or Mixture of Diffusers,
-regional prompt control and tiled noise inversion, any of the 15 samplers,
-over the exact or fast tiled VAE (counterpart of the txt2img and img2img
-paths of ``mdu_tpu/pipeline.py``).
+regional prompt control and tiled noise inversion, DemoFusion's progressive
+upscaling, any of the 15 samplers, SD1.5 or SDXL with an optional
+ControlNet, over the exact or fast tiled VAE (counterpart of the txt2img,
+img2img and DemoFusion paths of ``mdu_tpu/pipeline.py``).
 
   plan    = plan_tiled_diffusion(...)                    static geometry, regions
   den_fn  = make_tiled_denoiser(plan, tile_denoise,      CFG'd per-tile and
@@ -18,7 +19,8 @@ seeded with ``seed + i`` on the pipeline's device; a region's seed of -1
 resolves from a CPU generator seeded with ``derived_seed(seed, 1000 + i)``,
 and the noise of the stochastic samplers comes from a generator seeded with
 ``derived_seed(seed, 7)`` (the JAX package folds 1000 + i and 7 into the
-seed's key for the same draws).
+seed's key for the same draws). DemoFusion's phase ``s`` draws its noise
+from a generator seeded with ``derived_seed(seed, 100 + s)``.
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
 Features of ``mdu_tpu`` that this slice does not port raise
@@ -30,12 +32,12 @@ import dataclasses
 import hashlib
 import sys
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .config import SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
+from .config import DemoFusionConfig, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
 from .device import resolve_device
 from .models.unet import UNet2DCondition
 from .models.vae import AutoencoderKL, sample_from_moments
@@ -44,7 +46,9 @@ from .samplers.denoiser import cfg_combine, denoised_from_model, scalings
 from .samplers.samplers import (CHURN_SAMPLERS, STOCHASTIC_SAMPLERS, NoiseFn, base_name,
                                  generator_noise, get_sampler)
 from .samplers.schedule import NoiseSchedule
-from .tiling.conds import Cond, concat_conds, tile_cond
+from .tiling.conds import (Cond, concat_conds, dequantize_hint, fit_cond_canvases, map_leaves,
+                           quantize_control_hints, tile_cond)
+from .tiling.demofusion import demofusion_generate
 from .tiling.regions import compose_region_noise, resolve_seed
 from .tiling.schedulers import DiffusionTilePlan, make_tiled_denoiser, plan_tiled_diffusion
 from .tiling.tiled_vae import (DECODER_PAD, ENCODER_PAD, lockstep_footprint_bytes,
@@ -54,12 +58,10 @@ from .utils.grid import splitable
 from .utils.guided_filter import get_retouch_mask
 from .utils.image import cheap_latent_preview, grayscale_u8, image_to_tensor, tensor_to_image
 
-# cond leaves this slice consumes; the others belong to later slices
-_COND_KEYS = {"crossattn", "concat"}
+# cond leaves the port consumes; the others belong to later slices
+_COND_KEYS = {"crossattn", "concat", "vector", "control", "time_ids"}
 _WAITING = {
-    "control": "ControlNet (ROADMAP queue 1, item 18)",
     "guidance": "StableSR guidance (ROADMAP queue 1, item 18)",
-    "vector": "SDXL conditioning (ROADMAP queue 1, item 18)",
     "adm": "unCLIP conditioning (ROADMAP queue 1, item 12)",
     "__and__": "AND prompt composition (ROADMAP queue 1, item 15)",
     "__bank__": "scheduled prompts (ROADMAP queue 1, item 15)",
@@ -67,6 +69,7 @@ _WAITING = {
 # tags of the derived seeds (see the module's docstring)
 SAMPLER_SEED_TAG = 7
 REGION_SEED_TAG = 1000
+DEMOFUSION_SEED_TAG = 100
 
 
 def derived_seed(seed: int, tag: int) -> int:
@@ -124,10 +127,14 @@ def weights_key(module: torch.nn.Module) -> Tuple:
 
 @dataclass
 class GenerationResult:
-    images: Optional[np.ndarray]          # uint8 [B, H, W, 3]
+    # uint8 [B, H, W, 3]; DemoFusion with keep_intermediate gives a list of
+    # them, one a phase
+    images: Any
     latents: torch.Tensor
     seed: int
     info: Dict[str, Any]
+    # DemoFusion: every phase's latent, the first included
+    phase_latents: Optional[List[torch.Tensor]] = None
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -135,20 +142,23 @@ def _unported(what: str) -> NotImplementedError:
 
 
 class DiffusionPipeline:
-    """Stable-Diffusion txt2img over explicit cond dicts
-    ``{"crossattn": [B, 77, D]}``. ``unet`` and ``vae`` hold their weights
-    and are moved to the pipeline's device."""
+    """Stable Diffusion over explicit cond dicts (``tiling/conds.py``:
+    ``{"crossattn": [B, 77, D]}``, SDXL's ``vector`` and ``time_ids``, and a
+    ``control`` list of hints for the ``controlnet``). ``unet``, ``vae`` and
+    ``controlnet`` hold their weights and are moved to the pipeline's
+    device."""
 
     def __init__(self, unet: UNet2DCondition, vae: AutoencoderKL,
                  schedule: Optional[NoiseSchedule] = None, device=None,
                  controlnet=None, mesh=None, guidance_model=None):
-        if controlnet is not None or guidance_model is not None:
-            raise _unported("ControlNet/StableSR guidance (ROADMAP queue 1, item 18)")
+        if guidance_model is not None:
+            raise _unported("StableSR guidance (ROADMAP queue 1, item 18)")
         if mesh is not None:
             raise _unported("the multi-device mesh (ROADMAP queue 1, item 22)")
         self.device = resolve_device(device)
         self.unet = unet.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
+        self.controlnet = controlnet.to(self.device).eval() if controlnet is not None else None
         self.schedule = schedule or NoiseSchedule()
         self.noise_inverse_cache: Optional[NoiseInverseCache] = None
         # which step of the decode's NaN chain gave the last image: "decode",
@@ -165,19 +175,44 @@ class DiffusionPipeline:
         for key in c:
             if key not in _COND_KEYS:
                 raise _unported(_WAITING.get(key, f"cond leaf {key!r}"))
-        return {k: torch.as_tensor(v, device=self.device) for k, v in c.items()}
+        return map_leaves(lambda v: torch.as_tensor(v, device=self.device), c)
 
     def _model_fn(self):
-        unet = self.unet
+        """``fn(x, t, cond)``: the UNet with SDXL's added cond (``vector``,
+        and ``time_ids``, ones of [B, 6] by default) and the ControlNet's
+        residuals from the first hint, dequantised (``mdu_tpu/pipeline.py:
+        175-237``)."""
+        unet, controlnet = self.unet, self.controlnet
+        is_xl = unet.cfg.addition_embed_type == "text_time"
 
         def fn(x, t, cond: Cond):
             xin = x
             cc = cond.get("concat")
             if cc is not None and cc.shape[-2:] == x.shape[-2:] and cc.shape[1] > 0:
                 xin = torch.cat([x, cc.to(x.dtype)], dim=1)
-            return unet(xin, t, cond["crossattn"])
+            added = None
+            if is_xl:
+                tids = cond.get("time_ids")
+                if tids is None:
+                    tids = torch.ones((x.shape[0], unet.cfg.num_time_ids), device=x.device)
+                added = {"text_embeds": cond.get("vector"), "time_ids": tids}
+            residuals = None
+            hints = cond.get("control")
+            if controlnet is not None and hints:
+                residuals = controlnet(xin, t, cond["crossattn"],
+                                       dequantize_hint(hints[0], x.dtype), added)
+            return unet(xin, t, cond["crossattn"], added, residuals=residuals)
 
         return fn
+
+    def _fit_cond(self, c: Optional[Cond], h: int, w: int) -> Optional[Cond]:
+        """The cond on the device with its hints fitted to the (h, w) latent
+        canvas and large ones stored as uint8 (``mdu_tpu/pipeline.py:683-685``)."""
+        return quantize_control_hints(fit_cond_canvases(self._cond(c), (h, w)))
+
+    def _region_conds(self, region_conds: Sequence) -> list:
+        return [(quantize_control_hints(self._cond(c)), quantize_control_hints(self._cond(u)))
+                for c, u in region_conds]
 
     def _make_guided(self, cfg_scale: float):
         """``guided(x, sigma, c, u)``: the CFG'd denoiser, [uncond, cond]
@@ -187,13 +222,13 @@ class DiffusionPipeline:
         def _align(c, B):
             if c is None:
                 return None
-            out = {}
-            for k, leaf in c.items():
-                n = leaf.shape[0]
-                out[k] = (leaf.repeat_interleave(B // n, dim=0)
-                          if leaf.dim() >= 1 and n not in (0, B) and B % n == 0
-                          else leaf)
-            return out
+
+            def rep(leaf):
+                n = leaf.shape[0] if leaf.dim() >= 1 else 0
+                return (leaf.repeat_interleave(B // n, dim=0)
+                        if n not in (0, B) and B % n == 0 else leaf)
+
+            return map_leaves(rep, c)
 
         def guided(x, sigma, c, u):
             B = x.shape[0]
@@ -349,9 +384,9 @@ class DiffusionPipeline:
         h, w = noise.shape[2], noise.shape[3]
         if plan is None:
             plan = self._plan(tiled_diffusion, h, w)
-        den_fn = self._make_denoised_fn(plan, self._cond(cond), self._cond(uncond),
-                                        sp.cfg_scale,
-                                        [(self._cond(c), self._cond(u)) for c, u in region_conds])
+        den_fn = self._make_denoised_fn(plan, self._fit_cond(cond, h, w),
+                                        self._fit_cond(uncond, h, w), sp.cfg_scale,
+                                        self._region_conds(region_conds))
         sigmas = torch.as_tensor(self.schedule.sampling_sigmas(sp.steps, sp.schedule),
                                  device=self.device)
         latents = self._sample(sp, den_fn, noise * sigmas[0], sigmas,
@@ -437,7 +472,6 @@ class DiffusionPipeline:
                   "-> 'Euler' (ref convention)", file=sys.stderr)
             sp = dataclasses.replace(sp, name="Euler")
         self._check_sampler(sp)
-        cond, uncond = self._cond(cond), self._cond(uncond)
 
         if init_latents is not None:
             # latent-space entry; the renoise mask needs pixels
@@ -455,6 +489,8 @@ class DiffusionPipeline:
                 moments.dtype, self.device))
             init_latent = init_latent * self.vae.cfg.scaling_factor
         h, w = init_latent.shape[-2], init_latent.shape[-1]
+        cond, uncond = self._fit_cond(cond, h, w), self._fit_cond(uncond, h, w)
+        inversion_cond = self._cond(inversion_cond) if inversion_cond is not None else cond
 
         plan = self._plan(td, h, w)
         drawn = isinstance(noise, torch.Generator)
@@ -470,14 +506,12 @@ class DiffusionPipeline:
         if td is not None and td.noise_inverse:
             # sigma0 is the full schedule's sigma_max (ref abstractdiffusion.py:651)
             noise = self._noise_inverse_combined_noise(
-                x_img, init_latent, noise, td, plan,
-                inversion_cond=self._cond(inversion_cond) if inversion_cond is not None
-                else cond, sigma0=all_sigmas[0])
+                x_img, init_latent, noise, td, plan, inversion_cond=inversion_cond,
+                sigma0=all_sigmas[0])
 
         x = init_latent + noise * sigmas[0]
         den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale,
-                                        [(self._cond(c), self._cond(u))
-                                         for c, u in region_conds])
+                                        self._region_conds(region_conds))
         if mask is not None:
             # masked redraw: the denoised estimate blends with the initial
             # latent each step (A1111 semantics)
@@ -496,6 +530,51 @@ class DiffusionPipeline:
         if target_size is not None:
             info["Target size"] = [int(target_size[0]), int(target_size[1])]
         return GenerationResult(images, latents, seed, info)
+
+    # ------------------------------------------------------------ DemoFusion
+
+    def demofusion(self, cond: Cond, uncond: Optional[Cond], width: int, height: int,
+                   cfg: Optional[DemoFusionConfig] = None,
+                   sampler: Optional[SamplerConfig] = None, seed: int = 0,
+                   init_latent=None, tiled_vae: Optional[TiledVAEConfig] = None,
+                   decode: bool = True) -> GenerationResult:
+        """Progressive xN upscaling (ref scripts/tileglobal.py; see
+        ``tiling/demofusion.py``) from a ``width`` x ``height`` first phase.
+        Phase 1's noise comes from a ``torch.Generator`` seeded with ``seed``,
+        as txt2img's; phase ``s``'s from one seeded with
+        ``derived_seed(seed, 100 + s)``."""
+        cfg = cfg or DemoFusionConfig()
+        C, h, w = self.unet.cfg.out_channels, height // 8, width // 8
+
+        def draw(seed_s, scale):
+            gen = torch.Generator(device=self.device).manual_seed(seed_s)
+            return torch.randn((1, C, h * scale, w * scale), generator=gen, device=self.device)
+
+        return self._demofusion_from_noise(
+            draw(seed, 1), [draw(derived_seed(seed, DEMOFUSION_SEED_TAG + s), s)
+                            for s in range(2, cfg.scale_factor + 1)],
+            cond, uncond, width, height, cfg, sampler, seed, init_latent, tiled_vae, decode)
+
+    @torch.inference_mode()
+    def _demofusion_from_noise(self, base_noise, phase_noises: Sequence, cond: Cond,
+                               uncond: Optional[Cond], width: int, height: int,
+                               cfg: Optional[DemoFusionConfig] = None,
+                               sampler: Optional[SamplerConfig] = None, seed: int = 0,
+                               init_latent=None, tiled_vae: Optional[TiledVAEConfig] = None,
+                               decode: bool = True, sampler_noise=None) -> GenerationResult:
+        """DemoFusion from given unit noise: ``base_noise`` [1, 4, h, w] for
+        phase 1 and ``phase_noises``, the later phases' noises in order.
+        ``sampler_noise`` as in ``_txt2img_from_noise``, for every phase."""
+        cfg = cfg or DemoFusionConfig()
+        sp = sampler or SamplerConfig()
+        self._check_sampler(self._resolve_sampler(sp))
+        # hints to the base canvas; the phases resize them themselves
+        h, w = height // 8, width // 8
+        cond = fit_cond_canvases(self._cond(cond), (h, w))
+        uncond = fit_cond_canvases(self._cond(uncond), (h, w))
+        return demofusion_generate(self, cond, uncond, width, height, base_noise, phase_noises,
+                                   cfg, sp, seed, self._sampler_noise(sampler_noise, seed),
+                                   init_latent, tiled_vae, decode)
 
     # ------------------------------------------------------- noise inversion
 

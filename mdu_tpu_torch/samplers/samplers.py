@@ -371,13 +371,16 @@ def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
                         rtol: float = 0.05, atol: float = 0.0078, h_init: float = 0.05,
                         pcoeff: float = 0.0, icoeff: float = 1.0, dcoeff: float = 0.0,
                         accept_safety: float = 0.81, max_iters: int = 128,
-                        decisions: Optional[List[bool]] = None):
+                        decisions: Optional[List[bool]] = None,
+                        factors: Optional[List[float]] = None):
     """DPM-Solver-12/23 adaptive (k-diffusion dpm_solver_adaptive): embedded
     (order-1, 2 | 2, 3) pairs estimate the local error, which drives a PID
     step-size controller with the atan limiter. A host loop of at most
     ``max_iters`` iterations: each reads the step's accept decision on the
-    host (appended to ``decisions`` when given). ``sigmas`` gives only the
-    endpoints. Ends with the exact jump to sigma 0, as DPM fast."""
+    host (appended to ``decisions`` when given, and the controller's factor
+    that decided it, held against ``accept_safety``, to ``factors``).
+    ``sigmas`` gives only the endpoints. Ends with the exact jump to sigma 0,
+    as DPM fast."""
     sig_np = _host(sigmas).numpy()
     t_end = float(-np.log(sig_np[-2]))
     stop = torch.tensor(t_end - 1e-5, dtype=torch.float32)
@@ -417,9 +420,12 @@ def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
         e2 = torch.where(errs[2] > 0, errs[2], e0)
         factor = e0 ** b1 * e1 ** b2 * e2 ** b3
         factor = 1 + torch.atan(factor - 1)
-        accept = bool(factor.cpu() >= accept_safety)
+        factor_host = factor.cpu()
+        accept = bool(factor_host >= accept_safety)
         if decisions is not None:
             decisions.append(accept)
+        if factors is not None:
+            factors.append(float(factor_host))
         if accept:
             x, x_prev, s = x_high, x_low, t
             errs = torch.stack([e0, e0, e1])

@@ -85,7 +85,11 @@ def plan_tiled_diffusion(method: str, latent_h: int, latent_w: int,
     ref --md_max_regions), resolve to latent bboxes and a BACKGROUND region
     paints a gaussian of its size under MoD, a 1 under MD."""
     if method not in (Method.MULTI_DIFF, Method.MIX_DIFF):
-        raise NotImplementedError(f"{method} waits for ROADMAP queue 1, item 19 (DemoFusion)")
+        # the JAX planner runs any other name as MultiDiffusion; DemoFusion
+        # has its own entry point
+        raise NotImplementedError(
+            f"the tile planner takes {Method.MULTI_DIFF!r} and {Method.MIX_DIFF!r}; "
+            f"for {method!r} call DiffusionPipeline.demofusion")
     tile_h = min(tile_h, latent_h)
     tile_w = min(tile_w, latent_w)
     overlap = clamp_overlap(tile_w, tile_h, overlap)

@@ -50,3 +50,13 @@ def grayscale_u8(img_u8: np.ndarray) -> np.ndarray:
         return img
     f = img[..., :3].astype(np.float32)
     return (f @ np.array([0.299, 0.587, 0.114], np.float32)).astype(np.uint8)
+
+
+def hint_to_tensor(img_u8: np.ndarray) -> torch.Tensor:
+    """uint8 [H, W, 3] (or [H, W] grey) -> fp32 [1, 3, H, W] in [0, 1] on the
+    CPU: the ControlNet hint range."""
+    img = np.asarray(img_u8)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    x = img[..., :3].astype(np.float32) / 255.0
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None]))

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of one config-2, config-3 or config-4 image goes in the
-PyTorch port, on the card.
+"""Where the time of one config-2, config-3, config-4 or config-5 image goes
+in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_config2.py [--config 2|3|4] [--dtype bfloat16|float32]
+    python3 scripts/profile_torch_config2.py [--config 2|3|4|5] [--dtype bfloat16|float32]
                                              [--out PATH]
 
 Builds config 2 exactly as ``chip_smoke.py`` does (SD1.5 random weights, in
@@ -14,7 +14,13 @@ MoD img2img x4 of a 512 x 512 image with noise inversion, exact tiled encode
 and decode; the noise-inversion cache is freed before every image), or with
 ``--config 4`` config 4 as ``chip_smoke.build_config4`` does (bf16 only:
 MultiDiffusion txt2img at 1536 x 1536 with four BACKGROUND regions, exact
-tiled decode), runs one warm-up image, one image timed on the host clock (ending in a
+tiled decode), or with ``--config 5`` config 5 as ``chip_smoke.build_config5``
+does (bf16 only: SDXL DemoFusion x3 with ControlNet from 1024 x 1024, no
+decode; its warm-up image is a x2 one, which has every shape, and so is its
+profiled image: phases 1 and 2, 90 of the x3 image's 270 guided calls, whose
+phase 2 calls have the shapes of phase 3's: the profiler took more than 15
+minutes over a x3 image's events on the card's host), runs one
+warm-up image, one image timed on the host clock (ending in a
 synchronize), then one image under ``torch.profiler``. Prints one JSON line:
 the wall time of the image
 without the profiler, the device time summed over kernels, the device busy
@@ -73,9 +79,10 @@ def main() -> int:
     ap.add_argument("--out", help="also write the result as JSON to this file")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the models' dtype (default bfloat16, as config 2 runs)")
-    ap.add_argument("--config", choices=("2", "3", "4"), default="2",
-                    help="config 2 (txt2img, the default), config 3 (img2img, bf16) or "
-                         "config 4 (regional txt2img, bf16)")
+    ap.add_argument("--config", choices=("2", "3", "4", "5"), default="2",
+                    help="config 2 (txt2img, the default), config 3 (img2img, bf16), "
+                         "config 4 (regional txt2img, bf16) or config 5 (SDXL DemoFusion "
+                         "with ControlNet, bf16)")
     args = ap.parse_args()
     if args.config != "2" and args.dtype != "bfloat16":
         ap.error(f"config {args.config} runs in bf16")
@@ -101,6 +108,19 @@ def main() -> int:
             pipe.free_cache()
             pipe.img2img(img, cond, uncond, sampler=sp, seed=seed, tiled_diffusion=td,
                          tiled_vae=tv)
+            torch.cuda.synchronize()
+    elif args.config == "5":
+        import dataclasses
+
+        pipe, cond, uncond, cfg, sp = chip_smoke.build_config5()
+        size = chip_smoke.CFG5["size"]
+
+        def image(seed):
+            # the warm-up (seed 0) and the profiled image (seed 2) at x2
+            scale = 2 if seed in (0, 2) else cfg.scale_factor
+            pipe.demofusion(cond, uncond, size, size,
+                            dataclasses.replace(cfg, scale_factor=scale), sp, seed=seed,
+                            decode=False)
             torch.cuda.synchronize()
     elif args.config == "4":
         pipe, cond, uncond, sp, td, tv, rc = chip_smoke.build_config4()
@@ -162,6 +182,7 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(0),
         "config": int(args.config),
+        "profiled_scale": 2 if args.config == "5" else None,
         "dtype": args.dtype,
         "flags": {k: os.environ[k] for k in sorted(chip_smoke.FLAGS) if k in os.environ},
         "nvidia_smi": chip_smoke.nvidia_smi_line(),

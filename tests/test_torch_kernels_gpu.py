@@ -35,6 +35,8 @@ CASES = [
     ("flash_attention_fm", (2, 8, 576, 576, 160), "sm90"),   # config 3's UNet level 2
     ("flash_attention_fm", (2, 8, 9216, 9216, 40), "sm90"),  # config 4's region calls, level 0
     ("flash_attention_fm", (2, 8, 2304, 2304, 80), "sm90"),  # and level 1
+    ("flash_attention_fm", (4, 10, 4096, 4096, 64), "sm90"),  # config 5's SDXL level 1
+    ("flash_attention_fm", (4, 20, 1024, 1024, 64), "sm90"),  # and level 2
     ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
     ("flash_attention", (1, 1, 17424, 17424, 512), "wide"),  # config 3's encoder mid-block
     ("flash_attention", (4, 1, 13924, 13924, 512), "wide"),  # config 4's decoder mid-block
@@ -54,6 +56,8 @@ CASES = [
     ("flash_attention_t", (2, 8, 9216, 9216, 40), "sm90"),   # config 4's region calls
     ("flash_attention_t", (2, 8, 2304, 2304, 80), "sm90"),
     ("flash_attention_t", (2, 8, 576, 576, 160), "sm90"),
+    ("flash_attention_t", (4, 10, 4096, 4096, 64), "sm90"),   # config 5's SDXL levels
+    ("flash_attention_t", (4, 20, 1024, 1024, 64), "sm90"),
 ]
 # (kernel, (B, H, Lq, Lk, D), the fp32 form the wrapper must pick)
 CASES_F32 = [
@@ -416,6 +420,8 @@ def test_fm_bf16_exp_takes_the_mma_form_by_rule(D, unaligned):
     ((1, 416, 128, 256), torch.float32, "two_read"),    # 1.7 MB a group: past what a cluster holds
     ((2, 320, 96, 96), torch.bfloat16, "two_read"),     # config 4's region calls, level 0
     ((2, 640, 48, 48), torch.bfloat16, "two_read"),     # and level 1
+    ((4, 320, 128, 128), torch.bfloat16, "cluster"),    # config 5's norm_out (42 MB)
+    ((4, 2560, 32, 32), torch.bfloat16, "two_read"),    # its widest up-block concat
 ])
 def test_group_norm_kernel_matches_plain(shape, dtype, form):
     dev = _card()
@@ -533,6 +539,7 @@ def test_tile_blend_kernel_on_mod_weighted_tiles(h, w, BC):
     (2, 7, 9, 12, 20, torch.bfloat16, "mma"),        # odd H, W, C: no 16-byte loads
     (2, 96, 96, 320, 320, torch.bfloat16, "sm90"),   # config 4's region calls, level 0
     (2, 48, 48, 640, 640, torch.bfloat16, "sm90"),   # and level 1
+    (4, 128, 128, 320, 320, torch.bfloat16, "sm90"),  # config 5's level 0
     (2, 64, 96, 320, 320, torch.float32, "sm90"),   # config 2's four widths
     (2, 64, 96, 640, 320, torch.float32, "sm90"),
     (2, 32, 48, 320, 640, torch.float32, "sm90"),

@@ -241,13 +241,16 @@ def test_unported_features_raise(pipes):
         dict(region_unet_params=[object()]),                          # per-region LoRA
         dict(sampler=SamplerConfig(steps=1, deepcache=2)),
         dict(step_callback=lambda i, x: None),
-        dict(tiled_diffusion=TiledDiffusionConfig(method=Method.DEMO_FU, tile_w=8,
-                                                  tile_h=8, overlap=4)),
         dict(tiled_vae=TiledVAEConfig(streaming=True, fast_decoder=False)),
     ]
     for extra in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.txt2img(c, u, **{**tiny, **extra})
+    # DemoFusion has its own entry point (the JAX planner would run the name
+    # as MultiDiffusion)
+    with pytest.raises(NotImplementedError, match="DiffusionPipeline.demofusion"):
+        port.txt2img(c, u, **tiny, tiled_diffusion=TiledDiffusionConfig(
+            method=Method.DEMO_FU, tile_w=8, tile_h=8, overlap=4))
     img = np.zeros((64, 64, 3), np.uint8)
     i2i = dict(sampler=SamplerConfig(steps=2, denoising_strength=0.5))
     for extra in (dict(cond={**c, "adm": np.zeros((1, 8), np.float32)}),   # unCLIP
@@ -257,8 +260,8 @@ def test_unported_features_raise(pipes):
         kw = {"cond": c, **i2i, **extra}
         with pytest.raises(NotImplementedError, match="item 1[236]"):
             port.img2img(img, kw.pop("cond"), u, **kw)
-    with pytest.raises(NotImplementedError, match="ControlNet"):
-        port.txt2img({**c, "control": [np.zeros((1, 3, 128, 128), np.float32)]}, u, **tiny)
+    with pytest.raises(NotImplementedError, match="StableSR"):
+        port.txt2img({**c, "guidance": np.zeros((1, 4, 16, 16), np.float32)}, u, **tiny)
     with pytest.raises(NotImplementedError, match="mesh"):
         DiffusionPipeline(port.unet, port.vae, device="cpu", mesh=object())
 

@@ -90,6 +90,31 @@ def test_region_json_round_trip_matches_jax():
     assert pcfg.regions_from_png_info({}) == []
 
 
+TWELVE = [RegionSpec(i / 20, i / 50, 0.3, 0.25, prompt=f"p{i}", seed=i) for i in range(12)]
+
+
+def test_region_json_keeps_the_order_of_twelve_regions():
+    """"Region 10" .. "Region 12" come after "Region 9": the port reads the
+    keys in the order of N, so a reloaded config of ten or more regions
+    pairs region i with region_conds[i] as it was saved."""
+    text = pcfg.regions_to_json(TWELVE)
+    assert pcfg.regions_from_json(text) == TWELVE
+    shuffled = json.dumps(dict(reversed(list(json.loads(text).items()))))
+    assert pcfg.regions_from_json(shuffled) == TWELVE
+    info = {"Tiled Diffusion": {"Region control": json.loads(text)}}
+    assert [r.prompt for r in pcfg.regions_from_png_info(info)] == [f"p{i}" for i in range(12)]
+
+
+def test_jax_region_json_reorders_twelve_regions():
+    """The JAX package sorts the keys as strings (a known fault it keeps):
+    its twelve regions come back as p0, p9, p10, p11, p1, ..., p8, and the
+    port's differ from them."""
+    text = jcfg.regions_to_json([jspec(r) for r in TWELVE])
+    got = [r.prompt for r in jcfg.regions_from_json(text)]
+    assert got == ["p0", "p9", "p10", "p11"] + [f"p{i}" for i in range(1, 9)]
+    assert [r.prompt for r in pcfg.regions_from_json(text)] != got
+
+
 @pytest.mark.parametrize("case", ["bg_overlap", "fg_over_bg", "batch"])
 def test_compose_region_noise_matches_jax(case, monkeypatch):
     """The composition with the port's own patches injected into the JAX

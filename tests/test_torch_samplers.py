@@ -190,6 +190,18 @@ def test_dpm_adaptive_records_its_decisions():
         assert decisions == [True] * 5 + [False] + [True] * 2
 
 
+def test_dpm_adaptive_records_the_factor_of_each_decision():
+    """``factors`` gets the controller's factor of every decision: a step is
+    accepted exactly where its factor reaches the 0.81 safety."""
+    sig = torch.from_numpy(_sigmas(6, "automatic"))
+    decisions, factors = [], []
+    samplers.sample_dpm_adaptive(den_torch, torch.from_numpy(X0) * sig[0], sig,
+                                 decisions=decisions, factors=factors)
+    assert len(factors) == len(decisions) == 8
+    assert decisions == [f >= 0.81 for f in factors]
+    assert all(np.isfinite(factors))
+
+
 @pytest.mark.parametrize("steps", [1, 2, 20, 37])
 def test_karras_and_ddim_timesteps_match_jax(steps):
     np.testing.assert_array_equal(schedule.sigmas_karras(steps, 14.6146, 0.0292),
