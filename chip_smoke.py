@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,img2img,regional,
-                                    upscale8k,demofusion]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,prompts,load,img2img,
+                                    stream,regional,upscale8k,stream8k,demofusion]
 
-Phases, one JSON line each (all of them unless ``--phases`` names some;
-``device`` and ``build`` always run):
+Phases, one JSON line each (all of them but ``stream8k`` unless ``--phases``
+names some; ``device`` and ``build`` always run):
 
 1. ``device``    the card's name and count; the ``nvidia-smi`` name and power
                  limit line is printed as it is.
@@ -117,7 +117,15 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  card as on the CPU in fp32; in bf16 both devices' decisions
                  are printed, with the first that differs, both factors
                  there, the 0.81 they are held against and bf16's rounding
-                 of the factor (``_first_difference``).
+                 of the factor (``_first_difference``). Last, this slice's
+                 tiny paths, the same way (``phase_reference_slice``): the
+                 streaming VAE's decode and encode in stream-device,
+                 stream-host and stream-host with fp8 spills (the fp8 runs
+                 against the CPU's fp32 run without spills, within 2x the
+                 CPU fp8 run's own error + 1e-3 of the largest value), the
+                 tiny conditioner on a prompt with emphasis, BREAK, a
+                 schedule and AND and a txt2img from it, and a tiny
+                 single-file round trip with a LoRA merge.
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
@@ -134,6 +142,20 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  1 timed image each, launches pinned: #1 200 and 390, the
                  latter 39 UNet calls: two on each of 19 steps, one on the
                  last).
+6a. ``prompts``  config 2 from prompt strings (``phase_prompts``): a plain
+                 prompt and a schedule with an AND of two weighted branches
+                 through a full-width CLIP-L with random bf16 weights and a
+                 char-level vocab; each encode's ms, the conds held to the
+                 CPU conditioner on the same weights (bf16 bar), 1 warm and
+                 1 timed image each with launches pinned; the SDXL
+                 conditioner (CLIP-L + OpenCLIP-bigG) on one pair.
+6b. ``load``     config 2's weights and a random CLIP-L written as one LDM
+                 single file (bf16) with a tokenizer folder and a rank-8
+                 kohya LoRA, in a temporary directory of the checkout,
+                 loaded with ``load_single_file``: every tensor bit-equal,
+                 the config-2 image equal to the in-memory pipeline's, the
+                 merged LoRA within one bf16 rounding of the fp32 reference
+                 (``phase_load``).
 7. ``img2img``   config 3 through ``DiffusionPipeline.img2img`` as
                  ``bench.py:345-377`` runs it: a 512 x 512 image, Lanczos x4
                  to 2048 x 2048, Mixture of Diffusers (tile 96, overlap 8,
@@ -144,6 +166,12 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  four flags; ``free_cache()`` before each of 1 warm and 2
                  timed images. Launches per image pinned; the output (1,
                  2048, 2048, 3), finite, and the decode's NaN chain not taken.
+7a. ``stream``   config 3's exact decode and encode in lockstep,
+                 stream-device, stream-host and stream-host with fp8 spills,
+                 each forced by an ``MDU_HBM_BYTES`` budget and the mode
+                 checked, against a stream-host run of the fp32 VAE;
+                 seconds, peak memory and #2's launches (one a group) of
+                 each (``phase_stream``).
 8. ``regional``  config 4 through ``DiffusionPipeline.txt2img`` as
                  ``bench.py:545-577`` runs it: 1536 x 1536 (a 192 x 192
                  latent), four BACKGROUND regions of 0.5 x 0.5 at the
@@ -161,6 +189,9 @@ Phases, one JSON line each (all of them unless ``--phases`` names some;
                  tiled VAE, encoder tile 512, decoder tile 64, ``tile_batch``
                  8), ``decode=False`` and then ``_decode_tensor``; launches
                  pinned, the output finite.
+9a. ``stream8k`` (named only) the 8K's exact decode in the mode the
+                 pipeline picks: mode, footprints against free memory,
+                 seconds, peak device memory, host peak RSS.
 10. ``demofusion`` config 5 through ``DiffusionPipeline.demofusion`` as
                  ``bench.py:579-640`` builds it: the SDXL UNet and a ControlNet
                  of its config (and the SD VAE, built and not run), random
@@ -184,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -300,11 +332,13 @@ KERNELS = {
         # config 3's levels 0, 1, 2 (D = 160: the sm90 form's widest head)
         # config 4's region calls (batch 2) at levels 0, 1, 2
         # config 5's SDXL levels 1 and 2 (D = 64) at batch 4 and 2
+        # config 2 under an AND of two prompts (phase prompts): 15 tiles a call
         shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                 (1, 1, 700, 13), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
                 (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
                 (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160),
-                (4, 10, 4096, 64), (4, 20, 1024, 64), (2, 10, 4096, 64), (2, 20, 1024, 64)],
+                (4, 10, 4096, 64), (4, 20, 1024, 64), (2, 10, 4096, 64), (2, 20, 1024, 64),
+                (15, 8, 6144, 40), (15, 8, 1536, 80)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
@@ -315,10 +349,16 @@ KERNELS = {
         # 200 (off 64); D = 300 (D % 8 != 0: the split-D mma.sync form); then
         # config 3's encoder (17424 tokens: a ragged last block) and decoder,
         # the 8K's encoder and decoder chunks and its statistics passes;
-        # config 4's decoder mid-block (4 tiles of 118 latent)
+        # config 4's decoder mid-block (4 tiles of 118 latent); the streaming
+        # VAE's groups
         shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (1, 2, 1000, 200), (1, 1, 500, 300),
                 (4, 1, 17424, 512), (16, 1, 7396, 512), (8, 1, 5184, 512), (8, 1, 7396, 512),
-                (1, 1, 4096, 512), (4, 1, 13924, 512)],
+                (1, 1, 4096, 512), (4, 1, 13924, 512),
+                # the streaming exact VAE's groups (phase stream): config 3's decode
+                # in stream-device (groups of 2) and stream-host (3: 4 asked, the 4
+                # GiB budget clamps it), its encode in stream-device (2) and
+                # stream-host (1); the 8K's decode groups of 8 are the shape above
+                (2, 1, 7396, 512), (3, 1, 7396, 512), (2, 1, 17424, 512), (1, 1, 17424, 512)],
         # fp32: the VAE's (wide form), ragged, config 2's level 0 as
         # MDU_FLASH=trans sends it (sm90), an odd D (simt)
         f32_shapes=[(2, 1, 9600, 512), (1, 1, 1000, 512), (10, 8, 6144, 40), (1, 1, 700, 13)]),
@@ -1835,14 +1875,700 @@ def phase_demofusion():
     return {"default": out["default"], "flagged": out["flagged x2"]}
 
 
-def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, config5=None):
+# ------------------------------------------------ streaming VAE, prompts, checkpoints
+
+
+def synth_vocab(vocab_size: int):
+    """A char-level CLIP vocab: every byte's character alone and word-final,
+    no merges (a whole-word vocab would send every word to <eot>), bos and
+    eot at the top of the id space. Returns (vocab, merges)."""
+    from mdu_tpu_torch.text.tokenizer import bytes_to_unicode
+
+    chars = sorted(set(bytes_to_unicode().values()))
+    vocab = {ch: i for i, ch in enumerate(chars)}
+    vocab.update({ch + "</w>": len(chars) + i for i, ch in enumerate(chars)})
+    vocab.update({"<|startoftext|>": vocab_size - 2, "<|endoftext|>": vocab_size - 1})
+    return vocab, []
+
+
+def cond_tensors(c):
+    """Every tensor of a cond (plain, bank or AND), in order, flattened into
+    one fp32 CPU vector."""
+    import torch
+
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for key in sorted(x):
+                if key not in ("__index__", "__weights__"):
+                    walk(x[key])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            out.append(x.detach().float().cpu().reshape(-1))
+
+    walk(c)
+    return torch.cat(out)
+
+
+def _hold_parts(label, got, ref, own_err, dtype):
+    """``got`` parts against ``ref`` parts: fp32 within 1e-4 of the largest
+    reference value, a reduced precision within 2x ``own_err`` (the CPU's
+    own error in that precision) + 1e-3 of it. Returns the fields."""
+    import torch
+
+    fields = {}
+    for name in ref:
+        scale = ref[name].abs().max().item()
+        err = (got[name] - ref[name]).abs().max().item()
+        tol = 1e-4 * scale if own_err is None else 2.0 * own_err[name] + 1e-3 * scale
+        require(bool(torch.isfinite(got[name]).all()), f"{label} {dtype} {name}: non-finite")
+        require(err <= tol, f"{label} {dtype} {name}: max abs err {err} > {tol}")
+        fields.update({f"{name}_max_abs_err": err, f"{name}_tol": tol})
+    return fields
+
+
+def _tiny_vae(device, dtype):
+    """The tiny VAE with random weights drawn on the CPU."""
+    from mdu_tpu_torch.models import AutoencoderKL, random_state_dict, tiny_vae_config
+
+    vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
+    vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
+    return vae.to(device).eval()
+
+
+def _tiny_stream(host_resident, spill):
+    """The streaming decode of a 48 x 48 latent at tile 24 (4 tiles of 46:
+    2116 tokens at the mid-block) and encode of a 384 x 384 image at tile 192
+    (4 tiles of 256 px: 1024 tokens), groups of 2, on the tiny VAE.
+    Returns ``run(device, dtype) -> {"image", "moments"}`` on the CPU in fp32."""
+
+    def run(device, dtype):
+        import torch
+
+        from mdu_tpu_torch.tiling.streaming_vae import streaming_tiled_vae
+
+        vae = _tiny_vae(device, dtype)
+        gen = torch.Generator().manual_seed(12)
+        z = (torch.randn(1, 4, 48, 48, generator=gen) * 0.5).to(device)
+        x = (torch.rand(1, 3, 384, 384, generator=gen) * 2 - 1).to(device)
+        kw = dict(group_size=2, host_resident=host_resident, spill_dtype=spill)
+        return {"image": streaming_tiled_vae(vae, z, "decoder", 24, **kw).float().cpu(),
+                "moments": streaming_tiled_vae(vae, x, "encoder", 192, **kw).float().cpu()}
+
+    return run
+
+
+# every branch and the uncond in two chunks: AND branches are batched, so
+# their chunk counts must agree, as in the JAX package
+PROMPT_TINY = ("a (red:1.3) cat BREAK under a [sunny:rainy:2] sky AND a hat BREAK on a "
+               "table:0.5", "blurry BREAK lowres")
+
+
+def _tiny_prompt(device, dtype):
+    """The tiny CLIP (random weights drawn on the CPU, a char-level vocab) on
+    a prompt with emphasis, BREAK, a schedule and AND, then the tiny
+    pipeline's txt2img from it (the 32 x 64 latent of ``_tiny_run``, Euler 3
+    steps, no decode). Returns {"conds", "latent"} on the CPU in fp32."""
+    import torch
+
+    from mdu_tpu_torch import SamplerConfig, TiledDiffusionConfig
+    from mdu_tpu_torch.models.clip import CLIPTextModel, tiny_clip_config
+    from mdu_tpu_torch.text import CLIPTokenizer, TextConditioner
+
+    cfg = tiny_clip_config()
+    clip = CLIPTextModel(cfg, dtype=dtype)
+    clip.load_state_dict(_clip_weights(clip, 3, dtype, "cpu"))
+    tc = TextConditioner(clip, CLIPTokenizer(*synth_vocab(cfg.vocab_size),
+                                             max_length=cfg.max_length), device=device)
+    cond, uncond = tc.pair(*PROMPT_TINY, steps=3)
+    pipe, _, _, gen = _tiny_pipeline(device, dtype)
+    noise = torch.randn(1, 4, 32, 64, generator=gen)
+    res = pipe._txt2img_from_noise(noise, cond, uncond, SamplerConfig(steps=3), 0,
+                                   TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16,
+                                                        tile_bs=3), decode=False)
+    return {"conds": torch.cat([cond_tensors(cond), cond_tensors(uncond)]),
+            "latent": res.latents.float().cpu()}
+
+
+def _kohya_lora(state_dict, names, rank, gen):
+    """A kohya LoRA over the ``state_dict`` entries ``names`` (linear or conv
+    weights): up and down drawn from ``gen`` on the CPU, alpha = rank / 2."""
+    import torch
+
+    from mdu_tpu_torch.models.loader import translate_unet_name
+
+    lora = {}
+    for name in names:
+        w = state_dict[name]
+        base = translate_unet_name(name.replace(".", "/"))[:-len(".weight")].replace(".", "_")
+        lora[f"lora_unet_{base}.lora_down.weight"] = torch.randn(
+            (rank,) + tuple(w.shape[1:]), generator=gen) * 0.05
+        lora[f"lora_unet_{base}.lora_up.weight"] = torch.randn(
+            (w.shape[0], rank) + (1, 1)[:w.dim() - 2], generator=gen) * 0.05
+        lora[f"lora_unet_{base}.alpha"] = torch.tensor(rank / 2.0)
+    return lora
+
+
+def _lora_reference(w, lora, name, scale):
+    """W + scale * (alpha / r) * up @ down in fp32 on the CPU."""
+    from mdu_tpu_torch.models.loader import translate_unet_name
+
+    base = translate_unet_name(name.replace(".", "/"))[:-len(".weight")].replace(".", "_")
+    down = lora[f"lora_unet_{base}.lora_down.weight"].float()
+    up = lora[f"lora_unet_{base}.lora_up.weight"].float()
+    r = down.shape[0]
+    eff = scale * float(lora[f"lora_unet_{base}.alpha"]) / r
+    return w.float().cpu() + eff * (up.reshape(up.shape[0], -1)
+                                    @ down.reshape(r, -1)).reshape(w.shape)
+
+
+TINY_LORA_NAMES = ["down_0_attn_0.block_0.attn1.to_q.weight", "mid_res_0.conv1.weight"]
+
+
+def _tiny_load(device, dtype):
+    """The tiny pipeline's modules and the tiny CLIP written as one SD1.x
+    single-file checkpoint (LDM names, the port's writer) into a temporary
+    directory of the checkout, loaded back with ``load_single_file`` (every
+    tensor must equal its source), a rank-2 kohya LoRA merged at scale 0.8,
+    then the tiny txt2img (Euler 3 steps, no decode) from the loaded pipeline
+    with the merged UNet. Returns {"merged", "latent"} on the CPU in fp32."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdu_tpu_torch import SamplerConfig
+    from mdu_tpu_torch.models import tiny_unet_config, tiny_vae_config
+    from mdu_tpu_torch.models.clip import CLIPTextModel, tiny_clip_config
+    from mdu_tpu_torch.models.lora import merge_lora
+    from mdu_tpu_torch.models.safetensors import save_file
+    from mdu_tpu_torch.models.single_file import ldm_state_dict, load_single_file
+
+    pipe, c, u, gen = _tiny_pipeline(device, dtype)
+    clip = CLIPTextModel(tiny_clip_config(), dtype=dtype)
+    clip.load_state_dict(_clip_weights(clip, 3, dtype, "cpu"))
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix="_load_smoke_")
+    try:
+        path = os.path.join(tmp, "tiny.safetensors")
+        save_file(ldm_state_dict(pipe.unet, pipe.vae, clip), path)
+        lpipe, lcond = load_single_file(path, dtype=dtype, device=device,
+                                        unet_config=tiny_unet_config(),
+                                        vae_config=tiny_vae_config(),
+                                        clip_config=tiny_clip_config())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for src, dst in ((pipe.unet, lpipe.unet), (pipe.vae, lpipe.vae), (clip, lcond.model)):
+        a, b = src.state_dict(), dst.state_dict()
+        require(set(a) == set(b) and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a),
+                f"tiny single file {dtype}: a loaded tensor differs from its source")
+    lora = _kohya_lora(lpipe.unet.state_dict(), TINY_LORA_NAMES, 2,
+                       torch.Generator().manual_seed(4))
+    merged = merge_lora(lpipe.unet.state_dict(), lora, 0.8)
+    lpipe.unet.load_state_dict(merged)
+    noise = torch.randn(1, 4, 32, 32, generator=gen)
+    res = lpipe._txt2img_from_noise(noise, c, u, SamplerConfig(steps=3), 0, None, decode=False)
+    return {"merged": torch.cat([merged[k].float().cpu().reshape(-1) for k in TINY_LORA_NAMES]),
+            "latent": res.latents.float().cpu()}
+
+
+def phase_reference_slice():
+    """This slice's tiny paths on the card against the CPU: the streaming
+    decode and encode (stream-device, stream-host, and stream-host with fp8
+    spills), the tiny conditioner and a txt2img from its prompt, the tiny
+    single-file round trip with a LoRA merge. fp32 within 1e-4 of the largest
+    CPU value, bf16 within 2x the CPU bf16 run's error against the CPU fp32
+    run + 1e-3 of it; the fp8 runs (either dtype) against the CPU's fp32
+    stream-host run without spills, within 2x the CPU fp8 run's error
+    against it + 1e-3 of it. Each card run must launch its attention kernel
+    (the VAE's and the UNet's heads are D = 16: #1)."""
+    import torch
+
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    must = {torch.float32: "flash_attention_fm_f32", torch.bfloat16: "flash_attention_fm"}
+    exact_host = _tiny_stream(True, None)("cpu", torch.float32)
+    runs = [("stream-device", _tiny_stream(False, None), None),
+            ("stream-host", _tiny_stream(True, None), None),
+            ("stream-host fp8", _tiny_stream(True, "float8_e4m3fn"), exact_host),
+            ("conditioner + txt2img", _tiny_prompt, None),
+            ("single file + LoRA", _tiny_load, None)]
+    for label, run, fixed_ref in runs:
+        ref = fixed_ref or run("cpu", torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            if fixed_ref is not None:
+                own = {k: max((run("cpu", d)[k] - ref[k]).abs().max().item()
+                               for d in (torch.float32, torch.bfloat16)) for k in ref}
+            elif dtype == torch.bfloat16:
+                cpu = run("cpu", dtype)
+                own = {k: (cpu[k] - ref[k]).abs().max().item() for k in ref}
+            else:
+                own = None
+            reset_launches()
+            got = run("cuda", dtype)
+            launches = dict(LAUNCHES)
+            require(launches.get(must[dtype], 0) > 0, f"tiny {label} {dtype}: no {must[dtype]}")
+            fields = _hold_parts(f"tiny {label}", got, ref, own, dtype)
+            emit("reference", dtype=_dtype_name(dtype), pipeline=f"tiny {label}", flags={},
+                 launches=launches, **fields)
+
+
+def _budget_env(budget):
+    return flags_set({"MDU_HBM_BYTES": str(int(budget))})
+
+
+# config 3's exact VAE (bench.py:345-377): decode a 256 x 256 latent at tile 64
+# (16 tiles of 86: 7396 tokens at the mid-block), encode 2048 x 2048 at tile
+# 1024 (4 tiles of 1056: 17424 tokens)
+STREAM = dict(latent=256, image=2048, decoder_tile=64, encoder_tile=1024, tile_batch=2,
+              host_budget=4 * 2 ** 30, ref_budget=8 * 2 ** 30)
+
+
+def _stream_groups(pipe, which, side, tile, tv, host_resident, dtype_bytes=2):
+    """The group the streaming mode will take, and the number of groups."""
+    import torch
+
+    from mdu_tpu_torch.tiling import streaming_vae as sv
+    from mdu_tpu_torch.tiling.tiled_vae import DECODER_PAD, ENCODER_PAD, plan_vae_tiles
+
+    pad = DECODER_PAD if which == "decoder" else ENCODER_PAD
+    plan = plan_vae_tiles(side, side, tile, pad)
+    s = 8 if which == "decoder" else 1
+    g, _ = sv.auto_group_size(which, plan.in_h * s, plan.in_w * s, 1,
+                              min(tv.tile_batch, plan.num_tiles), host_resident, dtype_bytes,
+                              torch.device("cuda"))
+    return g, -(-plan.num_tiles // g), plan
+
+
+def phase_stream():
+    """Config 3's exact decode and encode (SD VAE at full width, random bf16
+    weights) in lockstep, stream-device, stream-host and stream-host with fp8
+    spills, each mode forced through an ``MDU_HBM_BYTES`` budget and the mode
+    the pipeline picked checked (config 3's encode cannot pick stream-device:
+    its lockstep footprint is below it, so that run calls the streaming mode
+    directly). The reference is a stream-host run of the same weights in
+    fp32 (device memory bounded by construction). Each bf16 mode within 2x
+    |bf16 lockstep - fp32 reference| + 1e-3 of its largest value; fp8's mean
+    absolute error against the bf16 stream-host under 0.12 on the decode's
+    [-1, 1] image (and under 0.12 of the largest moment on the encode). #2
+    launches once a group at the attention segment (once in lockstep).
+    Returns the launches of each run."""
+    import torch
+
+    from mdu_tpu_torch import TiledVAEConfig
+    from mdu_tpu_torch.models import AutoencoderKL, VAEConfig
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.tiling.streaming_vae import streaming_tiled_vae
+    from mdu_tpu_torch.tiling.tiled_vae import (lockstep_footprint_bytes,
+                                                streaming_device_footprint_bytes)
+
+    pipe, *_ = build_config2()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    z = torch.randn(1, 4, STREAM["latent"], STREAM["latent"], generator=gen, device=dev)
+    x = torch.rand(1, 3, STREAM["image"], STREAM["image"], generator=gen, device=dev) * 2 - 1
+    vae32 = AutoencoderKL(VAEConfig(), dtype=torch.float32).to(dev).eval()
+    vae32.load_state_dict({k: v.float() for k, v in pipe.vae.state_dict().items()})
+    scale = pipe.vae.cfg.scaling_factor
+    inputs = {"decoder": (z, STREAM["latent"], STREAM["decoder_tile"]),
+              "encoder": (x, STREAM["image"], STREAM["encoder_tile"])}
+    out = {}
+    for which, (arr, side, tile) in inputs.items():
+        tv = TiledVAEConfig(decoder_tile_size=STREAM["decoder_tile"],
+                            encoder_tile_size=STREAM["encoder_tile"], fast_decoder=False,
+                            fast_encoder=False, tile_batch=STREAM["tile_batch"])
+        run = ((lambda t: pipe._decode_tensor(z, t)) if which == "decoder"
+               else (lambda t: pipe._encode(x, t)))
+        with _budget_env(STREAM["ref_budget"]):
+            g, n_ref, plan = _stream_groups(pipe, which, side, tile, tv, True, 4)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ref = streaming_tiled_vae(vae32, z / scale if which == "decoder" else x, which,
+                                      tile, tv.tile_batch, host_resident=True).float()
+            torch.cuda.synchronize()
+        emit("stream", which=which, run="fp32 reference (stream-host)", group=g, groups=n_ref,
+             seconds=time.perf_counter() - t0,
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        lock_fp = lockstep_footprint_bytes(which, tile, plan.num_tiles, 1)
+        dev_fp = streaming_device_footprint_bytes(which, tile, plan.num_tiles, 1, tv.tile_batch)
+        # (label, budget, spill dtype, tiles a group asked for); stream-host asks
+        # for 4 and the budget clamps the group
+        runs = [("lockstep", 2 ** 40, None, 2),
+                ("stream-device", (lock_fp + dev_fp) // 2, None, 2),
+                ("stream-host", STREAM["host_budget"], None, 4),
+                ("stream-host fp8", STREAM["host_budget"], "float8_e4m3fn", 4)]
+        results, lock_err = {}, None
+        for label, budget, spill, tile_batch in runs:
+            mode = label.split(" ")[0]
+            tvr = dataclasses.replace(tv, spill_dtype=spill, tile_batch=tile_batch)
+            by_rule = not (mode == "stream-device" and dev_fp > lock_fp)
+            with _budget_env(budget):
+                groups = (1 if mode == "lockstep" else
+                          _stream_groups(pipe, which, side, tile, tvr, mode == "stream-host")[1])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                if by_rule:
+                    got = run(tvr)
+                    picked = pipe.last_vae_mode
+                else:
+                    got = pipe._stream_vae(which, arr, tvr, host_resident=False)
+                    picked = None
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            if by_rule:
+                require(picked == mode, f"stream {which} {label}: the pipeline picked {picked}")
+            require(launches.get("flash_attention", 0) == groups,
+                    f"stream {which} {label}: #2 launched {launches.get('flash_attention')} "
+                    f"times, expected {groups}")
+            got = got.float()
+            require(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()),
+                    f"stream {which} {label}: output {tuple(got.shape)} or non-finite")
+            results[label] = got
+            err = (got - ref).abs().max().item()
+            fields = dict(max_abs_err_vs_fp32=err)
+            if label == "lockstep":
+                lock_err = err
+            if spill is None:
+                tol = 2.0 * lock_err + 1e-3 * ref.abs().max().item()
+                require(err <= tol, f"stream {which} {label}: max abs err {err} > {tol}")
+                fields["tol"] = tol
+            else:
+                host = results["stream-host"]
+                if which == "decoder":
+                    mean_err = (got.clamp(-1, 1) - host.clamp(-1, 1)).abs().mean().item()
+                    bar = 0.12
+                else:
+                    mean_err = (got - host).abs().mean().item()
+                    bar = 0.12 * host.abs().max().item()
+                require(mean_err < bar, f"stream {which} {label}: mean abs err {mean_err} "
+                                        f"against bf16 stream-host >= {bar}")
+                fields.update(mean_abs_err_vs_stream_host=mean_err, mean_bar=bar)
+            emit("stream", which=which, run=label, budget_bytes=budget, mode_picked=picked,
+                 picked_by_rule=by_rule, spill_dtype=spill, groups=groups,
+                 lockstep_footprint_bytes=lock_fp, stream_device_footprint_bytes=dev_fp,
+                 seconds=seconds, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 launches=launches, output_shape=list(got.shape), **fields)
+            out[f"{which} {label}"] = launches
+        del results, ref
+    del pipe, vae32, z, x
+    torch.cuda.empty_cache()
+    return out
+
+
+PROMPTS_CONFIG2 = [
+    ("plain", "a watercolor panorama of a mountain lake at dawn, highly detailed",
+     "blurry, lowres"),
+    ("schedule + AND", "a [quiet:stormy:8] mountain lake at dawn AND a (red:1.2) boat:0.6",
+     "blurry, lowres")]
+
+
+def _clip_weights(clip, seed, dtype, device):
+    """Random CLIP weights (``random_state_dict``) with the final LayerNorm's
+    bias drawn too: with a zero bias every state has a mean of about 0, and
+    A1111's mean restoration after emphasis (mean before / mean after) would
+    divide rounding noise by rounding noise, as no trained CLIP does."""
+    import torch
+
+    from mdu_tpu_torch.models import random_state_dict
+
+    sd = random_state_dict(clip, seed, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    sd["ln_final.bias"] = torch.randn(sd["ln_final.bias"].shape, generator=gen,
+                                      device=device).to(dtype)
+    return sd
+
+
+def _conditioner(cfg, seed, dtype, device, pad_with_eot=True):
+    """A TextConditioner over a CLIP of ``cfg`` with random weights drawn on
+    ``device``, and the char-level vocab."""
+    import torch
+
+    from mdu_tpu_torch.models.clip import CLIPTextModel
+    from mdu_tpu_torch.text import CLIPTokenizer, TextConditioner
+
+    with torch.device("meta"):
+        clip = CLIPTextModel(cfg, dtype=dtype)
+    clip.load_state_dict(_clip_weights(clip, seed, dtype, device), assign=True)
+    tok = CLIPTokenizer(*synth_vocab(cfg.vocab_size), pad_with_eot=pad_with_eot)
+    return TextConditioner(clip, tok, device=device)
+
+
+def phase_prompts():
+    """Config 2 (bf16, no flag) from prompt strings through a full-width
+    CLIP-L with random bf16 weights: a plain prompt, and a scheduled prompt
+    with an AND of two weighted branches (the AND batches cond, cond and
+    uncond: 15 tiles a UNet call). Each encode's ms; the card's conds held
+    to the CPU conditioner on the same weights (fp32 and bf16: the bf16 bar);
+    1 warm and 1 timed image each, launches pinned (#1 200, #2 1). Then the
+    SDXL conditioner (CLIP-L and OpenCLIP-bigG at full width, random bf16
+    weights) on one pair: shapes, ms, finite. Returns the launches of each
+    prompt's image."""
+    import torch
+
+    from mdu_tpu_torch.models.clip import clip_l_config, open_clip_bigg_config
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.text import SDXLConditioner, TextConditioner
+
+    pipe, _, _, sp, td, tv = build_config2()
+    tc = _conditioner(clip_l_config(), 3, torch.bfloat16, torch.device("cuda"))
+    cpu = {d: TextConditioner(type(tc.model)(tc.model.cfg, dtype=d), tc.tokenizer, device="cpu")
+           for d in (torch.float32, torch.bfloat16)}
+    for d, c in cpu.items():
+        c.model.load_state_dict({k: v.to("cpu", d) for k, v in tc.model.state_dict().items()})
+    expected = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
+                "flash_attention": 1, "flash_attention.wide": 1}
+    out = {}
+    for label, text, neg in PROMPTS_CONFIG2:
+        tc.pair(text, neg, steps=sp.steps)                      # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cond, uncond = tc.pair(text, neg, steps=sp.steps)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.cat([cond_tensors(cond), cond_tensors(uncond)])
+        ref, ref16 = (torch.cat([cond_tensors(c) for c in cpu[d].pair(text, neg, steps=sp.steps)])
+                      for d in (torch.float32, torch.bfloat16))
+        fields = _hold_parts(f"prompts {label}", {"conds": got}, {"conds": ref},
+                             {"conds": (ref16 - ref).abs().max().item()}, torch.bfloat16)
+
+        def image(seed):
+            res = pipe.txt2img(cond, uncond, width=CFG2["width"], height=CFG2["height"],
+                               sampler=sp, seed=seed, tiled_diffusion=td, tiled_vae=tv)
+            torch.cuda.synchronize()
+            require(tuple(res.images.shape) == (1, 512, 2048, 3)
+                    and bool(torch.isfinite(res.latents).all()),
+                    f"prompts {label}: output {tuple(res.images.shape)} or non-finite")
+            return res
+
+        reset_launches()
+        t0 = time.perf_counter()
+        image(0)
+        first_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        want = {k: expected.get(k, 0) for k in launches}
+        require(launches == want, f"prompts {label}: launches {launches}, expected {want}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        image(1)
+        timed_s = time.perf_counter() - t0
+        structure = ("AND of " + str(len(cond["__and__"])) if "__and__" in cond
+                     else "bank" if "__bank__" in cond else "plain")
+        emit("prompts", config="config 2 from prompt strings: CLIP-L (random bf16 weights) + "
+                               "MultiDiffusion txt2img 2048x512, SD1.5 bf16", run=label,
+             prompt=text, negative=neg, cond_form=structure, encode_ms=encode_ms,
+             first_image_s=first_s, seconds_per_image=timed_s, img_per_min=60.0 / timed_s,
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             launches_per_image=launches, expected_launches=expected, **fields)
+        out[label] = launches
+    del pipe, tc, cpu
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    te1 = _conditioner(dataclasses.replace(clip_l_config(), clip_skip=2, ln_penultimate=False),
+                       4, torch.bfloat16, dev)
+    te2 = _conditioner(open_clip_bigg_config(), 5, torch.bfloat16, dev, pad_with_eot=False)
+    sx = SDXLConditioner(te1, te2)
+    sx.pair(*PROMPTS_CONFIG2[0][1:], 1024, 1024)               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cond, uncond = sx.pair(*PROMPTS_CONFIG2[0][1:], 1024, 1024)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    require(tuple(cond["crossattn"].shape) == (1, 77, 2048)
+            and tuple(cond["vector"].shape) == (1, 1280)
+            and tuple(cond["time_ids"].shape) == (1, 6),
+            f"SDXL conditioner: shapes {[tuple(v.shape) for v in cond.values()]}")
+    require(all(bool(torch.isfinite(v).all()) for c in (cond, uncond) for v in c.values()),
+            "SDXL conditioner: non-finite conds")
+    emit("prompts", run="SDXL conditioner (CLIP-L + OpenCLIP-bigG, random bf16 weights)",
+         pair_ms=ms, shapes={k: list(v.shape) for k, v in cond.items()}, finite=True,
+         time_ids=cond["time_ids"].tolist())
+    del sx, te1, te2
+    torch.cuda.empty_cache()
+    return out
+
+
+LOAD_LORA_NAMES = ["down_0_attn_0.block_0.attn1.to_q.weight",
+                   "mid_attn.block_0.attn2.to_k.weight", "up_3_res_2.conv2.weight"]
+
+
+def phase_load():
+    """A full-width SD1.5 single-file checkpoint (LDM names, BF16) of config
+    2's random weights and a random CLIP-L, with a char-level ``tokenizer/``
+    folder and a rank-8 kohya LoRA, written with the port's writer into a
+    temporary directory of the checkout (deleted afterwards) and loaded with
+    ``load_single_file``: every tensor equal to its source bit for bit; a
+    config-2 image from the loaded pipeline equal to the in-memory
+    pipeline's (two runs of the in-memory one show the card's own spread);
+    the merged LoRA weights within one bf16 rounding of W + scale (alpha / r)
+    up @ down computed in fp32 on the CPU. The load's seconds and the file's
+    bytes."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdu_tpu_torch.models.clip import clip_l_config
+    from mdu_tpu_torch.models.loader import load_safetensors
+    from mdu_tpu_torch.models.lora import merge_lora
+    from mdu_tpu_torch.models.safetensors import save_file
+    from mdu_tpu_torch.models.single_file import ldm_state_dict, load_single_file
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    pipe, cond, uncond, sp, td, tv = build_config2()
+    tc = _conditioner(clip_l_config(), 3, torch.bfloat16, torch.device("cuda"))
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix="_load_smoke_")
+    try:
+        path = os.path.join(tmp, "sd15.safetensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_file(ldm_state_dict(pipe.unet, pipe.vae, tc.model), path)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        os.makedirs(os.path.join(tmp, "tokenizer"))
+        vocab, _ = synth_vocab(49408)
+        with open(os.path.join(tmp, "tokenizer", "vocab.json"), "w", encoding="utf-8") as f:
+            _json.dump(vocab, f)
+        with open(os.path.join(tmp, "tokenizer", "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+        lora_path = os.path.join(tmp, "lora.safetensors")
+        save_file(_kohya_lora(pipe.unet.state_dict(), LOAD_LORA_NAMES, 8,
+                              torch.Generator().manual_seed(6)), lora_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lpipe, lcond = load_single_file(path, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        lora = load_safetensors(lora_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(lpipe.device.type == "cuda", "the loaded pipeline is not on the card")
+    n_tensors = 0
+    for src, dst in ((pipe.unet, lpipe.unet), (pipe.vae, lpipe.vae), (tc.model, lcond.model)):
+        a, b = src.state_dict(), dst.state_dict()
+        require(set(a) == set(b), "load: the loaded modules' entries differ")
+        for k in a:
+            require(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]),
+                    f"load: {k} differs from its source")
+        n_tensors += len(a)
+    require(type(lcond.tokenizer).__name__ == "CLIPTokenizer"
+            and lcond.tokenizer.tokenize("a cat") == tc.tokenizer.tokenize("a cat"),
+            "load: the tokenizer folder beside the file was not read")
+
+    def image(p, seed=0):
+        res = p.txt2img(cond, uncond, width=CFG2["width"], height=CFG2["height"], sampler=sp,
+                        seed=seed, tiled_diffusion=td, tiled_vae=tv)
+        torch.cuda.synchronize()
+        return res
+
+    reset_launches()
+    a = image(pipe)
+    launches = dict(LAUNCHES)
+    require(launches.get("flash_attention_fm", 0) == 200 and launches.get("flash_attention") == 1,
+            f"load: launches of the in-memory image {launches}")
+    a2 = image(pipe)
+    t0 = time.perf_counter()
+    reset_launches()
+    b = image(lpipe)
+    loaded_s = time.perf_counter() - t0
+    require(dict(LAUNCHES) == launches, f"load: the loaded pipeline launched {dict(LAUNCHES)}")
+    spread = (a.latents - a2.latents).abs().max().item()
+    diff = (a.latents - b.latents).abs().max().item()
+    img_diff = int(abs(a.images.astype(int) - b.images.astype(int)).max())
+    require(diff <= spread and (spread > 0 or img_diff == 0),
+            f"load: the loaded pipeline's image differs by {diff} (runs of one pipeline: "
+            f"{spread})")
+
+    scale = 0.8
+    merged = merge_lora(lpipe.unet.state_dict(), lora, scale)
+    worst = 0.0
+    for name in LOAD_LORA_NAMES:
+        ref = _lora_reference(lpipe.unet.state_dict()[name], lora, name, scale)
+        got = merged[name].float().cpu()
+        require(merged[name].dtype == torch.bfloat16, f"load: merged {name} not bf16")
+        # one bf16 rounding of the result: 2^-7 of its magnitude
+        bound = ref.abs() * 2.0 ** -7 + 1e-30
+        excess = ((got - ref).abs() / bound).max().item()
+        require(excess <= 1.0, f"load: merged {name} off the fp32 reference by {excess} "
+                               "bf16 roundings")
+        worst = max(worst, excess)
+    emit("load", config="config 2's SD1.5 (bf16) + a random CLIP-L as one LDM single file",
+         file_bytes=nbytes, tensors=n_tensors, write_s=write_s, load_s=load_s,
+         bit_equal=True, loaded_image_s=loaded_s, latent_max_abs_diff=diff,
+         same_pipeline_spread=spread, image_max_abs_diff=img_diff, launches=launches,
+         lora_rank=8, lora_scale=scale, lora_weights=LOAD_LORA_NAMES,
+         lora_worst_in_bf16_roundings=worst)
+    del pipe, lpipe, tc, lcond
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_stream8k():
+    """The 2K -> 8K's exact decode: a [1, 4, 1024, 1024] latent at decoder
+    tile 64 (256 tiles of 86, groups of up to 8) through
+    ``DiffusionPipeline._decode_tensor`` in the mode the pipeline picks with
+    no ``MDU_HBM_BYTES`` (the card's free memory): the mode, the footprints
+    against free memory, seconds, peak device memory and the host's peak
+    RSS; the output [1, 3, 8192, 8192] and finite."""
+    import resource
+
+    import torch
+
+    from mdu_tpu_torch import TiledVAEConfig
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.tiling.tiled_vae import (DECODER_PAD, lockstep_footprint_bytes,
+                                                plan_vae_tiles, streaming_device_footprint_bytes)
+
+    pipe, *_ = build_config2()
+    dev = torch.device("cuda")
+    z = torch.randn(1, 4, 1024, 1024, generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    tv = TiledVAEConfig(decoder_tile_size=64, fast_decoder=False, tile_batch=8)
+    plan = plan_vae_tiles(1024, 1024, 64, DECODER_PAD)
+    free = torch.cuda.mem_get_info(dev)[0]
+    mode = pipe._exact_vae_mode("decoder", 64, 1024, 1024, 1, tv.tile_batch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = pipe._decode_tensor(z, tv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    require(pipe.last_vae_mode == mode, f"stream8k: ran {pipe.last_vae_mode}, picked {mode}")
+    require(tuple(img.shape) == (1, 3, 8192, 8192) and bool(torch.isfinite(img).all()),
+            f"stream8k: output {tuple(img.shape)} or non-finite")
+    emit("stream8k", config="the 2K -> 8K's exact decode, SD VAE bf16", mode=mode,
+         tiles=plan.num_tiles, tile_batch=tv.tile_batch, free_bytes=free,
+         lockstep_footprint_bytes=lockstep_footprint_bytes("decoder", 64, plan.num_tiles, 1),
+         stream_device_footprint_bytes=streaming_device_footprint_bytes(
+             "decoder", 64, plan.num_tiles, 1, tv.tile_batch),
+         seconds=seconds, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         host_peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+         launches=launches, output_shape=list(img.shape), finite=True)
+    del pipe, z, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, config5=None,
+                slice_runs=None):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels, the fp32 image for the
     fp32 kernels), and beside them its launches per config-3 and per
     config-4 image (the flagged or the default run, as for config 2), in
     the 8K upscale and per config-5 image (the x3 image with no flag, the x2
-    one under the four flags). A kernel with forms also lists the forms checked, the
+    one under the four flags), and in this slice's runs (``slice_runs``: the
+    streaming VAE's modes, config 2 from prompts, the loaded checkpoint's
+    image, the 8K exact decode) where they launch it. A kernel with forms
+    also lists the forms checked, the
     launches of each form in that run, and every config-2 shape with the
     earlier form's time (attention with the MUFU floor, fp32 with the FMA
     bound and, for attention, SDPA under both backends); #1's wide form has
@@ -1884,6 +2610,11 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, co
         if config5 is not None:
             extra["config5_launches"] = config5.get(
                 "flagged" if run == "flagged" else "default", {}).get(counted, 0)
+        for phase, runs in (slice_runs or {}).items():
+            seen = {label: got_l.get(counted, 0) for label, got_l in runs.items()
+                    if got_l.get(counted, 0)}
+            if seen:
+                extra[f"{phase}_launches"] = seen
         forms = sorted({c["form"] for c in checked if c.get("form")})
         if forms:
             extra.update(forms=forms,
@@ -1933,9 +2664,10 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,reference,txt2img,samplers,img2img,regional,upscale8k,"
-                            "demofusion",
-                    help="comma-separated phases after device and build")
+                    default="kernels,reference,txt2img,samplers,prompts,load,img2img,stream,"
+                            "regional,upscale8k,demofusion",
+                    help="comma-separated phases after device and build (stream8k runs "
+                         "only when named)")
     phases = set(ap.parse_args().phases.split(","))
     try:
         import torch
@@ -1976,18 +2708,28 @@ def main() -> int:
                                      for c in v] for k, v in checks.items()})
     if "reference" in phases:
         phase_reference()
+        phase_reference_slice()
     if "txt2img" in phases:
         launches = phase_txt2img()
     if "samplers" in phases:
         phase_samplers()
+    slice_runs = {}
+    if "prompts" in phases:
+        slice_runs["prompts"] = phase_prompts()
+    if "load" in phases:
+        slice_runs["load"] = {"loaded": phase_load()}
     config3 = phase_img2img() if "img2img" in phases else None
+    if "stream" in phases:
+        slice_runs["stream"] = phase_stream()
     config4 = phase_regional() if "regional" in phases else None
     up8k = phase_upscale8k() if "upscale8k" in phases else None
+    if "stream8k" in phases:
+        slice_runs["stream8k"] = {"decode": phase_stream8k()}
     config5 = phase_demofusion() if "demofusion" in phases else None
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
     print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4,
-                                             config5)}))
+                                             config5, slice_runs)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

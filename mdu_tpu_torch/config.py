@@ -58,9 +58,14 @@ class TiledVAEConfig:
     fast_decoder: bool = True
     fast_encoder: bool = True
     color_fix: bool = False
-    # tiles per chunk of the fast modes
+    # tiles per chunk of the fast modes, and per group of the streaming modes
     tile_batch: int = 4
+    # the exact modes with the tiles in CPU memory between segments
+    # (stream-host, tiling/streaming_vae.py) whatever the memory budget
     streaming: bool = False
+    # the dtype stream-host spills its activations in (e.g. 'float8_e4m3fn');
+    # None keeps the VAE's dtype
+    spill_dtype: Optional[str] = None
 
 
 @dataclass

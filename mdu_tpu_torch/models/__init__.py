@@ -1,13 +1,18 @@
+from .clip import (CLIPTextConfig, CLIPTextModel, clip_l_config, open_clip_bigg_config,
+                   open_clip_h_config, tiny_clip_config)
 from .controlnet import ControlNet, ControlNetConditioningEmbedding
 from .convert import load_jax_params, random_state_dict, state_dict_from_jax
-from .unet import (UNet2DCondition, UNetConfig, sd15_unet_config, sdxl_unet_config,
-                   tiny_sdxl_unet_config, tiny_unet_config)
+from .unet import (UNet2DCondition, UNetConfig, sd15_unet_config, sd21_unet_config,
+                   sdxl_unet_config, tiny_sdxl_unet_config, tiny_unet_config)
 from .vae import (AutoencoderKL, Decoder, Encoder, VAEConfig, sample_from_moments,
                   tiny_vae_config)
 
 __all__ = [
+    "CLIPTextConfig", "CLIPTextModel", "clip_l_config", "open_clip_bigg_config",
+    "open_clip_h_config", "tiny_clip_config",
     "ControlNet", "ControlNetConditioningEmbedding", "load_jax_params", "random_state_dict",
     "state_dict_from_jax", "UNet2DCondition", "UNetConfig", "sd15_unet_config",
-    "sdxl_unet_config", "tiny_sdxl_unet_config", "tiny_unet_config", "AutoencoderKL",
-    "Decoder", "Encoder", "VAEConfig", "sample_from_moments", "tiny_vae_config",
+    "sd21_unet_config", "sdxl_unet_config", "tiny_sdxl_unet_config", "tiny_unet_config",
+    "AutoencoderKL", "Decoder", "Encoder", "VAEConfig", "sample_from_moments",
+    "tiny_vae_config",
 ]

@@ -55,6 +55,13 @@ def sd15_unet_config() -> UNetConfig:
     return UNetConfig()
 
 
+def sd21_unet_config() -> UNetConfig:
+    """SD2.x: 1024-wide OpenCLIP-H context, 64-channel heads, linear
+    projections."""
+    return UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
+                      use_linear_projection=True)
+
+
 def sdxl_unet_config() -> UNetConfig:
     return UNetConfig(
         block_out_channels=(320, 640, 1280), cross_attention_dim=2048,

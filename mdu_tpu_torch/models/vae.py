@@ -75,16 +75,18 @@ class AttnBlock(nn.Module):
         self.to_v = Linear(channels, channels, dtype=dtype)
         self.to_out = Linear(channels, channels, dtype=dtype)
 
-    def forward(self, x, ctx: Optional[TileContext] = None,
-                stats: Optional[GroupNormStats] = None):
-        h = self.group_norm(x, ctx, stats=stats)
+    def attend(self, h):
+        """Attention over an already normalised input (no residual)."""
         B, C, H, W = h.shape
         tokens = h.reshape(B, C, H * W).transpose(1, 2)
         out = multi_head_attention(self.to_q(tokens), self.to_k(tokens),
                                    self.to_v(tokens), num_heads=1,
                                    q_chunk=self.q_chunk)
-        out = self.to_out(out).transpose(1, 2).reshape(B, C, H, W)
-        return x + out
+        return self.to_out(out).transpose(1, 2).reshape(B, C, H, W)
+
+    def forward(self, x, ctx: Optional[TileContext] = None,
+                stats: Optional[GroupNormStats] = None):
+        return x + self.attend(self.group_norm(x, ctx, stats=stats))
 
 
 class Downsample(nn.Module):

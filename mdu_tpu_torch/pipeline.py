@@ -8,7 +8,16 @@ img2img and DemoFusion paths of ``mdu_tpu/pipeline.py``).
   den_fn  = make_tiled_denoiser(plan, tile_denoise,      CFG'd per-tile and
                                 region_denoise)          per-region denoiser
   latent  = sampler(den_fn, noise * sigma_0, sigmas)     Python loop
-  image   = tiled_vae_decode(...)                        lockstep or fast
+  image   = tiled_vae_decode(...) or                     lockstep or fast, or
+            streaming_tiled_vae(...)                     streamed where the exact
+                                                         lockstep does not fit
+
+Conds come as ``TextConditioner.cond`` makes them (``text/``): plain dicts,
+banks of scheduled or alternating prompts resolved every step, AND conds
+(composable diffusion: every branch and the uncond in one batch), or
+callables of the step. Regions may have UNet weights of their own
+(``region_unet_params``: a ``state_dict`` each, e.g. with a LoRA merged,
+run through ``torch.func.functional_call``).
 
 img2img encodes the (pre-upscaled) image with the tiled VAE encoder, samples
 the truncated schedule from it and, with noise inversion, starts from noise
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import sys
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -46,13 +56,13 @@ from .samplers.denoiser import cfg_combine, denoised_from_model, scalings
 from .samplers.samplers import (CHURN_SAMPLERS, STOCHASTIC_SAMPLERS, NoiseFn, base_name,
                                  generator_noise, get_sampler)
 from .samplers.schedule import NoiseSchedule
-from .tiling.conds import (Cond, concat_conds, dequantize_hint, fit_cond_canvases, map_leaves,
-                           quantize_control_hints, tile_cond)
+from .tiling.conds import (Cond, concat_conds, dequantize_hint, fit_cond_canvases, is_and,
+                           map_leaves, quantize_control_hints, tile_cond)
 from .tiling.demofusion import demofusion_generate
 from .tiling.regions import compose_region_noise, resolve_seed
 from .tiling.schedulers import DiffusionTilePlan, make_tiled_denoiser, plan_tiled_diffusion
-from .tiling.tiled_vae import (DECODER_PAD, ENCODER_PAD, lockstep_footprint_bytes,
-                               plan_vae_tiles, tiled_vae_decode, tiled_vae_encode_moments)
+from .tiling.streaming_vae import DEFAULT_BUDGET, exact_vae_mode, streaming_tiled_vae
+from .tiling.tiled_vae import tiled_vae_decode, tiled_vae_encode_moments
 from .upscale import get_upscaler
 from .utils.grid import splitable
 from .utils.guided_filter import get_retouch_mask
@@ -63,8 +73,6 @@ _COND_KEYS = {"crossattn", "concat", "vector", "control", "time_ids"}
 _WAITING = {
     "guidance": "StableSR guidance (ROADMAP queue 1, item 18)",
     "adm": "unCLIP conditioning (ROADMAP queue 1, item 12)",
-    "__and__": "AND prompt composition (ROADMAP queue 1, item 15)",
-    "__bank__": "scheduled prompts (ROADMAP queue 1, item 15)",
 }
 # tags of the derived seeds (see the module's docstring)
 SAMPLER_SEED_TAG = 7
@@ -137,6 +145,11 @@ class GenerationResult:
     phase_latents: Optional[List[torch.Tensor]] = None
 
 
+def _is_plain(c) -> bool:
+    """A cond dict of leaves: no callable, bank or AND cond."""
+    return not callable(c) and not is_and(c) and "__bank__" not in (c or {})
+
+
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to mdu_tpu_torch yet")
 
@@ -164,26 +177,75 @@ class DiffusionPipeline:
         # which step of the decode's NaN chain gave the last image: "decode",
         # "estimated stats" or "latent preview"
         self.last_decode: Optional[str] = None
+        # the tiled VAE's mode in the last encode or decode: "untiled", "fast",
+        # "lockstep", "stream-device" or "stream-host"
+        self.last_vae_mode: Optional[str] = None
 
     # ------------------------------------------------------------ denoisers
 
     def _cond(self, c: Optional[Cond]) -> Optional[Cond]:
+        """A plain cond on the device, each leaf checked."""
         if c is None:
             return None
-        if callable(c):
-            raise _unported("callable conds (ROADMAP queue 1, item 15)")
         for key in c:
             if key not in _COND_KEYS:
                 raise _unported(_WAITING.get(key, f"cond leaf {key!r}"))
         return map_leaves(lambda v: torch.as_tensor(v, device=self.device), c)
 
-    def _model_fn(self):
+    def _prepare(self, c, fn):
+        """``fn`` over every plain cond inside ``c``: a callable's results (each
+        step), an AND cond's branches, a bank's entries and its other leaves
+        (``TextConditioner.cond``'s forms, ``mdu_tpu/pipeline.py:248-270``)."""
+        if c is None:
+            return None
+        if callable(c):
+            return lambda step: self._prepare(c(step), fn)
+        if is_and(c):
+            return {"__and__": [self._prepare(p, fn) for p in c["__and__"]],
+                    "__weights__": tuple(float(w) for w in c["__weights__"])}
+        if "__bank__" in c:
+            extra = {k: v for k, v in c.items() if k not in ("__bank__", "__index__")}
+            return {"__bank__": fn(c["__bank__"]), **(fn(extra) if extra else {}),
+                    "__index__": [int(i) for i in np.asarray(c["__index__"]).reshape(-1)]}
+        return fn(c)
+
+    @staticmethod
+    def _as_cond_fn(c):
+        """``cond(step)`` of a prepared cond: a callable as it is, an AND cond
+        branch by branch, a bank's entry ``bank[index[step]]`` (the step
+        clipped to the index), anything else the same every step."""
+        if c is None:
+            return None
+        if callable(c):
+            return c
+        if is_and(c):
+            fns = [DiffusionPipeline._as_cond_fn(p) for p in c["__and__"]]
+            weights = c["__weights__"]
+            return lambda step: {"__and__": [f(step) for f in fns], "__weights__": weights}
+        if "__bank__" in c:
+            bank, idx = c["__bank__"], c["__index__"]
+            extra = {k: v for k, v in c.items() if k not in ("__bank__", "__index__")}
+
+            def cond_fn(step):
+                v = idx[min(max(int(step), 0), len(idx) - 1)]
+                return {**map_leaves(lambda b: b[v:v + 1], bank), **extra}
+
+            return cond_fn
+        return lambda step: c
+
+    def _model_fn(self, params: Optional[Dict[str, torch.Tensor]] = None):
         """``fn(x, t, cond)``: the UNet with SDXL's added cond (``vector``,
         and ``time_ids``, ones of [B, 6] by default) and the ControlNet's
         residuals from the first hint, dequantised (``mdu_tpu/pipeline.py:
-        175-237``)."""
-        unet, controlnet = self.unet, self.controlnet
-        is_xl = unet.cfg.addition_embed_type == "text_time"
+        175-237``). ``params``: weights that replace the UNet's own for this
+        function (``torch.func.functional_call``)."""
+        controlnet, cfg = self.controlnet, self.unet.cfg
+        is_xl = cfg.addition_embed_type == "text_time"
+
+        def unet(*args, **kwargs):
+            if params is None:
+                return self.unet(*args, **kwargs)
+            return torch.func.functional_call(self.unet, params, args, kwargs)
 
         def fn(x, t, cond: Cond):
             xin = x
@@ -194,7 +256,7 @@ class DiffusionPipeline:
             if is_xl:
                 tids = cond.get("time_ids")
                 if tids is None:
-                    tids = torch.ones((x.shape[0], unet.cfg.num_time_ids), device=x.device)
+                    tids = torch.ones((x.shape[0], cfg.num_time_ids), device=x.device)
                 added = {"text_embeds": cond.get("vector"), "time_ids": tids}
             residuals = None
             hints = cond.get("control")
@@ -205,23 +267,50 @@ class DiffusionPipeline:
 
         return fn
 
-    def _fit_cond(self, c: Optional[Cond], h: int, w: int) -> Optional[Cond]:
+    def _fit_cond(self, c, h: int, w: int):
         """The cond on the device with its hints fitted to the (h, w) latent
         canvas and large ones stored as uint8 (``mdu_tpu/pipeline.py:683-685``)."""
-        return quantize_control_hints(fit_cond_canvases(self._cond(c), (h, w)))
+        return self._prepare(c, lambda p: quantize_control_hints(
+            fit_cond_canvases(self._cond(p), (h, w))))
 
     def _region_conds(self, region_conds: Sequence) -> list:
-        return [(quantize_control_hints(self._cond(c)), quantize_control_hints(self._cond(u)))
-                for c, u in region_conds]
+        def prep(p):
+            return quantize_control_hints(self._cond(p))
+
+        return [(self._prepare(c, prep), self._prepare(u, prep)) for c, u in region_conds]
+
+    def _region_params(self, region_unet_params) -> list:
+        """Per-region UNet weights (a ``state_dict`` each, e.g. the UNet's with
+        a region's LoRA merged, ``models/lora.py``; None: the UNet's own) on
+        the device in the UNet's dtypes."""
+        own = self.unet.state_dict()
+        out = []
+        for params in region_unet_params or ():
+            if params is None:
+                out.append(None)
+                continue
+            unknown = set(params) - set(own)
+            if unknown:
+                raise KeyError(f"region UNet weights name {len(unknown)} entries the UNet "
+                               f"does not have, first: {sorted(unknown)[:3]}")
+            out.append({k: torch.as_tensor(v).to(self.device, own[k].dtype)
+                        for k, v in params.items()})
+        return out
 
     def _make_guided(self, cfg_scale: float):
-        """``guided(x, sigma, c, u)``: the CFG'd denoiser, [uncond, cond]
-        batched into one model call."""
-        den = denoised_from_model(self._model_fn(), self.schedule)
+        """``guided(x, sigma, c, u, den=None)``: the CFG'd denoiser, [uncond,
+        cond] batched into one model call; an AND cond batches every branch
+        and the uncond, den_u + cfg * sum_i w_i (den_i - den_u)
+        (``mdu_tpu/pipeline.py:299-306,335-352``). ``den`` replaces the
+        pipeline's denoiser (a region's own weights)."""
+        den_default = denoised_from_model(self._model_fn(), self.schedule)
 
         def _align(c, B):
             if c is None:
                 return None
+            if is_and(c):
+                return {"__and__": [_align(p, B) for p in c["__and__"]],
+                        "__weights__": c["__weights__"]}
 
             def rep(leaf):
                 n = leaf.shape[0] if leaf.dim() >= 1 else 0
@@ -230,10 +319,25 @@ class DiffusionPipeline:
 
             return map_leaves(rep, c)
 
-        def guided(x, sigma, c, u):
+        def guided(x, sigma, c, u, den=None):
+            den = den or den_default
             B = x.shape[0]
             c, u = _align(c, B), _align(u, B)
             s = torch.atleast_1d(sigma).expand(B)
+            if is_and(c):
+                parts, weights = c["__and__"], c["__weights__"]
+                P = len(parts)
+                cc = parts[0]
+                for extra in parts[1:]:
+                    cc = concat_conds(cc, extra)
+                cc = concat_conds(cc, u if u is not None else parts[0])
+                d = den(torch.cat([x] * (P + 1)), torch.cat([s] * (P + 1)), cc)
+                dens = d.chunk(P + 1)
+                du = dens[-1] if u is not None else torch.zeros_like(dens[0])
+                out = du
+                for dc, wt in zip(dens[:P], weights):
+                    out = out + cfg_scale * wt * (dc - du)
+                return out
             if u is None or cfg_scale == 1.0:
                 return den(x, s, c)
             d = den(torch.cat([x, x]), torch.cat([s, s]), concat_conds(u, c))
@@ -243,28 +347,39 @@ class DiffusionPipeline:
         return guided
 
     def _make_denoised_fn(self, plan: Optional[DiffusionTilePlan], cond, uncond,
-                          cfg_scale: float, region_conds: Sequence = ()):
+                          cfg_scale: float, region_conds: Sequence = (),
+                          region_params: Sequence = ()):
         """The CFG'd denoiser over the plan's tiles and regions; region i is
         guided with its own ``(cond, uncond)``, cut to its bbox (ref
-        multidiffusion.py:170-187)."""
+        multidiffusion.py:170-187), and with its own UNet weights where
+        ``region_params[i]`` gives them (ref multidiffusion.py:180-182). The
+        conds are prepared ones (``_prepare``), resolved every step."""
         guided = self._make_guided(cfg_scale)
+        cond_f, uncond_f = self._as_cond_fn(cond), self._as_cond_fn(uncond)
+
+        def u_at(step):
+            return uncond_f(step) if uncond_f is not None else None
+
         if plan is None:
-            return lambda x, sigma, step: guided(x, sigma, cond, uncond)
+            return lambda x, sigma, step: guided(x, sigma, cond_f(step), u_at(step))
         hw = (plan.h, plan.w)
         if len(region_conds) < len(plan.regions):
             raise ValueError(f"{len(plan.regions)} regions need as many (cond, uncond) "
                              f"pairs in region_conds, got {len(region_conds)}")
+        region_fs = [(self._as_cond_fn(rc), self._as_cond_fn(ru)) for rc, ru in region_conds]
+        region_dens = [denoised_from_model(self._model_fn(p), self.schedule)
+                       if p is not None else None for p in region_params]
+        region_dens += [None] * (len(region_fs) - len(region_dens))
 
         def tile_denoise(flat, sigma, step, bboxes, batch_i):
-            c = tile_cond(cond, bboxes, hw)
-            u = tile_cond(uncond, bboxes, hw) if uncond is not None else None
-            return guided(flat, sigma, c, u)
+            return guided(flat, sigma, tile_cond(cond_f(step), bboxes, hw),
+                          tile_cond(u_at(step), bboxes, hw))
 
         def region_denoise(xr, sigma, step, i):
-            rc, ru = region_conds[i]
-            c = tile_cond(rc, [plan.regions[i]], hw)
-            u = tile_cond(ru, [plan.regions[i]], hw) if ru is not None else None
-            return guided(xr, sigma, c, u)
+            rcf, ruf = region_fs[i]
+            box = [plan.regions[i]]
+            u = tile_cond(ruf(step), box, hw) if ruf is not None else None
+            return guided(xr, sigma, tile_cond(rcf(step), box, hw), u, region_dens[i])
 
         return make_tiled_denoiser(plan, tile_denoise, region_denoise)
 
@@ -279,11 +394,6 @@ class DiffusionPipeline:
                                     tile_bs=td.tile_bs,
                                     uniform_batches=td.deterministic,
                                     regions=td.regions, draw_background=td.draw_background)
-
-    @staticmethod
-    def _check_region_params(region_unet_params) -> None:
-        if region_unet_params:
-            raise _unported("per-region LoRA weights (ROADMAP queue 1, item 16)")
 
     @staticmethod
     def _region_seeds(plan: Optional[DiffusionTilePlan], seed: int) -> Optional[list]:
@@ -346,10 +456,11 @@ class DiffusionPipeline:
         """Generate ``batch_size`` images; image i starts from the noise of a
         ``torch.Generator`` seeded with ``seed + i``, with each region's
         seeded patch pasted in. Region i of ``tiled_diffusion.regions`` is
-        guided with ``region_conds[i]`` = ``(cond, uncond)``."""
+        guided with ``region_conds[i]`` = ``(cond, uncond)`` and, where
+        ``region_unet_params[i]`` is a ``state_dict``, with those UNet
+        weights."""
         if step_callback is not None:
             raise _unported("step callbacks (ROADMAP queue 1, item 21)")
-        self._check_region_params(region_unet_params)
         h, w = height // 8, width // 8
         C = self.unet.cfg.out_channels
         noise = []
@@ -363,7 +474,8 @@ class DiffusionPipeline:
             noise = compose_region_noise(noise, plan.regions, region_seeds)
         return self._txt2img_from_noise(noise, cond, uncond, sampler, seed, tiled_diffusion,
                                         tiled_vae, decode, region_conds=region_conds,
-                                        region_seeds=region_seeds, plan=plan)
+                                        region_seeds=region_seeds, plan=plan,
+                                        region_unet_params=region_unet_params)
 
     @torch.inference_mode()
     def _txt2img_from_noise(self, noise, cond: Cond, uncond: Optional[Cond],
@@ -372,12 +484,15 @@ class DiffusionPipeline:
                             tiled_vae: Optional[TiledVAEConfig] = None,
                             decode: bool = True, region_conds: Sequence = (),
                             sampler_noise=None, region_seeds: Optional[Sequence[int]] = None,
-                            plan: Optional[DiffusionTilePlan] = None) -> GenerationResult:
+                            plan: Optional[DiffusionTilePlan] = None,
+                            region_unet_params=None) -> GenerationResult:
         """txt2img from given unit-variance noise [B, 4, h, w], the regions'
         patches already in it (``region_seeds`` only names them in the
         info). ``sampler_noise``: a noise function or generator for the
         stochastic samplers (by default a generator seeded from ``seed``).
-        ``plan``: the tile plan when the caller already made it."""
+        ``plan``: the tile plan when the caller already made it. The conds
+        may be plain, callables of the step, banks or AND conds
+        (``text/conditioning.py``)."""
         sp = self._resolve_sampler(sampler)
         self._check_sampler(sp)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
@@ -386,7 +501,8 @@ class DiffusionPipeline:
             plan = self._plan(tiled_diffusion, h, w)
         den_fn = self._make_denoised_fn(plan, self._fit_cond(cond, h, w),
                                         self._fit_cond(uncond, h, w), sp.cfg_scale,
-                                        self._region_conds(region_conds))
+                                        self._region_conds(region_conds),
+                                        self._region_params(region_unet_params))
         sigmas = torch.as_tensor(self.schedule.sampling_sigmas(sp.steps, sp.schedule),
                                  device=self.device)
         latents = self._sample(sp, den_fn, noise * sigmas[0], sigmas,
@@ -425,13 +541,13 @@ class DiffusionPipeline:
         """img2img from a uint8 image (or from ``init_latents``). The encoder's
         sample and then the sampling noise are drawn from one
         ``torch.Generator`` seeded with ``seed``; the regions' patches are
-        pasted into the sampling noise as in ``txt2img``."""
-        self._check_region_params(region_unet_params)
+        pasted into the sampling noise as in ``txt2img``; ``region_unet_params``
+        as in ``txt2img``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._img2img_from_noise(
             image, gen, gen, cond, uncond, sampler, seed, tiled_diffusion, tiled_vae,
             region_conds, inversion_cond, mask, init_latents, decode, step_callback,
-            target_size)
+            target_size, region_unet_params=region_unet_params)
 
     @staticmethod
     def _noise(noise, shape, dtype, device):
@@ -454,7 +570,7 @@ class DiffusionPipeline:
                             mask: Optional[np.ndarray] = None, init_latents=None,
                             decode: bool = True, step_callback=None,
                             target_size: Optional[Tuple[int, int]] = None,
-                            sampler_noise=None) -> GenerationResult:
+                            sampler_noise=None, region_unet_params=None) -> GenerationResult:
         """img2img with the encoder's unit-variance sample noise ``enc_noise``
         (the moments' dtype, [B, 4, h, w]) and the sampling noise ``noise``
         (fp32, [B, 4, h, w]), each a tensor or a ``torch.Generator`` to draw it
@@ -491,6 +607,9 @@ class DiffusionPipeline:
         h, w = init_latent.shape[-2], init_latent.shape[-1]
         cond, uncond = self._fit_cond(cond, h, w), self._fit_cond(uncond, h, w)
         inversion_cond = self._cond(inversion_cond) if inversion_cond is not None else cond
+        if td is not None and td.noise_inverse and not _is_plain(inversion_cond):
+            raise ValueError("noise inversion runs a plain cond; pass inversion_cond when "
+                             "the cond is scheduled, an AND cond or a callable")
 
         plan = self._plan(td, h, w)
         drawn = isinstance(noise, torch.Generator)
@@ -511,7 +630,8 @@ class DiffusionPipeline:
 
         x = init_latent + noise * sigmas[0]
         den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale,
-                                        self._region_conds(region_conds))
+                                        self._region_conds(region_conds),
+                                        self._region_params(region_unet_params))
         if mask is not None:
             # masked redraw: the denoised estimate blends with the initial
             # latent each step (A1111 semantics)
@@ -570,6 +690,9 @@ class DiffusionPipeline:
         self._check_sampler(self._resolve_sampler(sp))
         # hints to the base canvas; the phases resize them themselves
         h, w = height // 8, width // 8
+        if not (_is_plain(cond) and _is_plain(uncond)):
+            raise _unported("scheduled, AND and callable conds under DemoFusion "
+                            "(ROADMAP queue 1, item 23)")
         cond = fit_cond_canvases(self._cond(cond), (h, w))
         uncond = fit_cond_canvases(self._cond(uncond), (h, w))
         return demofusion_generate(self, cond, uncond, width, height, base_noise, phase_noises,
@@ -684,35 +807,64 @@ class DiffusionPipeline:
         self.last_decode = "latent preview"
         return tensor_to_image(torch.clamp(approx, -1.0, 1.0))
 
-    def _exact_vae_mode(self, which: str, tile_size: int, h: int, w: int, B: int) -> str:
-        """'lockstep' when every tile fits through the encoder or decoder at
-        once in the card's free memory (``torch.cuda.mem_get_info``), else
-        the streaming mode it would need."""
-        pad = ENCODER_PAD if which == "encoder" else DECODER_PAD
-        plan = plan_vae_tiles(h, w, tile_size, pad)
-        if plan is None or self.device.type != "cuda":
-            return "lockstep"
-        free, _ = torch.cuda.mem_get_info(self.device)
-        if lockstep_footprint_bytes(which, tile_size, plan.num_tiles, B) <= free:
-            return "lockstep"
-        return "stream"
+    def _exact_vae_mode(self, which: str, tile_size: int, h: int, w: int, B: int,
+                        group: int) -> str:
+        """'lockstep', 'stream-device' or 'stream-host' by the JAX package's
+        rule (``tiling/streaming_vae.py::exact_vae_mode``). The budget is
+        ``MDU_HBM_BYTES`` where that is set, else the card's free memory
+        (``torch.cuda.mem_get_info``); on the CPU the JAX package's 10 GiB."""
+        env = os.environ.get("MDU_HBM_BYTES")
+        if env:
+            budget = int(env)
+        elif self.device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self.device)[0]
+        else:
+            budget = DEFAULT_BUDGET
+        return exact_vae_mode(which, tile_size, h, w, B, group, budget)
 
-    def _check_exact_fits(self, which: str, tile_size: int, shape) -> None:
-        if self._exact_vae_mode(which, tile_size, shape[2], shape[3], shape[0]) != "lockstep":
-            raise _unported(
-                f"the exact lockstep {which} does not fit in free device memory; "
-                "the streaming exact tiled VAE (ROADMAP queue 1, item 13)")
+    def _stream_vae(self, which: str, x, tv: TiledVAEConfig, host_resident: bool):
+        """The streaming exact tiled VAE with ``tv``'s tile size, ``tile_batch``
+        tiles a group and ``spill_dtype``; None when the input needs no
+        tiling."""
+        ts = tv.encoder_tile_size if which == "encoder" else tv.decoder_tile_size
+        return streaming_tiled_vae(self.vae, x, which, ts, tv.tile_batch,
+                                   host_resident=host_resident, spill_dtype=tv.spill_dtype)
+
+    def _exact_stream(self, which: str, x, tv: TiledVAEConfig):
+        """The streaming result where ``tv`` asks for streaming or the exact
+        lockstep mode does not fit (``_exact_vae_mode``), else None.
+        ``last_vae_mode`` names the mode that ran."""
+        fast = tv.fast_encoder if which == "encoder" else tv.fast_decoder
+        ts = tv.encoder_tile_size if which == "encoder" else tv.decoder_tile_size
+        if tv.streaming:
+            mode = "stream-host"
+        elif fast:
+            self.last_vae_mode = "fast"
+            return None
+        else:
+            mode = self._exact_vae_mode(which, ts, x.shape[2], x.shape[3], x.shape[0],
+                                        tv.tile_batch)
+        self.last_vae_mode = mode
+        if mode == "lockstep":
+            return None
+        if not tv.streaming:
+            print(f"[Tiled VAE] the exact lockstep {which} exceeds the memory budget; "
+                  f"switching to {mode} exact mode", file=sys.stderr)
+        out = self._stream_vae(which, x, tv, host_resident=(mode == "stream-host"))
+        if out is None:
+            self.last_vae_mode = "untiled"
+        return out
 
     @torch.inference_mode()
     def _decode_tensor(self, latents, tv: Optional[TiledVAEConfig]):
         latents = torch.as_tensor(latents, device=self.device)
         z = latents / self.vae.cfg.scaling_factor
         if tv is None or not tv.enabled:
+            self.last_vae_mode = "untiled"
             return self.vae.decode(z)
-        if tv.streaming:
-            raise _unported("the streaming tiled VAE (ROADMAP queue 1, item 13)")
-        if not tv.fast_decoder:
-            self._check_exact_fits("decoder", tv.decoder_tile_size, z.shape)
+        out = self._exact_stream("decoder", z, tv)
+        if out is not None:
+            return out
         return tiled_vae_decode(self.vae, z, tile_size=tv.decoder_tile_size,
                                 fast=tv.fast_decoder, tile_batch=tv.tile_batch)
 
@@ -721,11 +873,11 @@ class DiffusionPipeline:
         """[B, 3, H, W] in [-1, 1] -> [B, 8, H/8, W/8] moments."""
         x_img = torch.as_tensor(x_img, device=self.device)
         if tv is None or not tv.enabled:
+            self.last_vae_mode = "untiled"
             return self.vae.encode_moments(x_img)
-        if tv.streaming:
-            raise _unported("the streaming tiled VAE (ROADMAP queue 1, item 13)")
-        if not tv.fast_encoder:
-            self._check_exact_fits("encoder", tv.encoder_tile_size, x_img.shape)
+        out = self._exact_stream("encoder", x_img, tv)
+        if out is not None:
+            return out
         return tiled_vae_encode_moments(self.vae, x_img, tile_size=tv.encoder_tile_size,
                                         fast=tv.fast_encoder, tile_batch=tv.tile_batch,
                                         color_fix=tv.color_fix)

@@ -110,11 +110,20 @@ def _slice_leaf(leaf, bboxes: Sequence[BBox], latent_hw: Tuple[int, int]):
     return torch.cat([leaf] * len(bboxes))
 
 
+def is_and(cond) -> bool:
+    """An AND cond: ``{"__and__": [cond, ...], "__weights__": (w, ...)}``."""
+    return isinstance(cond, dict) and "__and__" in cond
+
+
 def tile_cond(cond: Optional[Cond], bboxes: Sequence[BBox],
               latent_hw: Tuple[int, int]) -> Optional[Cond]:
-    """The cond dict of a tile batch (tile-major on the batch axis)."""
+    """The cond dict of a tile batch (tile-major on the batch axis); an AND
+    cond branch by branch, its weights kept."""
     if cond is None:
         return None
+    if is_and(cond):
+        return {"__and__": [tile_cond(p, bboxes, latent_hw) for p in cond["__and__"]],
+                "__weights__": cond["__weights__"]}
     return map_leaves(lambda leaf: _slice_leaf(leaf, bboxes, latent_hw), cond)
 
 

@@ -1,5 +1,5 @@
-"""Tiled VAE encode and decode (counterpart of ``mdu_tpu/tiling/tiled_vae.py``
-without its streaming modes, ROADMAP queue 1, item 13).
+"""Tiled VAE encode and decode (counterpart of ``mdu_tpu/tiling/tiled_vae.py``;
+the streaming exact modes are in ``tiling/streaming_vae.py``).
 
 * exact mode: all tiles run lockstep-batched on the leading axis; every
   GroupNorm pools the statistics of the tiles' owned regions
@@ -144,6 +144,29 @@ def fast_footprint_bytes(which: str, tile_size: int, num_tiles: int, batch: int,
     tile_io = in_ch * side_in * side_in + out_ch * side_out * side_out
     return (num_tiles * batch * tile_io * dtype_bytes
             + tile_batch * batch * 128 * work_side * work_side * dtype_bytes * 4)
+
+
+def segment_tile_bytes(which: str, tile_size: int, dtype_bytes: int = 2) -> int:
+    """Working-set bytes of one tile in the widest streaming segment
+    (``tiling/streaming_vae.py``): about 5 tensors of the 128-channel
+    full-resolution activation (the carried activation, the ResnetBlock
+    residual, the conv's input and output, the fp32 statistics pass)."""
+    side = _tile_side(which, tile_size)
+    return 128 * side * side * dtype_bytes * 5
+
+
+def streaming_device_footprint_bytes(which: str, tile_size: int, num_tiles: int,
+                                     batch: int, group_size: int = 4,
+                                     dtype_bytes: int = 2) -> int:
+    """Peak-memory estimate of the device-resident streaming mode: every
+    tile's current activation, the residual carried across the segment
+    boundary (segments split mid-ResnetBlock) and the transition of an
+    upsampling segment (3 widest activations of every tile), plus one
+    group's working set."""
+    side = _tile_side(which, tile_size)
+    per_tile = 128 * side * side * dtype_bytes
+    return (3 * num_tiles * batch * per_tile
+            + group_size * batch * segment_tile_bytes(which, tile_size, dtype_bytes))
 
 
 def _estimate_stats(x, tile_size: int, method) -> GroupNormStats:

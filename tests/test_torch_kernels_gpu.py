@@ -40,6 +40,9 @@ CASES = [
     ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
     ("flash_attention", (1, 1, 17424, 17424, 512), "wide"),  # config 3's encoder mid-block
     ("flash_attention", (4, 1, 13924, 13924, 512), "wide"),  # config 4's decoder mid-block
+    ("flash_attention", (4, 1, 7396, 7396, 512), "wide"),    # a streamed decoder group
+    ("flash_attention", (1, 1, 7396, 7396, 512), "wide"),    # (config 3 and the 8K, tile 64)
+    ("flash_attention", (2, 1, 17424, 17424, 512), "wide"),  # a streamed encoder group
     ("flash_attention", (2, 1, 513, 700, 512), "wide"),      # Lq, Lk off the 64 / 32 tiles
     ("flash_attention", (1, 2, 300, 300, 200), "wide"),      # D off 64: DP = 256
     ("flash_attention", (1, 1, 200, 150, 192), "wide"),
@@ -641,3 +644,35 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take():
     tiles = torch.randn(len(bbs), 2, 8, 16, device=dev)
     with pytest.raises(ValueError, match="weights"):
         fused_tile_blend(tiles, torch.ones(16, 24, device=dev, dtype=torch.float64), 16, 24, bbs)
+
+
+@pytest.mark.parametrize("mode", ["stream-host", "stream-device"])
+def test_streamed_decode_matches_lockstep(mode):
+    """The SD VAE at full width, random weights: a [1, 4, 64, 64] latent at
+    tile 24 (4 tiles of 46, 2116 tokens at the mid-block) in groups of 2,
+    bf16, streamed against lockstep, both held to 2x the bf16 lockstep's
+    error against the fp32 lockstep + 1e-3 of its largest value; #2 runs
+    once for each group at the attention segment."""
+    from mdu_tpu_torch.models import AutoencoderKL, VAEConfig, random_state_dict
+    from mdu_tpu_torch.tiling.streaming_vae import streaming_tiled_vae
+    from mdu_tpu_torch.tiling.tiled_vae import tiled_vae_decode
+
+    dev = _card()
+    sd = random_state_dict(AutoencoderKL(VAEConfig()), 1, torch.float32, dev)
+    vaes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vaes[dtype] = AutoencoderKL(VAEConfig(), dtype=dtype).to(dev).eval()
+        vaes[dtype].load_state_dict({k: v.to(dtype) for k, v in sd.items()})
+    z = torch.randn(1, 4, 64, 64, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    with torch.inference_mode():
+        ref = tiled_vae_decode(vaes[torch.float32], z, tile_size=24).float()
+        lock = tiled_vae_decode(vaes[torch.bfloat16], z, tile_size=24).float()
+        before = flash.LAUNCHES["flash_attention"]
+        got = streaming_tiled_vae(vaes[torch.bfloat16], z, "decoder", 24, group_size=2,
+                                  host_resident=(mode == "stream-host"))
+        torch.cuda.synchronize()
+    assert flash.LAUNCHES["flash_attention"] - before == 2
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 3, 512, 512)
+    tol = 2 * (lock - ref).abs().max().item() + 1e-3 * ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= tol

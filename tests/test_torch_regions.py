@@ -342,8 +342,13 @@ def test_regional_entry_points_run_on_cpu(pipes):
     assert res.info["Tiled Diffusion"]["Region control"]["Region 1"]["seed"] == seed
     with pytest.raises(ValueError, match="region_conds"):
         port.txt2img(conds[0], conds[1], **{**kw, "region_conds": []})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port.txt2img(conds[0], conds[1], **kw, region_unet_params=[object()])
+    # per-region UNet weights: the UNet's own state_dict gives the same image
+    # as none (within 1e-5 x max: on the CPU, oneDNN takes another path for
+    # weights passed through functional_call); an unknown entry is refused
+    own = port.txt2img(conds[0], conds[1], **kw, region_unet_params=[port.unet.state_dict()])
+    _close(own.latents, a.latents, rel=1e-5)
+    with pytest.raises(KeyError, match="does not have"):
+        port.txt2img(conds[0], conds[1], **kw, region_unet_params=[{"no.such.weight": 0}])
 
 
 def test_derived_seeds_are_distinct(pipes):
