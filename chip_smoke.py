@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,prompts,load,img2img,
-                                    stream,regional,upscale8k,stream8k,demofusion]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,deepcache,unclip,prompts,
+                                    load,img2img,adapters,stream,regional,upscale8k,stream8k,
+                                    demofusion]
 
 Phases, one JSON line each (all of them but ``stream8k`` unless ``--phases``
 names some; ``device`` and ``build`` always run):
@@ -125,11 +126,19 @@ names some; ``device`` and ``build`` always run):
                  CPU fp8 run's own error + 1e-3 of the largest value), the
                  tiny conditioner on a prompt with emphasis, BREAK, a
                  schedule and AND and a txt2img from it, and a tiny
-                 single-file round trip with a LoRA merge.
+                 single-file round trip with a LoRA merge. Then PR 13's tiny
+                 paths (``phase_reference_adapters``): DeepCache N = 2 on a
+                 tiled txt2img with a BACKGROUND region under Euler, Heun and
+                 Euler a; a DemoFusion x2 with DeepCache and an AND cond;
+                 StableSR + ControlNet on a tiled img2img; image CFG 1.5;
+                 unCLIP; a tiny ESRGAN x4. #1 at SD2.1-unCLIP's D = 64 on
+                 config 2's canvas ([10, 5, 6144, 64], [10, 10, 1536, 64])
+                 and at config 3's 3-way image-CFG batches (15 and 12 at
+                 levels 0-2) are in ``kernels``.
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
-                 exact tiled decode (tile 128); 1 warm and 2 timed images,
+                 exact tiled decode (tile 128); 1 warm and 1 timed image,
                  with no flag, with the four flags and with MDU_FLASH=fm
                  (the VAE's D = 512 through #1's wide form). Then one image
                  of config 2 built in fp32 (the JAX CLI's default dtype)
@@ -142,6 +151,15 @@ names some; ``device`` and ``build`` always run):
                  1 timed image each, launches pinned: #1 200 and 390, the
                  latter 39 UNet calls: two on each of 19 steps, one on the
                  last).
+6b. ``deepcache`` config 2 exactly as ``txt2img`` builds it under DeepCache N
+                 = 2, branch 1 (``bench.py``'s config2_deepcache_img_per_min),
+                 with no flag and the four flags: 1 warm and 2 timed images,
+                 launches pinned (#1 / #3 150, #5 0: the DeepCache grid
+                 sums with the scatter-add), and the mean absolute pixel
+                 difference of the seed-0 image from the exact one.
+6c. ``unclip``   SD2.1-unCLIP (ViT-H, adm 2048) on config 2's canvas and
+                 sampler, random bf16 weights; 1 warm and 1 timed image,
+                 #1's launches at D = 64 pinned.
 6a. ``prompts``  config 2 from prompt strings (``phase_prompts``): a plain
                  prompt and a schedule with an AND of two weighted branches
                  through a full-width CLIP-L with random bf16 weights and a
@@ -163,9 +181,18 @@ names some; ``device`` and ``build`` always run):
                  inversion (10 steps, renoise 1), Euler 20 steps at denoise
                  0.4 (9 steps) and CFG 7, exact tiled encode (tile 1024) and
                  decode (tile 64); SD1.5 in bf16, with no flag and with the
-                 four flags; ``free_cache()`` before each of 1 warm and 2
-                 timed images. Launches per image pinned; the output (1,
+                 four flags; ``free_cache()`` before each of 1 warm and 1
+                 timed image. Launches per image pinned; the output (1,
                  2048, 2048, 3), finite, and the decode's NaN chain not taken.
+7b. ``adapters`` config 3 (no flag) three ways, 1 warm and 1 timed image
+                 each, seconds per stage, peak memory, launches pinned: with
+                 a full-width StableSR guidance encoder (the init image's
+                 latent as the guidance leaf); with a full-width ESRGAN x4
+                 (64 features, 23 blocks) written with the port's writer,
+                 loaded by ``load_esrgan`` and registered as the
+                 pre-upscaler, held card against CPU on a 64 x 64 crop in
+                 fp32 and its x4 of 512 x 512 timed; under image CFG 1.5 on
+                 an SD1.5 UNet with 8 input channels.
 7a. ``stream``   config 3's exact decode and encode in lockstep,
                  stream-device, stream-host and stream-host with fp8 spills,
                  each forced by an ``MDU_HBM_BYTES`` budget and the mode
@@ -180,7 +207,7 @@ names some; ``device`` and ``build`` always run):
                  and 4) with the background drawn, Euler 20 steps at CFG 7,
                  exact tiled decode (tile 96: 4 tiles); SD1.5 in bf16, with no
                  flag and with the four flags; ``free_cache()`` before each of
-                 1 warm and 2 timed images. 120 UNet calls an image (20 steps
+                 1 warm and 1 timed image. 120 UNet calls an image (20 steps
                  x (2 grid calls + 4 region calls)); launches per image
                  pinned; seconds per stage (sampling, decode) and the peak
                  memory.
@@ -205,6 +232,9 @@ names some; ``device`` and ``build`` always run):
                  finite [1, 4, 384, 384] final latent and three phase
                  latents) and one x2 image under the four flags; launches
                  pinned in each (270 guided calls a x3 image, 90 a x2 one).
+                 Last, a x2 image under DeepCache N = 2 (the base phase and
+                 the global views cached), launches pinned, with its mean
+                 absolute latent difference from the exact x2.
 
 Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
 (every kernel of the port), the nvidia-smi line, and as the last line
@@ -251,6 +281,9 @@ F32_RUN = ("fp32 conv", {"MDU_FUSED_CONV": "1"},
            {"fused_conv3x3_f32": 320, "fused_conv3x3_f32.sm90": 320,
             "flash_attention_fm_f32": 200, "flash_attention_fm_f32.sm90": 200,
             "flash_attention_f32": 1, "flash_attention_f32.wide": 1})
+# timed images of the earlier paths (config 2's three settings, configs 3 and 4):
+# 1 after 1 warm, cut from 2 to keep the whole run near half its time limit
+EARLIER_TIMED = 1
 # config 3 (bench.py:345-377): MoD img2img x4, 512 -> 2048, with noise inversion
 CFG3 = dict(image=512, scale=4.0, steps=20, cfg=7.0, denoise=0.4, tile=96, overlap=8,
             tile_bs=8, inverse_steps=10, renoise=1.0, encoder_tile=1024, decoder_tile=64)
@@ -319,6 +352,36 @@ EXPECTED_CONFIG5_FLAGGED = {"flash_attention_t": 104 * C5_CALLS[2],
                             "fused_conv3x3.sm90": 22 * C5_CALLS[2]}
 # config 2 under two more samplers: (name, #1 launches per image = 10 a UNet call)
 SAMPLER_RUNS = (("DPM++ 2M Karras", 200), ("DPM++ SDE", 390))
+# config 2 under DeepCache as bench.py:294-342 runs it (config2_deepcache_img_per_min):
+# N = 2, branch 1. 10 full UNet calls (10 flash calls each: levels 0 and 1) and
+# 10 cached ones (level 0's 2 down and 3 up transformers: 5 each)
+DEEPCACHE = dict(interval=2, branch=1)
+EXPECTED_DEEPCACHE = {"flash_attention_fm": 150, "flash_attention_fm.sm90": 150,
+                      "flash_attention": 1, "flash_attention.wide": 1}
+# under the four flags: #4 17 a full call and 6 a cached one (level 0's five
+# transformer norms and norm_out, all in the cluster form at batch 10); #6 16
+# a full call and 9 a cached one (down 0's four convs, up 3's three conv2 and
+# the conv1 of its last two ResBlocks, whose input is 640 wide); #5 never: the
+# DeepCache grid sums with the scatter-add, as the JAX package's stateful grid
+EXPECTED_DEEPCACHE_FLAGGED = {"flash_attention_t": 150, "flash_attention_t.sm90": 150,
+                              "flash_attention": 1, "flash_attention.wide": 1,
+                              "fused_group_norm": 230, "fused_group_norm.cluster": 120,
+                              "fused_group_norm.two_read": 110, "fused_conv3x3": 250,
+                              "fused_conv3x3.sm90": 250}
+DEEPCACHE_RUNS = (("default", {}, EXPECTED_DEEPCACHE),
+                  ("flagged", FLAGS, EXPECTED_DEEPCACHE_FLAGGED))
+# config 5 x2 under DeepCache N = 2: the base phase's 20 calls and phase 2's 20
+# view calls alternate full (104 flash calls: the UNet's 70, the ControlNet's
+# 34) and cached (the ControlNet's 34: SDXL's level 0 has no transformer, so
+# the UNet's cached pass has no attention); phase 2's 50 window calls run full
+C5_DC_FLASH = 104 * 10 + 34 * 10 + 104 * 50 + 104 * 10 + 34 * 10
+EXPECTED_CONFIG5_DC = {"flash_attention_fm": C5_DC_FLASH, "flash_attention_fm.sm90": C5_DC_FLASH}
+# SD2.1-unCLIP (ViT-H: adm 2048) on config 2's canvas and sampler: heads of D =
+# 64, 5 at level 0 and 10 at level 1, 10 flash calls a UNet call
+EXPECTED_UNCLIP = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
+                   "flash_attention": 1, "flash_attention.wide": 1}
+# the full-width ESRGAN of the adapters phase (64 features, 23 blocks, grow 32)
+ESRGAN = dict(num_feat=64, num_blocks=23, grow=32)
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
 N_SMS = 132
 KERNELS = {
@@ -338,7 +401,13 @@ KERNELS = {
                 (10, 8, 9216, 40), (10, 8, 2304, 80), (10, 8, 576, 160),
                 (2, 8, 9216, 40), (2, 8, 2304, 80), (2, 8, 576, 160),
                 (4, 10, 4096, 64), (4, 20, 1024, 64), (2, 10, 4096, 64), (2, 20, 1024, 64),
-                (15, 8, 6144, 40), (15, 8, 1536, 80)],
+                (15, 8, 6144, 40), (15, 8, 1536, 80),
+                # SD2.1-unCLIP (D = 64) on config 2's canvas, levels 0 and 1
+                (10, 5, 6144, 64), (10, 10, 1536, 64),
+                # config 3 under image CFG: the 3-way sampling batches of 5 and 4
+                # tiles, levels 0-2
+                (15, 8, 9216, 40), (15, 8, 2304, 80), (15, 8, 576, 160),
+                (12, 8, 9216, 40), (12, 8, 2304, 80), (12, 8, 576, 160)],
         # fp32: the same shapes (sm90, sm90, sm90, wide, simt)
         f32_shapes=[(10, 8, 6144, 40), (10, 8, 1536, 80), (1, 2, 513, 40), (2, 1, 9600, 512),
                     (1, 1, 700, 13)]),
@@ -1432,7 +1501,7 @@ def phase_txt2img():
     import torch
 
     out = {}
-    runs = [(None, CONFIG2_RUNS, 2), (torch.float32, (F32_RUN,), 1)]
+    runs = [(None, CONFIG2_RUNS, EARLIER_TIMED), (torch.float32, (F32_RUN,), 1)]
     for dtype, config_runs, n in runs:
         t0 = time.perf_counter()
         pipe, cond, uncond, sp, td, tv = build_config2(dtype)
@@ -1547,8 +1616,8 @@ def stage_timer(pipe, stages=IMG2IMG_STAGES):
 
 
 def phase_img2img():
-    """Config 3 in bf16 with no flag and with the four flags: 1 warm and 2
-    timed images, ``free_cache()`` before each (the full inversion every
+    """Config 3 in bf16 with no flag and with the four flags: 1 warm and 1
+    timed image, ``free_cache()`` before each (the full inversion every
     time). Launches per image must equal the pinned counts; the output must
     be (1, 2048, 2048, 3), the latents finite, and the decode's NaN chain
     not taken. Returns the launches per image of each run."""
@@ -1587,7 +1656,7 @@ def phase_img2img():
                                       f"expected {want}")
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            n = 2
+            n = EARLIER_TIMED
             with stage_timer(pipe) as stages:
                 t0 = time.perf_counter()
                 for seed in range(1, n + 1):
@@ -1643,8 +1712,8 @@ def build_config4():
 
 
 def phase_regional():
-    """Config 4 in bf16 with no flag and with the four flags: 1 warm and 2
-    timed images, ``free_cache()`` before each. Launches per image must equal
+    """Config 4 in bf16 with no flag and with the four flags: 1 warm and 1
+    timed image, ``free_cache()`` before each. Launches per image must equal
     the pinned counts; the output must be (1, 1536, 1536, 3), the latents
     finite, and the decode's NaN chain not taken. Returns the launches per
     image of each run."""
@@ -1684,7 +1753,7 @@ def phase_regional():
                                       f"expected {want}")
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            n = 2
+            n = EARLIER_TIMED
             with stage_timer(pipe, ("sampling", "decode")) as stages:
                 t0 = time.perf_counter()
                 for seed in range(1, n + 1):
@@ -1830,16 +1899,20 @@ def phase_demofusion():
     pipe._sample = timed_sample
     size, latent = CFG5["size"], CFG5["size"] // 8
     out = {}
-    runs = (("warm x2", {}, 2, EXPECTED_CONFIG5_X2), ("default", {}, 3, EXPECTED_CONFIG5),
-            ("flagged x2", FLAGS, 2, EXPECTED_CONFIG5_FLAGGED))
-    for label, flags, scale, expected in runs:
+    # the last run: DeepCache N = 2 on the global views (and the base phase)
+    sp_dc = dataclasses.replace(sp, deepcache=2)
+    runs = (("warm x2", {}, 2, EXPECTED_CONFIG5_X2, sp), ("default", {}, 3, EXPECTED_CONFIG5, sp),
+            ("flagged x2", FLAGS, 2, EXPECTED_CONFIG5_FLAGGED, sp),
+            ("deepcache x2", {}, 2, EXPECTED_CONFIG5_DC, sp_dc))
+    results = {}
+    for label, flags, scale, expected, sp_run in runs:
         phase_s.clear()
         with flags_set(flags):
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             t0 = time.perf_counter()
             res = pipe.demofusion(cond, uncond, size, size,
-                                  dataclasses.replace(cfg, scale_factor=scale), sp, seed=0,
+                                  dataclasses.replace(cfg, scale_factor=scale), sp_run, seed=0,
                                   decode=False)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -1856,9 +1929,15 @@ def phase_demofusion():
         require(res.info["DemoFusion"]["Phase sizes"]
                 == [[size * k, size * k] for k in range(1, scale + 1)],
                 f"config 5 {label}: phase sizes {res.info['DemoFusion']['Phase sizes']}")
+        results[label] = res.latents
+        extra = {}
+        if sp_run.deepcache > 1:
+            extra["mean_abs_latent_diff_from_exact"] = float(
+                (res.latents.float() - results["warm x2"].float()).abs().mean())
         emit("demofusion", config="config 5: SDXL DemoFusion with ControlNet, 1024 -> "
                                   f"{size * scale}, bf16", run=label, flags=flags, scale=scale,
              sampler=sp.name, steps=sp.steps, cfg_scale=sp.cfg_scale,
+             deepcache=sp_run.deepcache, **extra,
              denoising_strength=sp.denoising_strength, window=cfg.window_size,
              overlap=cfg.overlap, tile_bs=cfg.tile_bs, tile_bs_g=cfg.tile_bs_g,
              guided_calls=C5_CALLS[scale], setup_s=setup_s, seconds=seconds,
@@ -1870,9 +1949,433 @@ def phase_demofusion():
              latent_std=[float(p.float().std()) for p in res.phase_latents], finite=True,
              launches=launches, expected_launches=expected)
         out[label] = launches
-    del pipe, cond, uncond, res
+    del pipe, cond, uncond, res, results
     torch.cuda.empty_cache()
-    return {"default": out["default"], "flagged": out["flagged x2"]}
+    return {"default": out["default"], "flagged": out["flagged x2"],
+            "deepcache x2": out["deepcache x2"]}
+
+
+# ------------------------------------------------ DeepCache, the adapters, unCLIP
+
+
+def phase_deepcache():
+    """Config 2 (bf16) under DeepCache N = 2, branch 1 (``DEEPCACHE``), built
+    as phase ``txt2img`` builds it, with no flag and with the four flags: 1
+    warm and 2 timed images with their launches pinned, then the mean
+    absolute pixel difference of the seed-0 image from the exact image of
+    that seed. Returns the launches per image of each run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv = build_config2()
+    setup_s = time.perf_counter() - t0
+    sp_dc = dataclasses.replace(sp, deepcache=DEEPCACHE["interval"],
+                                deepcache_branch=DEEPCACHE["branch"])
+    out = {}
+    for label, flags, expected in DEEPCACHE_RUNS:
+        with flags_set(flags):
+            launches, fields = run_config2(pipe, cond, uncond, sp_dc, td, tv, expected,
+                                           f"deepcache {label}")
+            images = [np.asarray(pipe.txt2img(cond, uncond, width=CFG2["width"],
+                                              height=CFG2["height"], sampler=s, seed=0,
+                                              tiled_diffusion=td, tiled_vae=tv).images)
+                      for s in (sp, sp_dc)]
+        diff = float(np.abs(images[0].astype(np.int16) - images[1].astype(np.int16)).mean())
+        emit("deepcache", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16, "
+                                 "DeepCache", run=label, flags=flags, sampler=sp.name,
+             steps=sp.steps, cfg_scale=sp.cfg_scale, deepcache=sp_dc.deepcache,
+             deepcache_branch=sp_dc.deepcache_branch, setup_s=setup_s,
+             mean_abs_pixel_diff_from_exact=diff, expected_launches=expected, **fields)
+        out[label] = launches
+    del pipe, cond, uncond
+    torch.cuda.empty_cache()
+    return out
+
+
+def rrdb_flops(cfg, h: int, w: int) -> float:
+    """The multiply-adds x 2 of an RRDBNet x4 on an h x w image: 3 dense
+    blocks of 5 convs in each RRDB at h x w, conv_body at h x w, conv_up1 at
+    2h x 2w, conv_up2, conv_hr and conv_last at 4h x 4w (3 x 3 kernels)."""
+    nf, g = cfg.num_feat, cfg.grow
+    rdb = sum((nf + k * g) * g for k in range(4)) + (nf + 4 * g) * nf
+    px = h * w
+    macs = 9 * (px * (3 * nf + 3 * cfg.num_blocks * rdb + nf * nf)
+                + 4 * px * nf * nf + 16 * px * (2 * nf * nf + nf * 3))
+    return 2.0 * macs
+
+
+def phase_adapters():
+    """Config 3 (bf16, no flag; ``build_config3``) three ways, 1 warm and 1
+    timed image each, ``free_cache()`` before each: (a) with a full-width
+    StableSR guidance encoder (``StableSRGuidance(sd15_unet_config())``,
+    random bf16 weights, its zero convs drawn small so that the residuals are
+    not zero), the guidance leaf the init image's latent on cond and uncond;
+    (b) with a full-width ESRGAN x4 (64 features, 23 blocks, grow 32, random
+    fp32 weights written as a new-arch .safetensors into a temporary
+    directory of the checkout and loaded by ``load_esrgan``) as the
+    pre-upscaler in place of Lanczos, held card against CPU on a 64 x 64
+    crop in fp32 within 1e-4 of the largest value; (c) image CFG 1.5 on an
+    SD1.5 UNet with 8 input channels. Each: img/min, seconds per stage, peak
+    memory, launches pinned (those of config 3: no adapter has attention).
+    Returns the launches per image of each."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdu_tpu_torch import DiffusionPipeline
+    from mdu_tpu_torch.models import (RRDBNet, RRDBNetConfig, StableSRGuidance,
+                                      UNet2DCondition, load_esrgan, random_state_dict,
+                                      sd15_unet_config)
+    from mdu_tpu_torch.models.esrgan import esrgan_upscaler, translate_esrgan_name
+    from mdu_tpu_torch.models.safetensors import save_file
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.upscale import register_upscaler
+    from mdu_tpu_torch.utils.image import image_to_tensor
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv, img = build_config3()
+    setup_s = time.perf_counter() - t0
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    side = int(CFG3["image"] * CFG3["scale"])
+    stages = ("upscale", "encode", "noise_inversion", "renoise_mask", "sampling", "decode")
+    out = {}
+
+    def run(label, p, c, u, s, t, **extra):
+        for seed, timed in ((0, False), (1, True)):
+            p.free_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with stage_timer(p, stages) as spent:
+                t1 = time.perf_counter()
+                res = p.img2img(img, c, u, sampler=s, seed=seed, tiled_diffusion=t,
+                                tiled_vae=tv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t1
+            launches = dict(LAUNCHES)
+            want = {k: EXPECTED_CONFIG3.get(k, 0) for k in launches}
+            require(launches == want, f"adapters {label}: launches {launches}, expected {want}")
+            require(tuple(res.images.shape) == (1, side, side, 3),
+                    f"adapters {label}: output shape {tuple(res.images.shape)}")
+            require(bool(torch.isfinite(res.latents).all()),
+                    f"adapters {label}: non-finite latents")
+            require(p.last_decode == "decode", f"adapters {label}: the decode's NaN chain "
+                                               f"gave the image ({p.last_decode})")
+            if not timed:
+                first_s = seconds
+        emit("adapters", config=f"config 3: MoD img2img x4 512 -> 2048 with noise inversion, "
+                                f"SD1.5 bf16, {label}", run=label, flags={}, sampler=s.name,
+             steps=s.steps, denoising_strength=s.denoising_strength, cfg_scale=s.cfg_scale,
+             image_cfg_scale=s.image_cfg_scale, upscaler=t.upscaler, setup_s=setup_s,
+             first_image_s=first_s, seconds_per_image=seconds, img_per_min=60.0 / seconds,
+             stage_seconds_per_image=dict(spent),
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+             output_shape=[1, side, side, 3], finite=True, launches_per_image=launches,
+             expected_launches=EXPECTED_CONFIG3, **extra)
+        out[label] = launches
+
+    # (a) StableSR guidance
+    with torch.device("meta"):
+        gm = StableSRGuidance(pipe.unet.cfg, dtype=bf16)
+    sd = random_state_dict(gm, 7, bf16, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name in sd:
+        if name.split(".")[0].startswith("zero"):
+            sd[name] = (torch.randn(sd[name].shape, generator=gen, device=dev) * 0.02).to(bf16)
+    gm.load_state_dict(sd, strict=True, assign=True)
+    pipe_sr = DiffusionPipeline(pipe.unet, pipe.vae, guidance_model=gm)
+    with torch.inference_mode():
+        x = pipe_sr._prepare_image(img, td, None)
+        g = pipe_sr._encode(x, tv)[:, :4] * pipe.vae.cfg.scaling_factor
+    guidance_params = sum(p_.numel() for p_ in gm.parameters())
+    run("stablesr", pipe_sr, {**cond, "guidance": g}, {**uncond, "guidance": g}, sp, td,
+        guidance_parameters=guidance_params, guidance_shape=list(g.shape))
+    del pipe_sr, gm, sd, g, x
+    torch.cuda.empty_cache()
+
+    # (b) ESRGAN x4 pre-upscale, through the port's writer and loader
+    gcfg = RRDBNetConfig(**ESRGAN)
+    tmp = tempfile.mkdtemp(prefix="_esrgan_smoke_", dir=ROOT)
+    try:
+        with torch.device("meta"):
+            shell = RRDBNet(gcfg)
+        sd = random_state_dict(shell, 8, torch.float32, dev)
+        path = os.path.join(tmp, "esrgan_x4.safetensors")
+        save_file({translate_esrgan_name(k.replace(".", "/")): v.cpu() for k, v in sd.items()},
+                  path)
+        file_bytes = os.path.getsize(path)
+        model = load_esrgan(path)
+        cpu_model = load_esrgan(path, device="cpu")
+    finally:
+        shutil.rmtree(tmp)
+    require(model.cfg == gcfg, f"load_esrgan inferred {model.cfg}, wrote {gcfg}")
+    crop = image_to_tensor(img)[:, :, :64, :64]
+    got = esrgan_upscaler(model)(crop.to(dev), 4.0).cpu()
+    ref = esrgan_upscaler(cpu_model)(crop, 4.0)
+    err = (got - ref).abs().max().item()
+    tol = F32_TOL * ref.abs().max().item()
+    require(bool(torch.isfinite(got).all()) and err <= tol,
+            f"ESRGAN 64^2 crop, card against CPU: max abs err {err} > {tol}")
+    emit("adapters", check="ESRGAN x4 card against CPU, fp32, 64x64 crop", max_abs_err=err,
+         tol=tol, shape=list(got.shape))
+    upscale_fn = esrgan_upscaler(model)
+    x512 = image_to_tensor(img).to(dev)
+    upscale_fn(x512, 4.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    upscale_fn(x512, 4.0)
+    torch.cuda.synchronize()
+    esrgan_s = time.perf_counter() - t1
+    flops = rrdb_flops(gcfg, CFG3["image"], CFG3["image"])
+    register_upscaler("SmokeESRGAN", upscale_fn)
+    run("esrgan", pipe, cond, uncond, sp, dataclasses.replace(td, upscaler="SmokeESRGAN"),
+        esrgan_file_bytes=file_bytes, esrgan_x4_512_seconds=esrgan_s, esrgan_flops=flops,
+        esrgan_bound_s=flops / PEAK_FP32_FLOPS, esrgan_crop_max_abs_err=err)
+    del model, cpu_model, upscale_fn, x512
+    torch.cuda.empty_cache()
+
+    # (c) image CFG on an SD1.5 UNet with 8 input channels
+    with torch.device("meta"):
+        unet8 = UNet2DCondition(dataclasses.replace(sd15_unet_config(), in_channels=8),
+                                dtype=bf16)
+    unet8.load_state_dict(random_state_dict(unet8, 9, bf16, dev), strict=True, assign=True)
+    pipe_e = DiffusionPipeline(unet8, pipe.vae)
+    run("image_cfg", pipe_e, cond, uncond, dataclasses.replace(sp, image_cfg_scale=1.5), td)
+    del pipe_e, unet8, pipe, cond, uncond
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unclip():
+    """SD2.1-unCLIP (``sd21_unclip_unet_config("h")``, random bf16 weights
+    drawn on the card) with the SD VAE on config 2's canvas, sampler and
+    tiles: crossattn [1, 77, 1024], adm [1, 2048]; 1 warm and 1 timed
+    image, #1's launches at D = 64 pinned. Returns the launches per image."""
+    import torch
+
+    from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
+                               TiledDiffusionConfig, TiledVAEConfig)
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, VAEConfig,
+                                      random_state_dict, sd21_unclip_unet_config)
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    t0 = time.perf_counter()
+    ucfg = sd21_unclip_unet_config("h")
+    with torch.device("meta"):
+        unet = UNet2DCondition(ucfg, dtype=bf16)
+        vae = AutoencoderKL(VAEConfig(), dtype=bf16)
+    unet.load_state_dict(random_state_dict(unet, 10, bf16, dev), strict=True, assign=True)
+    vae.load_state_dict(random_state_dict(vae, 1, bf16, dev), strict=True, assign=True)
+    pipe = DiffusionPipeline(unet, vae)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    adm = (torch.randn(1, ucfg.adm_in_channels, generator=gen, device=dev) * 0.1).to(bf16)
+    cond = {"crossattn": (torch.randn(1, 77, 1024, generator=gen, device=dev) * 0.1).to(bf16),
+            "adm": adm}
+    uncond = {"crossattn": (torch.randn(1, 77, 1024, generator=gen, device=dev)
+                            * 0.1).to(bf16), "adm": adm}
+    sp = SamplerConfig(name="Euler", steps=CFG2["steps"], cfg_scale=CFG2["cfg"])
+    td = TiledDiffusionConfig(method=Method.MULTI_DIFF, tile_w=CFG2["tile"],
+                              tile_h=CFG2["tile"], overlap=CFG2["overlap"],
+                              tile_bs=CFG2["tile_bs"])
+    tv = TiledVAEConfig(decoder_tile_size=CFG2["decoder_tile"], fast_decoder=False)
+    setup_s = time.perf_counter() - t0
+    launches, fields = run_config2(pipe, cond, uncond, sp, td, tv, EXPECTED_UNCLIP, "unclip",
+                                   n=1)
+    emit("unclip", config="SD2.1-unCLIP (ViT-H adm) on config 2: MultiDiffusion txt2img "
+                          "2048x512, bf16", run="default", flags={}, sampler=sp.name,
+         steps=sp.steps, cfg_scale=sp.cfg_scale, adm_in_channels=ucfg.adm_in_channels,
+         head_dim=ucfg.head_dim, setup_s=setup_s, expected_launches=EXPECTED_UNCLIP, **fields)
+    del pipe, unet, vae, cond, uncond
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tiny_deepcache(name):
+    """The tiny pipeline under DeepCache N = 2 on a tiled txt2img with a
+    BACKGROUND region (the 32 x 64 latent of ``_tiny_run``, tiles of 32: 1024
+    tokens at level 0), sampler ``name``, 4 steps, the base noise, the
+    region's patch and the samplers' noise drawn on the CPU. Returns
+    ``run(device, dtype) -> (latents,)``."""
+
+    def run(device, dtype):
+        import torch
+
+        from mdu_tpu_torch import SamplerConfig, TiledDiffusionConfig
+        from mdu_tpu_torch.tiling.regions import compose_region_noise
+        from mdu_tpu_torch.utils.bbox import RegionSpec
+
+        pipe, c, u, gen = _tiny_pipeline(device, dtype)
+        rc = (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)
+        region = RegionSpec(0.0, 0.0, 0.5, 1.0, seed=31)
+        noise = compose_region_noise(torch.randn(1, 4, 32, 64, generator=gen),
+                                     [region.to_bbox(64, 32)], [31])
+        td = TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16, tile_bs=3, regions=[region])
+        res = pipe._txt2img_from_noise(noise, c, u, SamplerConfig(name=name, steps=4,
+                                                                   deepcache=2), 0, td,
+                                       decode=False, region_conds=[({"crossattn": rc}, u)],
+                                       region_seeds=[31],
+                                       sampler_noise=torch.Generator().manual_seed(9))
+        return (res.latents.float().cpu(),)
+
+    return run
+
+
+def _tiny_demofusion_dc(device: str, dtype):
+    """``_tiny_demofusion`` under DeepCache N = 2 (the global views cached)
+    with an AND cond of two branches (weights 1 and 0.5), Euler 4 steps.
+    Returns (phase 1 latent, phase 2 latent) on the CPU in fp32."""
+    import torch
+
+    from mdu_tpu_torch import DemoFusionConfig, SamplerConfig
+
+    pipe, c, u, gen = _tiny_sdxl_pipeline(device, dtype)
+    c2 = {**c, "crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.5).to(dtype)}
+    base = torch.randn(1, 4, 48, 48, generator=gen)
+    phase = torch.randn(1, 4, 96, 96, generator=gen)
+    cfg = DemoFusionConfig(window_size=48, overlap=24, tile_bs=4, tile_bs_g=2, scale_factor=2)
+    res = pipe._demofusion_from_noise(base, [phase], {"__and__": [c, c2],
+                                                      "__weights__": (1.0, 0.5)}, u, 384, 384,
+                                      cfg, SamplerConfig(steps=4, denoising_strength=0.6,
+                                                         deepcache=2), seed=3, decode=False)
+    return tuple(p.float().cpu() for p in res.phase_latents)
+
+
+def _fill_zero_gates(sd, gen, dtype, scale=0.3):
+    """``sd`` with every ``zero*`` gate (and a ControlNet's
+    ``cond_embedding.conv_out``) drawn from a normal of std ``scale``."""
+    import torch
+
+    for name in sd:
+        if name.split(".")[0].startswith("zero") or name.startswith("cond_embedding.conv_out"):
+            sd[name] = (torch.randn(sd[name].shape, generator=gen) * scale).to(dtype)
+    return sd
+
+
+def _tiny_img2img_adapter(kind):
+    """A tiny tiled img2img of a 256 x 512 image (upscaler None, untiled
+    encode; MultiDiffusion over the 32 x 64 latent in tiles of 32), Euler 4
+    steps at denoise 0.75, with ``kind``: "stablesr" (the tiny UNet with a
+    ControlNet and a StableSR guidance encoder, every gate drawn nonzero; a
+    guidance latent and a hint on cond and uncond) or "image_cfg" (the tiny
+    UNet with 8 input channels, image CFG 1.5, the image latent attached by
+    the pipeline). Weights, images and noise drawn on the CPU. Returns
+    ``run(device, dtype) -> (latents,)``."""
+
+    def run(device, dtype):
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        from mdu_tpu_torch import DiffusionPipeline, SamplerConfig, TiledDiffusionConfig
+        from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, StableSRGuidance,
+                                          UNet2DCondition, random_state_dict,
+                                          tiny_unet_config, tiny_vae_config)
+
+        gen = torch.Generator().manual_seed(13)
+        ucfg = tiny_unet_config()
+        if kind == "image_cfg":
+            ucfg = dataclasses.replace(ucfg, in_channels=8)
+        unet, vae = UNet2DCondition(ucfg, dtype=dtype), AutoencoderKL(tiny_vae_config(),
+                                                                       dtype=dtype)
+        unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
+        vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
+        c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+        u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype)}
+        kw, sp = {}, SamplerConfig(steps=4, denoising_strength=0.75)
+        if kind == "stablesr":
+            cn, gm = ControlNet(ucfg, dtype=dtype), StableSRGuidance(ucfg, dtype=dtype)
+            cn.load_state_dict(_fill_zero_gates(random_state_dict(cn, 2, dtype, device="cpu"),
+                                                gen, dtype))
+            gm.load_state_dict(_fill_zero_gates(random_state_dict(gm, 3, dtype, device="cpu"),
+                                                gen, dtype, 0.05))
+            kw = dict(controlnet=cn, guidance_model=gm)
+            extra = {"guidance": torch.randn(1, 4, 32, 64, generator=gen) * 0.3,
+                     "control": [torch.rand(1, 3, 256, 512, generator=gen)]}
+            c, u = {**c, **extra}, {**u, **extra}
+        else:
+            sp = dataclasses.replace(sp, image_cfg_scale=1.5)
+        pipe = DiffusionPipeline(unet, vae, device=device, **kw)
+        img = (np.random.default_rng(14).random((256, 512, 3)) * 255).astype(np.uint8)
+        enc_noise = torch.randn(1, 4, 32, 64, generator=gen).to(dtype)
+        noise = torch.randn(1, 4, 32, 64, generator=gen)
+        td = TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16, tile_bs=3)
+        res = pipe._img2img_from_noise(img, enc_noise, noise, c, u, sp, 0, td, decode=False)
+        return (res.latents.float().cpu(),)
+
+    return run
+
+
+def _tiny_unclip(device: str, dtype):
+    """The tiny UNet with an 8-wide ``adm`` on ``_tiny_run``'s tiled txt2img
+    (Euler 3 steps), weights, embeddings and noise drawn on the CPU. Returns
+    (latents,)."""
+    import dataclasses
+
+    import torch
+
+    from mdu_tpu_torch import DiffusionPipeline, SamplerConfig, TiledDiffusionConfig
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
+                                      tiny_unet_config, tiny_vae_config)
+
+    ucfg = dataclasses.replace(tiny_unet_config(), adm_in_channels=8)
+    unet = UNet2DCondition(ucfg, dtype=dtype)
+    unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
+    pipe = DiffusionPipeline(unet, AutoencoderKL(tiny_vae_config(), dtype=dtype), device=device)
+    gen = torch.Generator().manual_seed(15)
+    adm = (torch.randn(1, 8, generator=gen) * 0.5).to(dtype)
+    c = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype), "adm": adm}
+    u = {"crossattn": (torch.randn(1, 7, 16, generator=gen) * 0.1).to(dtype), "adm": adm}
+    res = pipe._txt2img_from_noise(torch.randn(1, 4, 32, 64, generator=gen), c, u,
+                                   SamplerConfig(steps=3), 0,
+                                   TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16,
+                                                        tile_bs=3), decode=False)
+    return (res.latents.float().cpu(),)
+
+
+def _tiny_esrgan(device: str, dtype):
+    """The tiny RRDBNet (weights drawn on the CPU) as an x4 upscaler of a 64
+    x 64 image in [-1, 1]. Returns (image,)."""
+    import torch
+
+    from mdu_tpu_torch.models import RRDBNet, random_state_dict, tiny_rrdb_config
+    from mdu_tpu_torch.models.esrgan import esrgan_upscaler
+
+    model = RRDBNet(tiny_rrdb_config(), dtype=dtype)
+    model.load_state_dict(random_state_dict(model, 4, torch.float32, device="cpu"))
+    model = model.to(device)
+    x = torch.rand(1, 3, 64, 64, generator=torch.Generator().manual_seed(16)) * 2 - 1
+    return (esrgan_upscaler(model)(x.to(device), 4.0).float().cpu(),)
+
+
+def phase_reference_adapters():
+    """This slice's tiny paths on the card against the CPU, held as
+    ``_hold_to_cpu`` holds them (fp32 within 1e-4 of the largest CPU value,
+    bf16 within 2x the CPU bf16 run's error + 1e-3 of it): DeepCache N = 2 on
+    a tiled txt2img with a BACKGROUND region under Euler, Heun and Euler a; a
+    DemoFusion x2 with DeepCache and an AND cond; StableSR + ControlNet on a
+    tiled img2img; image CFG 1.5; unCLIP; a tiny ESRGAN upscale (no kernel:
+    its convs are cuDNN's). Each card run of a UNet must launch its #1."""
+    import torch
+
+    fm = {torch.float32: ["flash_attention_fm_f32"], torch.bfloat16: ["flash_attention_fm"]}
+    runs = [(f"DeepCache {name}", _tiny_deepcache(name), ("latent",), fm)
+            for name in ("Euler", "Heun", "Euler a")]
+    runs += [("DemoFusion DeepCache + AND", _tiny_demofusion_dc, ("phase1_latent", "latent"),
+              fm),
+             ("StableSR + ControlNet img2img", _tiny_img2img_adapter("stablesr"), ("latent",),
+              fm),
+             ("image CFG img2img", _tiny_img2img_adapter("image_cfg"), ("latent",), fm),
+             ("unCLIP", _tiny_unclip, ("latent",), fm),
+             ("ESRGAN x4", _tiny_esrgan, ("image",), {torch.float32: [], torch.bfloat16: []})]
+    for label, run, parts, must in runs:
+        for dtype, fields in _hold_to_cpu(f"tiny {label}", run, parts, must).items():
+            emit("reference", dtype=_dtype_name(dtype), pipeline=f"tiny {label}", flags={},
+                 **fields)
 
 
 # ------------------------------------------------ streaming VAE, prompts, checkpoints
@@ -2664,8 +3167,8 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,reference,txt2img,samplers,prompts,load,img2img,stream,"
-                            "regional,upscale8k,demofusion",
+                    default="kernels,reference,txt2img,samplers,deepcache,unclip,prompts,load,"
+                            "img2img,adapters,stream,regional,upscale8k,demofusion",
                     help="comma-separated phases after device and build (stream8k runs "
                          "only when named)")
     phases = set(ap.parse_args().phases.split(","))
@@ -2709,16 +3212,23 @@ def main() -> int:
     if "reference" in phases:
         phase_reference()
         phase_reference_slice()
+        phase_reference_adapters()
     if "txt2img" in phases:
         launches = phase_txt2img()
     if "samplers" in phases:
         phase_samplers()
     slice_runs = {}
+    if "deepcache" in phases:
+        slice_runs["deepcache"] = phase_deepcache()
+    if "unclip" in phases:
+        slice_runs["unclip"] = {"unclip": phase_unclip()}
     if "prompts" in phases:
         slice_runs["prompts"] = phase_prompts()
     if "load" in phases:
         slice_runs["load"] = {"loaded": phase_load()}
     config3 = phase_img2img() if "img2img" in phases else None
+    if "adapters" in phases:
+        slice_runs["adapters"] = phase_adapters()
     if "stream" in phases:
         slice_runs["stream"] = phase_stream()
     config4 = phase_regional() if "regional" in phases else None
@@ -2726,6 +3236,8 @@ def main() -> int:
     if "stream8k" in phases:
         slice_runs["stream8k"] = {"decode": phase_stream8k()}
     config5 = phase_demofusion() if "demofusion" in phases else None
+    if config5 is not None:
+        slice_runs["demofusion_deepcache"] = {"x2": config5.pop("deepcache x2")}
 
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
     print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4,

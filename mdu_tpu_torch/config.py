@@ -2,9 +2,7 @@
 paths, the region JSON and the DemoFusion info block.
 
 A copy of the knobs of ``mdu_tpu.config`` that the txt2img, regional,
-img2img upscaling and DemoFusion paths read, with the same names and defaults. A knob of a
-feature the port does not have yet is kept only where the pipeline checks it
-and raises ``NotImplementedError`` when it is switched on.
+img2img upscaling and DemoFusion paths read, with the same names and defaults.
 """
 from __future__ import annotations
 
@@ -113,7 +111,11 @@ class SamplerConfig:
     s_tmin: float = 0.0
     s_tmax: float = float("inf")
     s_noise: float = 1.0
+    # DeepCache (arXiv 2312.00858): every ``deepcache``-th step runs the full
+    # UNet and refreshes the cache of its deep features; the steps between
+    # recompute only the shallowest ``deepcache_branch`` levels. 1 = off
     deepcache: int = 1
+    deepcache_branch: int = 1
 
 
 def regions_to_json(regions: List[RegionSpec]) -> str:

@@ -420,6 +420,15 @@ def load_controlnet(path: str, unet_cfg=None, dtype: torch.dtype = torch.float32
 
 def load_guidance(path: str, unet_cfg, dtype: torch.dtype = torch.float32,
                   guidance_scale: float = 1.0, device=None):
-    """StableSR's guidance encoder is not ported yet."""
-    raise NotImplementedError("StableSR guidance (ROADMAP queue 1, item 18) is not ported "
-                              "to mdu_tpu_torch yet")
+    """StableSR's guidance encoder (``models/stablesr.py``) with its weights on
+    ``device``, from a ``.safetensors`` keyed by the JAX package's flat
+    parameter paths (``down_0_res_0/norm1/weight``; the layout
+    ``mdu_tpu/models/loader.py:459-480`` reads and
+    ``scripts/export_params.py`` writes)."""
+    from .stablesr import StableSRGuidance
+
+    device = resolve_device(device)
+    state = load_safetensors(path)
+    with torch.device("meta"):
+        gm = StableSRGuidance(unet_cfg, guidance_scale=guidance_scale, dtype=dtype)
+    return load_module(gm, state, lambda name: name, dtype, device)

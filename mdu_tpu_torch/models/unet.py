@@ -6,8 +6,14 @@ Submodule names follow the flax modules (``down_0_res_0``, ``mid_attn``,
 ``state_dict`` (see ``models/convert.py``). SD1.5: conv projections and a
 fixed head count. SDXL: linear projections, head_dim 64, per-level
 transformer depths and the ``text_time`` addition embedding (pooled text
-and size micro-conditions). ControlNet residuals add to the skips and the
-mid state (``residuals``).
+and size micro-conditions). SD2.1-unCLIP: a CLIP image embedding (``adm``)
+through the ``label_embed`` MLP into the time embedding. ControlNet and
+StableSR residuals add to the skips and the mid state (``residuals``).
+
+DeepCache (arXiv 2312.00858): ``cache_mode="write"`` also returns the
+activation that enters the last ``cache_branch`` up-levels; ``"read"`` runs
+only conv_in, the first ``cache_branch`` down levels and those up-levels,
+resuming from that cached activation (``mdu_tpu/models/unet.py:290-429``).
 """
 from __future__ import annotations
 
@@ -60,6 +66,14 @@ def sd21_unet_config() -> UNetConfig:
     projections."""
     return UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
                       use_linear_projection=True)
+
+
+def sd21_unclip_unet_config(variant: str = "l") -> UNetConfig:
+    """SD2.1-unCLIP: SD2.1 with the CLIP image-embedding head, ``adm`` 1536
+    wide for the ViT-L variant ("l") and 2048 for ViT-H ("h")."""
+    return UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
+                      use_linear_projection=True,
+                      adm_in_channels=1536 if variant == "l" else 2048)
 
 
 def sdxl_unet_config() -> UNetConfig:
@@ -225,9 +239,6 @@ class Upsample2D(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.adm_in_channels is not None:
-            raise NotImplementedError(
-                "the unCLIP image embedding waits for ROADMAP queue 1, item 12")
         if cfg.addition_embed_type not in (None, "text_time"):
             raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
         self.cfg = cfg
@@ -242,6 +253,9 @@ class UNet2DCondition(nn.Module):
             add_in = cfg.addition_pooled_dim + cfg.num_time_ids * cfg.addition_time_embed_dim
             self.add_embed_1 = Linear(add_in, ted, dtype=dtype)
             self.add_embed_2 = Linear(ted, ted, dtype=dtype)
+        if cfg.adm_in_channels is not None:
+            self.label_embed_1 = Linear(cfg.adm_in_channels, ted, dtype=dtype)
+            self.label_embed_2 = Linear(ted, ted, dtype=dtype)
         self.conv_in = Conv2D(cfg.in_channels, bc[0], dtype=dtype)
 
         skip_ch = [bc[0]]
@@ -281,28 +295,45 @@ class UNet2DCondition(nn.Module):
         self.conv_out = Conv2D(ch, cfg.out_channels, dtype=dtype)
 
     def forward(self, x, timesteps, context, added_cond: Optional[dict] = None,
-                residuals: Optional[tuple] = None):
+                residuals: Optional[tuple] = None, cache: Optional[torch.Tensor] = None,
+                cache_mode: Optional[str] = None, cache_branch: int = 1):
         """x [B, C, H, W]; timesteps [B]; context [B, L, D] -> [B, C, H, W].
-        ``added_cond`` (SDXL): {"text_embeds": [B, pooled], "time_ids": [B, 6]}.
-        ``residuals``: a ControlNet's (down_residuals, mid_residual), added to
-        the skips and to the mid state (diffusers semantics)."""
+        ``added_cond``: SDXL's {"text_embeds": [B, pooled], "time_ids": [B, 6]};
+        unCLIP's {"adm": [B, adm_in_channels]}. ``residuals``: a ControlNet's
+        or StableSR's (down_residuals, mid_residual), added to the skips and
+        to the mid state (diffusers semantics); a read pass has only the
+        shallow skips, and ``zip`` pairs them with the first residuals, as
+        in the JAX package. ``cache_mode`` "write" returns (out, feature);
+        "read" takes ``cache`` in place of the deep path."""
         cfg = self.cfg
         bc = cfg.block_out_channels
         L = len(bc)
+        if cache_mode not in (None, "write", "read"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        read = cache_mode == "read"
+        if cache_mode is not None and not (1 <= cache_branch <= L - 1):
+            raise ValueError(f"cache_branch must be in [1, {L - 1}]")
         temb = timestep_embedding(timesteps, bc[0])
         temb = self.time_embed_2(silu(self.time_embed_1(temb)))
         if cfg.addition_embed_type == "text_time":
             temb = temb + text_time_embedding(self, cfg, added_cond, x.shape[0])
+        if cfg.adm_in_channels is not None:
+            if added_cond is None or added_cond.get("adm") is None:
+                raise ValueError("an unCLIP UNet needs added_cond['adm'] (cond['adm'])")
+            lab = added_cond["adm"].to(temb.dtype)
+            temb = temb + self.label_embed_2(silu(self.label_embed_1(lab)))
 
         h = self.conv_in(x)
         skips = [h]
-        for i in range(L):
+        for i in range(cache_branch if read else L):
             for j in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{i}_res_{j}")(h, temb)
                 if cfg.transformer_layers[i] > 0:
                     h = getattr(self, f"down_{i}_attn_{j}")(h, context)
                 skips.append(h)
-            if i != L - 1:
+            # a read pass skips the deepest shallow level's downsample: only
+            # the deep path consumes it
+            if i != L - 1 and not (read and i == cache_branch - 1):
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
@@ -310,13 +341,17 @@ class UNet2DCondition(nn.Module):
             down_res, mid_res = residuals
             skips = [s + r for s, r in zip(skips, down_res)]
 
-        h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h, context)
-        h = self.mid_res_1(h, temb)
-        if residuals is not None:
-            h = h + mid_res
+        if read:
+            h = cache
+        else:
+            h = self.mid_res_0(h, temb)
+            h = self.mid_attn(h, context)
+            h = self.mid_res_1(h, temb)
+            if residuals is not None:
+                h = h + mid_res
 
-        for i in range(L):
+        feature = None
+        for i in range(L - cache_branch if read else 0, L):
             level = L - 1 - i
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
@@ -326,9 +361,12 @@ class UNet2DCondition(nn.Module):
             if i != L - 1:
                 nxt = skips[-1]
                 h = getattr(self, f"up_{i}_upsample")(h, nxt.shape[2:])
+                if cache_mode == "write" and i == L - cache_branch - 1:
+                    feature = h
 
         h = self.norm_out(h)
-        return self.conv_out(silu(h))
+        out = self.conv_out(silu(h))
+        return (out, feature) if cache_mode == "write" else out
 
 
 def text_time_embedding(module: nn.Module, cfg: UNetConfig, added_cond: Optional[dict],

@@ -1,8 +1,9 @@
 """txt2img and img2img upscaling with MultiDiffusion or Mixture of Diffusers,
 regional prompt control and tiled noise inversion, DemoFusion's progressive
-upscaling, any of the 15 samplers, SD1.5 or SDXL with an optional
-ControlNet, over the exact or fast tiled VAE (counterpart of the txt2img,
-img2img and DemoFusion paths of ``mdu_tpu/pipeline.py``).
+upscaling, any of the 15 samplers, DeepCache, SD1.5, SD2.1-unCLIP or SDXL
+with an optional ControlNet and StableSR guidance, edit-model image CFG,
+over the exact or fast tiled VAE (counterpart of the txt2img, img2img and
+DemoFusion paths of ``mdu_tpu/pipeline.py``).
 
   plan    = plan_tiled_diffusion(...)                    static geometry, regions
   den_fn  = make_tiled_denoiser(plan, tile_denoise,      CFG'd per-tile and
@@ -21,7 +22,14 @@ run through ``torch.func.functional_call``).
 
 img2img encodes the (pre-upscaled) image with the tiled VAE encoder, samples
 the truncated schedule from it and, with noise inversion, starts from noise
-found by running the sampler backwards over the image's latent.
+found by running the sampler backwards over the image's latent. Under
+``image_cfg_scale`` (an instruct-pix2pix UNet) the image's latent mode rides
+as the ``concat`` leaf of cond and uncond, and guidance is three-way.
+
+DeepCache (``SamplerConfig.deepcache`` N > 1): every N-th step runs the full
+UNet and keeps its deep feature, one cache a tile batch (and one for an
+untiled call); the steps between run only the shallow levels from it.
+Regions, noise inversion and DemoFusion's local windows run the full model.
 
 Seeds: the starting noise of txt2img image i comes from a ``torch.Generator``
 seeded with ``seed + i`` on the pipeline's device; a region's seed of -1
@@ -32,8 +40,9 @@ seed's key for the same draws). DemoFusion's phase ``s`` draws its noise
 from a generator seeded with ``derived_seed(seed, 100 + s)``.
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
-Features of ``mdu_tpu`` that this slice does not port raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+Features of ``mdu_tpu`` that the port does not have yet (step callbacks, the
+multi-device mesh) raise ``NotImplementedError`` naming the ROADMAP item they
+wait for.
 """
 from __future__ import annotations
 
@@ -49,10 +58,12 @@ import torch
 
 from .config import DemoFusionConfig, SamplerConfig, TiledDiffusionConfig, TiledVAEConfig
 from .device import resolve_device
+from .models.stablesr import combine_residuals
 from .models.unet import UNet2DCondition
 from .models.vae import AutoencoderKL, sample_from_moments
 from .ops.resize import resize_nchw
-from .samplers.denoiser import cfg_combine, denoised_from_model, scalings
+from .samplers.denoiser import (cfg_combine, denoised_from_model, denoised_from_model_cached,
+                                mark_deepcache, scalings)
 from .samplers.samplers import (CHURN_SAMPLERS, STOCHASTIC_SAMPLERS, NoiseFn, base_name,
                                  generator_noise, get_sampler)
 from .samplers.schedule import NoiseSchedule
@@ -68,12 +79,8 @@ from .utils.grid import splitable
 from .utils.guided_filter import get_retouch_mask
 from .utils.image import cheap_latent_preview, grayscale_u8, image_to_tensor, tensor_to_image
 
-# cond leaves the port consumes; the others belong to later slices
-_COND_KEYS = {"crossattn", "concat", "vector", "control", "time_ids"}
-_WAITING = {
-    "guidance": "StableSR guidance (ROADMAP queue 1, item 18)",
-    "adm": "unCLIP conditioning (ROADMAP queue 1, item 12)",
-}
+# the cond leaves the pipeline consumes
+_COND_KEYS = {"crossattn", "concat", "vector", "control", "time_ids", "guidance", "adm"}
 # tags of the derived seeds (see the module's docstring)
 SAMPLER_SEED_TAG = 7
 REGION_SEED_TAG = 1000
@@ -156,22 +163,25 @@ def _unported(what: str) -> NotImplementedError:
 
 class DiffusionPipeline:
     """Stable Diffusion over explicit cond dicts (``tiling/conds.py``:
-    ``{"crossattn": [B, 77, D]}``, SDXL's ``vector`` and ``time_ids``, and a
-    ``control`` list of hints for the ``controlnet``). ``unet``, ``vae`` and
-    ``controlnet`` hold their weights and are moved to the pipeline's
-    device."""
+    ``{"crossattn": [B, 77, D]}``, SDXL's ``vector`` and ``time_ids``, a
+    ``control`` list of hints for the ``controlnet``, a latent-canvas
+    ``guidance`` leaf for the StableSR ``guidance_model``
+    (``models/stablesr.py``), an edit model's ``concat`` image latent and an
+    unCLIP UNet's ``adm`` image embedding). ``unet``, ``vae``,
+    ``controlnet`` and ``guidance_model`` hold their weights and are moved
+    to the pipeline's device."""
 
     def __init__(self, unet: UNet2DCondition, vae: AutoencoderKL,
                  schedule: Optional[NoiseSchedule] = None, device=None,
                  controlnet=None, mesh=None, guidance_model=None):
-        if guidance_model is not None:
-            raise _unported("StableSR guidance (ROADMAP queue 1, item 18)")
         if mesh is not None:
             raise _unported("the multi-device mesh (ROADMAP queue 1, item 22)")
         self.device = resolve_device(device)
         self.unet = unet.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.controlnet = controlnet.to(self.device).eval() if controlnet is not None else None
+        self.guidance_model = (guidance_model.to(self.device).eval()
+                               if guidance_model is not None else None)
         self.schedule = schedule or NoiseSchedule()
         self.noise_inverse_cache: Optional[NoiseInverseCache] = None
         # which step of the decode's NaN chain gave the last image: "decode",
@@ -189,7 +199,7 @@ class DiffusionPipeline:
             return None
         for key in c:
             if key not in _COND_KEYS:
-                raise _unported(_WAITING.get(key, f"cond leaf {key!r}"))
+                raise ValueError(f"unknown cond leaf {key!r}; a cond has {sorted(_COND_KEYS)}")
         return map_leaves(lambda v: torch.as_tensor(v, device=self.device), c)
 
     def _prepare(self, c, fn):
@@ -234,12 +244,15 @@ class DiffusionPipeline:
         return lambda step: c
 
     def _model_fn(self, params: Optional[Dict[str, torch.Tensor]] = None):
-        """``fn(x, t, cond)``: the UNet with SDXL's added cond (``vector``,
-        and ``time_ids``, ones of [B, 6] by default) and the ControlNet's
-        residuals from the first hint, dequantised (``mdu_tpu/pipeline.py:
-        175-237``). ``params``: weights that replace the UNet's own for this
-        function (``torch.func.functional_call``)."""
-        controlnet, cfg = self.controlnet, self.unet.cfg
+        """``fn(x, t, cond, cache=None, cache_mode=None, cache_branch=1)``: the
+        UNet with SDXL's added cond (``vector``, and ``time_ids``, ones of [B,
+        6] by default), an unCLIP UNet's ``adm``, the ControlNet's residuals
+        from the first hint, dequantised, plus the StableSR guidance model's
+        from the ``guidance`` leaf (``mdu_tpu/pipeline.py:175-237``), and the
+        DeepCache arguments passed on to the UNet. ``params``: weights that
+        replace the UNet's own for this function
+        (``torch.func.functional_call``)."""
+        controlnet, guidance, cfg = self.controlnet, self.guidance_model, self.unet.cfg
         is_xl = cfg.addition_embed_type == "text_time"
 
         def unet(*args, **kwargs):
@@ -247,7 +260,7 @@ class DiffusionPipeline:
                 return self.unet(*args, **kwargs)
             return torch.func.functional_call(self.unet, params, args, kwargs)
 
-        def fn(x, t, cond: Cond):
+        def fn(x, t, cond: Cond, cache=None, cache_mode=None, cache_branch=1):
             xin = x
             cc = cond.get("concat")
             if cc is not None and cc.shape[-2:] == x.shape[-2:] and cc.shape[1] > 0:
@@ -258,12 +271,24 @@ class DiffusionPipeline:
                 if tids is None:
                     tids = torch.ones((x.shape[0], cfg.num_time_ids), device=x.device)
                 added = {"text_embeds": cond.get("vector"), "time_ids": tids}
+            if cfg.adm_in_channels is not None:
+                # unCLIP's image embedding, repeated per tile as a vector leaf
+                if cond.get("adm") is None:
+                    raise ValueError("an unCLIP UNet needs cond['adm'] (the CLIP image "
+                                     "embedding)")
+                added = {**(added or {}), "adm": cond["adm"]}
             residuals = None
             hints = cond.get("control")
             if controlnet is not None and hints:
                 residuals = controlnet(xin, t, cond["crossattn"],
                                        dequantize_hint(hints[0], x.dtype), added)
-            return unet(xin, t, cond["crossattn"], added, residuals=residuals)
+            g = cond.get("guidance")
+            if guidance is not None and g is not None:
+                if g.shape[0] != x.shape[0] and x.shape[0] % g.shape[0] == 0:
+                    g = g.repeat_interleave(x.shape[0] // g.shape[0], dim=0)
+                residuals = combine_residuals(residuals, guidance(g.to(x.dtype), t))
+            return unet(xin, t, cond["crossattn"], added, residuals=residuals, cache=cache,
+                        cache_mode=cache_mode, cache_branch=cache_branch)
 
         return fn
 
@@ -297,13 +322,20 @@ class DiffusionPipeline:
                         for k, v in params.items()})
         return out
 
-    def _make_guided(self, cfg_scale: float):
-        """``guided(x, sigma, c, u, den=None)``: the CFG'd denoiser, [uncond,
-        cond] batched into one model call; an AND cond batches every branch
-        and the uncond, den_u + cfg * sum_i w_i (den_i - den_u)
-        (``mdu_tpu/pipeline.py:299-306,335-352``). ``den`` replaces the
-        pipeline's denoiser (a region's own weights)."""
-        den_default = denoised_from_model(self._model_fn(), self.schedule)
+    def _make_guided(self, cfg_scale: float, deepcache_branch: int = 1,
+                     image_cfg_scale: Optional[float] = None):
+        """``(guided, guided_cached)``: ``guided(x, sigma, c, u, den=None)`` is
+        the CFG'd denoiser, [uncond, cond] batched into one model call; an AND
+        cond batches every branch and the uncond, den_u + cfg * sum_i w_i
+        (den_i - den_u); under ``image_cfg_scale`` (an edit model) the batch
+        is [uncond with its ``concat`` zeroed, uncond, cond] and den = du +
+        image_cfg (di - du) + cfg (dc - di) (``mdu_tpu/pipeline.py:
+        299-416``). ``den`` replaces the pipeline's denoiser (a region's own
+        weights). ``guided_cached(x, sigma, c, u, cache, is_cached) ->
+        (denoised, cache)`` is the same over the DeepCache denoiser."""
+        model_fn = self._model_fn()
+        den_default = denoised_from_model(model_fn, self.schedule)
+        den_cached = denoised_from_model_cached(model_fn, self.schedule, deepcache_branch)
 
         def _align(c, B):
             if c is None:
@@ -319,11 +351,32 @@ class DiffusionPipeline:
 
             return map_leaves(rep, c)
 
-        def guided(x, sigma, c, u, den=None):
-            den = den or den_default
+        def _edit_uncond(x, u):
+            """The du leg's cond: the uncond with its image latent zeroed."""
+            cc = u.get("concat") if isinstance(u, dict) else None
+            if not (cc is not None and cc.dim() == 4 and cc.shape[1] > 0
+                    and cc.shape[-2:] == x.shape[-2:]):
+                raise ValueError("image_cfg_scale requires an edit-model image conditioning: "
+                                 "a latent-shaped 'concat' leaf on the uncond (ref "
+                                 "abstractdiffusion.py:278-310)")
+            return {**u, "concat": torch.zeros_like(cc)}
+
+        def guide(x, sigma, c, u, call):
+            """The guidance over ``call(xs, sigmas, cond)``, the denoiser of a
+            stacked batch."""
             B = x.shape[0]
             c, u = _align(c, B), _align(u, B)
             s = torch.atleast_1d(sigma).expand(B)
+            if image_cfg_scale is not None:
+                if is_and(c):
+                    raise ValueError("image_cfg_scale cannot be combined with AND prompt "
+                                     "composition")
+                if u is None:
+                    raise ValueError("image_cfg_scale needs an uncond")
+                d = call(torch.cat([x] * 3), torch.cat([s] * 3),
+                         concat_conds(concat_conds(_edit_uncond(x, u), u), c))
+                du, di, dc = d.chunk(3)
+                return du + image_cfg_scale * (di - du) + cfg_scale * (dc - di)
             if is_and(c):
                 parts, weights = c["__and__"], c["__weights__"]
                 P = len(parts)
@@ -331,37 +384,66 @@ class DiffusionPipeline:
                 for extra in parts[1:]:
                     cc = concat_conds(cc, extra)
                 cc = concat_conds(cc, u if u is not None else parts[0])
-                d = den(torch.cat([x] * (P + 1)), torch.cat([s] * (P + 1)), cc)
-                dens = d.chunk(P + 1)
+                dens = call(torch.cat([x] * (P + 1)), torch.cat([s] * (P + 1)), cc).chunk(P + 1)
                 du = dens[-1] if u is not None else torch.zeros_like(dens[0])
                 out = du
                 for dc, wt in zip(dens[:P], weights):
                     out = out + cfg_scale * wt * (dc - du)
                 return out
             if u is None or cfg_scale == 1.0:
-                return den(x, s, c)
-            d = den(torch.cat([x, x]), torch.cat([s, s]), concat_conds(u, c))
-            du, dc = d.chunk(2)
+                return call(x, s, c)
+            du, dc = call(torch.cat([x, x]), torch.cat([s, s]), concat_conds(u, c)).chunk(2)
             return cfg_combine(du, dc, cfg_scale)
 
-        return guided
+        def guided(x, sigma, c, u, den=None):
+            return guide(x, sigma, c, u, den or den_default)
+
+        def guided_cached(x, sigma, c, u, cache, is_cached: bool):
+            held = [cache]
+
+            def call(xs, ss, cc):
+                d, held[0] = den_cached(xs, ss, cc, held[0], is_cached)
+                return d
+
+            return guide(x, sigma, c, u, call), held[0]
+
+        return guided, guided_cached
 
     def _make_denoised_fn(self, plan: Optional[DiffusionTilePlan], cond, uncond,
-                          cfg_scale: float, region_conds: Sequence = (),
-                          region_params: Sequence = ()):
-        """The CFG'd denoiser over the plan's tiles and regions; region i is
-        guided with its own ``(cond, uncond)``, cut to its bbox (ref
-        multidiffusion.py:170-187), and with its own UNet weights where
-        ``region_params[i]`` gives them (ref multidiffusion.py:180-182). The
-        conds are prepared ones (``_prepare``), resolved every step."""
-        guided = self._make_guided(cfg_scale)
+                          sp: SamplerConfig, latent_shape: Sequence[int],
+                          region_conds: Sequence = (), region_params: Sequence = ()):
+        """The CFG'd denoiser of ``sp`` over the plan's tiles and regions, for
+        latents of ``latent_shape``; region i is guided with its own ``(cond,
+        uncond)``, cut to its bbox (ref multidiffusion.py:170-187), and with
+        its own UNet weights where ``region_params[i]`` gives them (ref
+        multidiffusion.py:180-182). The conds are prepared ones
+        (``_prepare``), resolved every step. Under DeepCache the denoiser
+        keeps one cache a tile batch (``_deepcache_aux``) and takes the
+        cached pass on the steps that ``deepcache`` does not divide; the
+        regions run the full model."""
+        guided, guided_cached = self._make_guided(sp.cfg_scale, sp.deepcache_branch,
+                                                  sp.image_cfg_scale)
         cond_f, uncond_f = self._as_cond_fn(cond), self._as_cond_fn(uncond)
+        every = sp.deepcache
+        caches = None
+        if every > 1:
+            B, _, h, w = latent_shape
+            caches = self._deepcache_aux(plan, cond, uncond, sp.cfg_scale, sp.deepcache_branch,
+                                         B, (h, w), sp.image_cfg_scale)
 
         def u_at(step):
             return uncond_f(step) if uncond_f is not None else None
 
+        def run(x, sigma, c, u, slot, step):
+            """``guided``, or ``guided_cached`` on cache ``slot``."""
+            if caches is None:
+                return guided(x, sigma, c, u)
+            out, caches[slot] = guided_cached(x, sigma, c, u, caches[slot], step % every != 0)
+            return out
+
         if plan is None:
-            return lambda x, sigma, step: guided(x, sigma, cond_f(step), u_at(step))
+            fn = lambda x, sigma, step: run(x, sigma, cond_f(step), u_at(step), 0, step)  # noqa: E731
+            return fn if caches is None else mark_deepcache(fn)
         hw = (plan.h, plan.w)
         if len(region_conds) < len(plan.regions):
             raise ValueError(f"{len(plan.regions)} regions need as many (cond, uncond) "
@@ -372,8 +454,8 @@ class DiffusionPipeline:
         region_dens += [None] * (len(region_fs) - len(region_dens))
 
         def tile_denoise(flat, sigma, step, bboxes, batch_i):
-            return guided(flat, sigma, tile_cond(cond_f(step), bboxes, hw),
-                          tile_cond(u_at(step), bboxes, hw))
+            return run(flat, sigma, tile_cond(cond_f(step), bboxes, hw),
+                       tile_cond(u_at(step), bboxes, hw), batch_i, step)
 
         def region_denoise(xr, sigma, step, i):
             rcf, ruf = region_fs[i]
@@ -381,7 +463,45 @@ class DiffusionPipeline:
             u = tile_cond(ruf(step), box, hw) if ruf is not None else None
             return guided(xr, sigma, tile_cond(rcf(step), box, hw), u, region_dens[i])
 
-        return make_tiled_denoiser(plan, tile_denoise, region_denoise)
+        fn = make_tiled_denoiser(plan, tile_denoise, region_denoise,
+                                 stateful=caches is not None)
+        return fn if caches is None else mark_deepcache(fn)
+
+    def _deepcache_aux(self, plan: Optional[DiffusionTilePlan], cond, uncond,
+                       cfg_scale: float, branch: int, B: int, hw: Tuple[int, int],
+                       image_cfg_scale: Optional[float] = None) -> List[torch.Tensor]:
+        """The DeepCache caches, zeros in the UNet's dtype: one for an
+        untiled call, else one a tile batch (none without the background
+        grid), each [mult * Kp * B, C_b, h / 2^(b-1), w / 2^(b-1)]; ``mult``
+        is the guidance batch (3 under image CFG, P + 1 under an AND of P,
+        2 under CFG, else 1), ``Kp`` the batch's tiles (``tile_bs`` when
+        batches are uniform), ``C_b`` the UNet's width entering the branch
+        (``mdu_tpu/pipeline.py:535-593``, the unrolled grid). Step 0 always
+        runs the full model, so the zeros are never read."""
+        bc = self.unet.cfg.block_out_channels
+        if not 1 <= branch <= len(bc) - 1:
+            raise ValueError(f"cache_branch must be in [1, {len(bc) - 1}]")
+        if image_cfg_scale is not None:
+            mult = 3
+        elif is_and(cond):
+            mult = len(cond["__and__"]) + 1
+        else:
+            mult = 1 if (uncond is None or cfg_scale == 1.0) else 2
+        down = 2 ** (branch - 1)
+
+        def zeros(n, hh, ww):
+            if hh % down or ww % down:
+                raise ValueError(f"deepcache_branch={branch} needs tile dims divisible by "
+                                 f"{down}, got {hh}x{ww}")
+            return torch.zeros((n, bc[branch], hh // down, ww // down),
+                               dtype=self.unet.dtype, device=self.device)
+
+        if plan is None:
+            return [zeros(mult * B, *hw)]
+        if not plan.draw_background:
+            return []
+        return [zeros(mult * (plan.tile_bs if plan.uniform_batches else len(bb)) * B,
+                      plan.tile_h, plan.tile_w) for bb in plan.batched]
 
     def _plan(self, td: Optional[TiledDiffusionConfig], h: int, w: int):
         if td is None or not td.enabled:
@@ -414,10 +534,6 @@ class DiffusionPipeline:
 
     @staticmethod
     def _check_sampler(sp: SamplerConfig) -> None:
-        if sp.deepcache > 1:
-            raise _unported("DeepCache (ROADMAP queue 1, item 20)")
-        if sp.image_cfg_scale is not None:
-            raise _unported("edit-model image CFG (ROADMAP queue 1, item 12)")
         get_sampler(sp.name)
 
     def _sampler_noise(self, noise, seed: int) -> NoiseFn:
@@ -500,7 +616,7 @@ class DiffusionPipeline:
         if plan is None:
             plan = self._plan(tiled_diffusion, h, w)
         den_fn = self._make_denoised_fn(plan, self._fit_cond(cond, h, w),
-                                        self._fit_cond(uncond, h, w), sp.cfg_scale,
+                                        self._fit_cond(uncond, h, w), sp, tuple(noise.shape),
                                         self._region_conds(region_conds),
                                         self._region_params(region_unet_params))
         sigmas = torch.as_tensor(self.schedule.sampling_sigmas(sp.steps, sp.schedule),
@@ -548,6 +664,24 @@ class DiffusionPipeline:
             image, gen, gen, cond, uncond, sampler, seed, tiled_diffusion, tiled_vae,
             region_conds, inversion_cond, mask, init_latents, decode, step_callback,
             target_size, region_unet_params=region_unet_params)
+
+    def _attach_image_cond(self, icond, init_latent, cond, uncond):
+        """An edit model's image conditioning: the image latent's mode
+        ``icond`` (no scaling factor, no noise) as the ``concat`` leaf of cond
+        and uncond, unless the caller set one (``mdu_tpu/pipeline.py:
+        829-853``)."""
+        if self.unet.cfg.in_channels < init_latent.shape[1] + icond.shape[1]:
+            raise ValueError(
+                "image_cfg_scale needs an edit-model (instruct-pix2pix) UNet that accepts "
+                f"the image 'concat' channels: in_channels={self.unet.cfg.in_channels} < "
+                f"{init_latent.shape[1]} latent + {icond.shape[1]} image channels")
+
+        def attach(c):
+            if isinstance(c, dict) and c.get("concat") is None and not is_and(c):
+                return {**c, "concat": icond}
+            return c
+
+        return attach(cond), attach(uncond)
 
     @staticmethod
     def _noise(noise, shape, dtype, device):
@@ -604,6 +738,9 @@ class DiffusionPipeline:
                 enc_noise, (moments.shape[0], C) + tuple(moments.shape[2:]),
                 moments.dtype, self.device))
             init_latent = init_latent * self.vae.cfg.scaling_factor
+            if sp.image_cfg_scale is not None:
+                cond, uncond = self._attach_image_cond(moments[:, :C], init_latent, cond,
+                                                       uncond)
         h, w = init_latent.shape[-2], init_latent.shape[-1]
         cond, uncond = self._fit_cond(cond, h, w), self._fit_cond(uncond, h, w)
         inversion_cond = self._cond(inversion_cond) if inversion_cond is not None else cond
@@ -629,7 +766,7 @@ class DiffusionPipeline:
                 sigma0=all_sigmas[0])
 
         x = init_latent + noise * sigmas[0]
-        den_fn = self._make_denoised_fn(plan, cond, uncond, sp.cfg_scale,
+        den_fn = self._make_denoised_fn(plan, cond, uncond, sp, tuple(x.shape),
                                         self._region_conds(region_conds),
                                         self._region_params(region_unet_params))
         if mask is not None:
@@ -643,6 +780,9 @@ class DiffusionPipeline:
 
             def den_fn(xx, ss, ii):  # noqa: F811
                 return init_latent * (1 - lm) + inner(xx, ss, ii) * lm
+
+            if getattr(inner, "deepcache", False):
+                mark_deepcache(den_fn)
 
         latents = self._sample(sp, den_fn, x, sigmas, self._sampler_noise(sampler_noise, seed))
         images = self._decode(latents, tiled_vae) if decode else None
@@ -690,11 +830,11 @@ class DiffusionPipeline:
         self._check_sampler(self._resolve_sampler(sp))
         # hints to the base canvas; the phases resize them themselves
         h, w = height // 8, width // 8
-        if not (_is_plain(cond) and _is_plain(uncond)):
-            raise _unported("scheduled, AND and callable conds under DemoFusion "
-                            "(ROADMAP queue 1, item 23)")
-        cond = fit_cond_canvases(self._cond(cond), (h, w))
-        uncond = fit_cond_canvases(self._cond(uncond), (h, w))
+
+        def fit(p):
+            return fit_cond_canvases(self._cond(p), (h, w))
+
+        cond, uncond = self._prepare(cond, fit), self._prepare(uncond, fit)
         return demofusion_generate(self, cond, uncond, width, height, base_noise, phase_noises,
                                    cfg, sp, seed, self._sampler_noise(sampler_noise, seed),
                                    init_latent, tiled_vae, decode)
@@ -891,6 +1031,8 @@ class DiffusionPipeline:
         entry carries its resolved seed (ref :521)."""
         info: Dict[str, Any] = {"Sampler": sp.name, "Steps": sp.steps,
                                 "CFG scale": sp.cfg_scale, "Seed": seed}
+        if sp.image_cfg_scale is not None:
+            info["Image CFG scale"] = sp.image_cfg_scale
         if td is not None and td.enabled:
             block = {"Method": td.method, "Tile tile width": td.tile_w,
                      "Tile tile height": td.tile_h, "Tile Overlap": td.overlap,

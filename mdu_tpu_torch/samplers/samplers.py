@@ -16,6 +16,10 @@ sampler draws in the JAX package's order and shapes: ``_churn`` every step
 while churn is on, Euler a / DPM++ 2S a / DPM2 a once every step, DPM++ SDE
 twice on each step with ``sn > 0``, DPM++ 2M SDE once on each step with
 ``sn > 0``, Restart once a restart cycle.
+
+Restart, DPM fast and DPM adaptive split their schedule on the host and
+refuse a denoised function that keeps DeepCache state (``deepcache = True``,
+``samplers/denoiser.py``), as the JAX package refuses their ``aux``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,12 @@ def generator_noise(gen: torch.Generator) -> NoiseFn:
                            device=gen.device).to(like.device)
 
     return draw
+
+
+def _refuse_deepcache(denoised_fn) -> None:
+    if getattr(denoised_fn, "deepcache", False):
+        raise ValueError("DeepCache (stateful denoised_fn) is not supported by this sampler: "
+                         "its schedule is segmented host-side")
 
 
 def _t_of(s):
@@ -354,6 +364,7 @@ def sample_dpm_fast(denoised_fn: DenoisedStepFn, x, sigmas):
     segments and an order-(2, 1 | n % 3) tail, then an exact jump to
     sigma 0 (x = denoised). The grid is built on the host with numpy, as the
     JAX package builds it, then cast to fp32."""
+    _refuse_deepcache(denoised_fn)
     sig_np = _host(sigmas).numpy()
     n = len(sig_np) - 1
     m = n // 3 + 1
@@ -381,6 +392,7 @@ def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
     that decided it, held against ``accept_safety``, to ``factors``).
     ``sigmas`` gives only the endpoints. Ends with the exact jump to sigma 0,
     as DPM fast."""
+    _refuse_deepcache(denoised_fn)
     sig_np = _host(sigmas).numpy()
     t_end = float(-np.log(sig_np[-2]))
     stop = torch.tensor(t_end - 1e-5, dtype=torch.float32)
@@ -469,6 +481,7 @@ def sample_restart(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
     sigma_max_r and descend again over an exp-spaced segment, then the tail.
     ``restart_info`` = (sigma_min_r, sigma_max_r, n_seg_steps, k_restarts),
     by default A1111's {0.1: [10, 2]}. The schedule is split on the host."""
+    _refuse_deepcache(denoised_fn)
     sig_np = _host(sigmas).numpy()
     s_min_r, s_max_r, n_seg, k_restarts = restart_info or (0.1, 2.0, 10, 2)
     lo = max(float(s_min_r), float(sig_np[-2]))

@@ -10,6 +10,8 @@ ControlNet hint tensors:
     'vector':    [B, D]           SDXL pooled + size vector
     'time_ids':  [B, 6]           SDXL size micro-conditions (default ones)
     'control':   [[B, C, H, W]]   ControlNet hints, pixel space
+    'guidance':  [B, 4, h, w]     StableSR guidance latent
+    'adm':       [B, D]           unCLIP image embedding
   }
 
 For a batch of K tiles (tile-major), a leaf whose spatial size is the latent
@@ -128,4 +130,9 @@ def tile_cond(cond: Optional[Cond], bboxes: Sequence[BBox],
 
 
 def concat_conds(a: Cond, b: Cond) -> Cond:
+    """Two conds batched; a ``guidance`` leaf must be on both or on neither
+    (the JAX package's ``tree.map`` needs the same leaves on both sides)."""
+    if ("guidance" in a) != ("guidance" in b):
+        raise ValueError("a 'guidance' leaf on only one of the conds batched together: "
+                         "StableSR guidance needs it on the cond and the uncond")
     return map_leaves(lambda x, y: torch.cat([x, y]), a, b)

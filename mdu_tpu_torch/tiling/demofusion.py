@@ -21,15 +21,24 @@ re-anchored to the first phase's. Window jitter is drawn once a phase with
 ``np.random.default_rng(seed)`` in the JAX package's order, so a seed gives
 its windows exactly; edge windows jitter only inward, as in the JAX package
 (the reference jitters them outward into the pad). Canvas-shaped cond leaves
-(ControlNet hints) are cut per window and resized per phase and per view.
+(ControlNet hints, a StableSR guidance latent) are cut per window and resized
+per phase and per view. The conds may be scheduled, AND conds or callables of
+the step: each step resolves its cond first and then cuts it, an AND cond
+branch by branch.
+
+Under DeepCache the global dilated views run the cached denoiser, one cache
+a view batch: their geometry is the same every step. The local windows
+re-jitter every step, so a cached deep feature would belong to another crop,
+and they run the full model (``mdu_tpu/tiling/demofusion.py:507-600``).
 
 The window and view batches run one after another: the JAX package can roll
 them into a ``lax.scan`` (``scan_windows``), which bounds its compile memory
-and gives the same result. Nothing here is cached across calls.
+and gives the same result.
 """
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -42,7 +51,8 @@ from ..ops.blur import gaussian_blur_nchw
 from ..ops.resize import resize_nchw
 from ..utils.bbox import BBox
 from ..utils.grid import batch_bboxes
-from .conds import Cond, dequantize_hint, map_leaves
+from ..samplers.denoiser import mark_deepcache
+from .conds import Cond, dequantize_hint, is_and, map_leaves
 
 LATENT_TO_PIXEL = 8
 
@@ -116,6 +126,16 @@ def draw_jitter(plan: DemoFusionPhasePlan, rng: np.random.Generator) -> np.ndarr
 # ------------------------------------------------------------ cond slicing
 
 
+def _map_cond(c: Optional[Cond], fn) -> Optional[Cond]:
+    """``fn`` over the leaves of a plain or AND cond (an AND's weights kept)."""
+    if c is None:
+        return None
+    if is_and(c):
+        return {"__and__": [_map_cond(p, fn) for p in c["__and__"]],
+                "__weights__": c["__weights__"]}
+    return map_leaves(fn, c)
+
+
 def _is_canvas(leaf, hw: Tuple[int, int]) -> bool:
     return leaf.dim() == 4 and tuple(leaf.shape[2:]) == tuple(hw)
 
@@ -134,7 +154,7 @@ def _pad_spatial(c: Optional[Cond], jr: int, hw: Tuple[int, int]) -> Optional[Co
             return F.pad(leaf, (jr * f,) * 4)
         return leaf
 
-    return map_leaves(pad, c)
+    return _map_cond(c, pad)
 
 
 def _window_cond(c_pad: Optional[Cond], offs: Sequence[Tuple[int, int]], tile: int,
@@ -154,7 +174,7 @@ def _window_cond(c_pad: Optional[Cond], offs: Sequence[Tuple[int, int]], tile: i
                               for oy, ox in offs])
         return torch.cat([leaf] * len(offs))
 
-    return map_leaves(cut, c_pad)
+    return _map_cond(c_pad, cut)
 
 
 def _dilated_cond(c: Optional[Cond], views: Sequence[Tuple[int, int]], scale: int,
@@ -176,7 +196,7 @@ def _dilated_cond(c: Optional[Cond], views: Sequence[Tuple[int, int]], scale: in
             return torch.cat([small] * len(views))
         return torch.cat([leaf] * len(views))
 
-    return map_leaves(cut, c)
+    return _map_cond(c, cut)
 
 
 def resize_spatial_conds(c: Optional[Cond], src_hw: Tuple[int, int],
@@ -195,29 +215,53 @@ def resize_spatial_conds(c: Optional[Cond], src_hw: Tuple[int, int],
             return resize_nchw(dequantize_hint(leaf), (dh * f, dw * f), "linear")
         return leaf
 
-    return map_leaves(rs, c)
+    return _map_cond(c, rs)
 
 
 # --------------------------------------------------------------- denoiser
 
 
+def demofusion_deepcache_aux(pipe, plan: DemoFusionPhasePlan, uncond_is_none: bool,
+                             cfg_scale: float, n_and: int, branch: int,
+                             B: int) -> List[torch.Tensor]:
+    """The global views' DeepCache caches, zeros in the UNet's dtype, one a
+    view batch: [mult * views * B, C_b, h / s / 2^(b-1), w / s / 2^(b-1)],
+    ``mult`` P + 1 under an AND of P, 2 under CFG, else 1
+    (``mdu_tpu/tiling/demofusion.py:469-505``, the unrolled form)."""
+    bc = pipe.unet.cfg.block_out_channels
+    if not 1 <= branch <= len(bc) - 1:
+        raise ValueError(f"cache_branch must be in [1, {len(bc) - 1}]")
+    mult = (n_and + 1) if n_and else (1 if (uncond_is_none or cfg_scale == 1.0) else 2)
+    down = 2 ** (branch - 1)
+    hs, ws = plan.h // plan.scale, plan.w // plan.scale
+    if hs % down or ws % down:
+        raise ValueError(f"deepcache_branch={branch} needs dilated-view dims divisible by "
+                         f"{down}, got {hs}x{ws}")
+    return [torch.zeros((mult * len(b) * B, bc[branch], hs // down, ws // down),
+                        dtype=pipe.unet.dtype, device=pipe.device) for b in plan.global_batches]
+
+
 def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
-                             guided: Callable, cond: Cond, uncond: Optional[Cond],
-                             lat0: torch.Tensor, noise: torch.Tensor, t_enc: int,
-                             jitter: np.ndarray, deepcache: int = 1):
+                             guided: Callable, cond, uncond, lat0: torch.Tensor,
+                             noise: torch.Tensor, t_enc: int, jitter: np.ndarray,
+                             deepcache: int = 1, guided_cached: Optional[Callable] = None,
+                             caches: Optional[List[torch.Tensor]] = None):
     """``denoised_fn(x, sigma, step)`` of one DemoFusion phase over
-    ``guided(x, sigma, c, u)``, the pipeline's CFG'd denoiser. ``jitter``
-    [n_windows, 2] holds the phase's window offsets."""
-    if deepcache > 1:
-        raise NotImplementedError(
-            "DeepCache on DemoFusion's views is not ported to mdu_tpu_torch yet "
-            "(ROADMAP queue 1, item 20)")
+    ``guided(x, sigma, c, u)``, the pipeline's CFG'd denoiser. ``cond`` and
+    ``uncond`` are prepared conds (``DiffusionPipeline._prepare``), resolved
+    every step. ``jitter`` [n_windows, 2] holds the phase's window offsets.
+    With ``deepcache`` N > 1 the global views run ``guided_cached`` on
+    ``caches`` (``demofusion_deepcache_aux``), the cached pass on the steps
+    that N does not divide."""
+    from ..pipeline import DiffusionPipeline
+
+    use_cache = deepcache > 1
     s, jr, tile = plan.scale, plan.jitter, plan.tile
     hw = (plan.h, plan.w)
     offs = [(b.y + jr + int(j[0]), b.x + jr + int(j[1]))
             for b, j in zip(plan.windows, np.asarray(jitter))]
-    c_pad = _pad_spatial(cond, jr, hw)
-    u_pad = _pad_spatial(uncond, jr, hw)
+    cond_f = DiffusionPipeline._as_cond_fn(cond)
+    uncond_f = DiffusionPipeline._as_cond_fn(uncond)
     n_total = len(plan.global_offsets)
 
     def denoised_fn(x, sigma, step):
@@ -228,6 +272,9 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
         c1 = cosf ** cfg.cosine_scale_1
         x = x * (1.0 - c1) + (lat0 + noise * sigma) * c1
         xp = F.pad(x, (jr, jr, jr, jr))
+        c_step = cond_f(step)
+        u_step = uncond_f(step) if uncond_f is not None else None
+        c_pad, u_pad = _pad_spatial(c_step, jr, hw), _pad_spatial(u_step, jr, hw)
 
         # local windows: uniform average (ref :251-264)
         buf = torch.zeros_like(xp)
@@ -254,13 +301,17 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
             xg = x
         x_global = torch.zeros_like(x)
         seen = 0
-        for batch in plan.global_batches:
+        for bi, batch in enumerate(plan.global_batches):
             # mixture: the first half of the doubled offsets sees the
             # unblurred input (ref :283-304)
             views = [(x if cfg.mixture and seen + k < n_total // 2 else xg)[:, :, oy::s, ox::s]
                      for k, (oy, ox) in enumerate(batch)]
-            out = guided(torch.cat(views), sigma, _dilated_cond(cond, batch, s, hw),
-                         _dilated_cond(uncond, batch, s, hw))
+            cg, ug = _dilated_cond(c_step, batch, s, hw), _dilated_cond(u_step, batch, s, hw)
+            if use_cache:
+                out, caches[bi] = guided_cached(torch.cat(views), sigma, cg, ug, caches[bi],
+                                                step % deepcache != 0)
+            else:
+                out = guided(torch.cat(views), sigma, cg, ug)
             out = out.reshape(len(batch), B, C, out.shape[-2], out.shape[-1])
             for k, (oy, ox) in enumerate(batch):
                 x_global[:, :, oy::s, ox::s] += out[k]
@@ -271,7 +322,7 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
         c2 = cosf ** cfg.cosine_scale_2
         return x_local * (1.0 - c2) + x_global * c2
 
-    return denoised_fn
+    return mark_deepcache(denoised_fn) if use_cache else denoised_fn
 
 
 # ------------------------------------------------------------- generation
@@ -297,7 +348,7 @@ def demofusion_info(sp: SamplerConfig, cfg: DemoFusionConfig, seed: int,
     }
 
 
-def demofusion_generate(pipe, cond: Cond, uncond: Optional[Cond], width: int, height: int,
+def demofusion_generate(pipe, cond, uncond, width: int, height: int,
                         base_noise, phase_noises: Sequence, cfg: DemoFusionConfig,
                         sp: SamplerConfig, seed: int, sampler_noise: Callable,
                         init_latent: Optional[torch.Tensor] = None, tiled_vae=None,
@@ -308,10 +359,15 @@ def demofusion_generate(pipe, cond: Cond, uncond: Optional[Cond], width: int, he
     the latent bicubically, re-noises it through the truncated schedule with
     its unit noise ``phase_noises[scale - 2]``, samples it with the
     DemoFusion denoiser and re-anchors its mean and std to phase 1's.
-    ``sampler_noise``: the stochastic samplers' noise, for every phase. The
-    result's ``latents`` is the last kept phase's and ``phase_latents``
-    holds every phase's."""
+    ``cond`` and ``uncond`` are prepared conds (plain, banks, AND conds or
+    callables). ``sampler_noise``: the stochastic samplers' noise, for every
+    phase. The result's ``latents`` is the last kept phase's and
+    ``phase_latents`` holds every phase's."""
     from ..pipeline import GenerationResult
+
+    if sp.deepcache > 1:
+        print("[DemoFusion] DeepCache active on the global dilated views only (windows "
+              "re-jitter every step and stay uncached)", file=sys.stderr)
 
     if init_latent is None:
         latents = pipe._txt2img_from_noise(base_noise, cond, uncond, sp, seed, decode=False,
@@ -323,22 +379,26 @@ def demofusion_generate(pipe, cond: Cond, uncond: Optional[Cond], width: int, he
     phases = [latents]
     rng = np.random.default_rng(seed)
     strengths = list(cfg.denoise_strengths) or [0.45]
-    guided = pipe._make_guided(sp.cfg_scale)
+    guided, guided_cached = pipe._make_guided(sp.cfg_scale, sp.deepcache_branch)
+    n_and = len(cond["__and__"]) if is_and(cond) else 0
     for phase_i, scale in enumerate(range(2, cfg.scale_factor + 1)):
         H, W = h0 * scale, w0 * scale
         lat0 = resize_nchw(latents, (H, W), "cubic")
         plan = plan_demofusion_phase(H, W, scale, cfg)
         jitter = draw_jitter(plan, rng)
-        c_phase = resize_spatial_conds(cond, (h0, w0), (H, W))
-        u_phase = resize_spatial_conds(uncond, (h0, w0), (H, W))
+        c_phase = pipe._prepare(cond, lambda p: resize_spatial_conds(p, (h0, w0), (H, W)))
+        u_phase = pipe._prepare(uncond, lambda p: resize_spatial_conds(p, (h0, w0), (H, W)))
         strength = strengths[min(phase_i, len(strengths) - 1)]
         steps, t_enc = pipe.schedule.img2img_steps(sp.steps, strength)
         all_sig = torch.as_tensor(pipe.schedule.sampling_sigmas(steps, sp.schedule),
                                   device=lat0.device)
         sigmas = all_sig[steps - t_enc - 1:]
         noise = torch.as_tensor(phase_noises[phase_i], dtype=lat0.dtype, device=lat0.device)
+        caches = (demofusion_deepcache_aux(pipe, plan, uncond is None, sp.cfg_scale, n_and,
+                                           sp.deepcache_branch, lat0.shape[0])
+                  if sp.deepcache > 1 else None)
         den_fn = make_demofusion_denoiser(plan, cfg, guided, c_phase, u_phase, lat0, noise,
-                                          t_enc, jitter, sp.deepcache)
+                                          t_enc, jitter, sp.deepcache, guided_cached, caches)
         latents = pipe._sample(sp, den_fn, lat0 + noise * sigmas[0], sigmas, sampler_noise)
         latents = ((latents - latents.mean()) / latents.std(correction=0) * anchor_std
                    + anchor_mean)

@@ -21,6 +21,11 @@ fused gather over all tiles (``ops/kernels/tile_blend.py``), as in
 ``mdu_tpu/tiling/schedulers.py:343-367``, and the region adds follow it.
 The JAX package rolls 8 or more tile batches into a ``lax.scan``; that is a
 compile-time measure with the same arithmetic, and the port stays unrolled.
+
+A tile denoiser that keeps DeepCache state (``stateful=True``: one cache a
+tile batch, kept by the pipeline's denoiser) never takes the fused blend, as
+the JAX package's stateful grid never does
+(``mdu_tpu/tiling/schedulers.py:303-305``); the scatter-add sums the grid.
 """
 from __future__ import annotations
 
@@ -165,10 +170,13 @@ def _region_maps(plan: DiffusionTilePlan) -> List[Optional[np.ndarray]]:
 
 
 def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
-                        region_denoise: Optional[RegionDenoiseFn] = None):
+                        region_denoise: Optional[RegionDenoiseFn] = None,
+                        stateful: bool = False):
     """``denoised_fn(x, sigma, step)`` that denoises the plan's tile batches
     and regions and fuses them (ref multidiffusion.py:131-218,
-    mixtureofdiffusers.py:61-179)."""
+    mixtureofdiffusers.py:61-179). ``stateful``: ``tile_denoise`` keeps
+    DeepCache state by ``batch_idx``, and the grid is summed without the
+    fused blend."""
     is_mod = plan.method == Method.MIX_DIFF
     if plan.regions and region_denoise is None:
         raise ValueError("a plan with regions needs a region_denoise")
@@ -188,7 +196,7 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
             ptw = None if ptw_np is None else torch.as_tensor(ptw_np, device=x.device)
             maps = [None if m is None else torch.as_tensor(m, device=x.device)
                     for m in maps_np]
-        fused = flags.fused_blend() and bool(plan.bboxes)
+        fused = flags.fused_blend() and bool(plan.bboxes) and not stateful
         tidx = 0
         outs = []
         buf = None if fused else torch.zeros_like(x)

@@ -1,8 +1,8 @@
 """Init-image pre-upscalers of img2img (the port's copy of
 ``mdu_tpu/upscale.py``): a registry of callables ``(image [B, 3, H, W] in
 [-1, 1], scale) -> [B, 3, int(H * scale), int(W * scale)]`` with the
-built-in resamplers. Model-based upscalers (ESRGAN and its kin) wait for
-ROADMAP queue 1, item 12."""
+built-in resamplers. An ESRGAN checkpoint joins it through
+``models/esrgan.py::register_esrgan_upscaler``."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -22,10 +22,6 @@ def register_upscaler(name: str, fn: Upscaler) -> None:
 
 def get_upscaler(name: str) -> Upscaler:
     if name not in _REGISTRY:
-        if "ESRGAN" in name.upper():
-            raise NotImplementedError(
-                f"the model-based upscaler {name!r} is not ported to mdu_tpu_torch "
-                "yet (ROADMAP queue 1, item 12)")
         raise KeyError(f"unknown upscaler '{name}'; available: {list(_REGISTRY)}")
     return _REGISTRY[name]
 

@@ -37,6 +37,8 @@ CASES = [
     ("flash_attention_fm", (2, 8, 2304, 2304, 80), "sm90"),  # and level 1
     ("flash_attention_fm", (4, 10, 4096, 4096, 64), "sm90"),  # config 5's SDXL level 1
     ("flash_attention_fm", (4, 20, 1024, 1024, 64), "sm90"),  # and level 2
+    ("flash_attention_fm", (10, 5, 6144, 6144, 64), "sm90"),  # SD2.1-unCLIP on config 2's
+    ("flash_attention_fm", (10, 10, 1536, 1536, 64), "sm90"),  # canvas, levels 0 and 1
     ("flash_attention", (1, 1, 1000, 1000, 512), "wide"),
     ("flash_attention", (1, 1, 17424, 17424, 512), "wide"),  # config 3's encoder mid-block
     ("flash_attention", (4, 1, 13924, 13924, 512), "wide"),  # config 4's decoder mid-block
@@ -676,3 +678,33 @@ def test_streamed_decode_matches_lockstep(mode):
     assert got.dtype == torch.bfloat16 and got.shape == (1, 3, 512, 512)
     tol = 2 * (lock - ref).abs().max().item() + 1e-3 * ref.abs().max().item()
     assert (got.float() - ref).abs().max().item() <= tol
+
+
+def test_tiny_deepcache_txt2img_matches_cpu():
+    """The tiny pipeline (random weights drawn on the CPU) under DeepCache
+    N = 2: MultiDiffusion over a 32 x 64 latent (tiles of 32: 1024 tokens at
+    level 0, a flash kernel), Euler 4 steps, on the card in fp32 against the
+    CPU, within 1e-4 of the largest value; the cached steps launch #1 too."""
+    from mdu_tpu_torch import DiffusionPipeline, SamplerConfig, TiledDiffusionConfig
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
+                                      tiny_unet_config, tiny_vae_config)
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    c = {"crossattn": torch.randn(1, 7, 16, generator=gen) * 0.1}
+    u = {"crossattn": torch.randn(1, 7, 16, generator=gen) * 0.1}
+    noise = torch.randn(1, 4, 32, 64, generator=gen)
+    td = TiledDiffusionConfig(tile_w=32, tile_h=32, overlap=16, tile_bs=3)
+    out = {}
+    for device in ("cpu", dev):
+        unet = UNet2DCondition(tiny_unet_config())
+        unet.load_state_dict(random_state_dict(unet, 0, device="cpu"))
+        pipe = DiffusionPipeline(unet, AutoencoderKL(tiny_vae_config()), device=device)
+        before = flash.LAUNCHES["flash_attention_fm_f32"]
+        out[str(device)] = pipe._txt2img_from_noise(
+            noise, c, u, SamplerConfig(steps=4, deepcache=2), 0, td, decode=False).latents.cpu()
+        if device != "cpu":
+            # 2 full calls x 5 level-0 attentions + 2 cached calls x 5
+            assert flash.LAUNCHES["flash_attention_fm_f32"] - before == 20
+    ref = out["cpu"]
+    assert (out[str(dev)] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

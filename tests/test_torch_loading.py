@@ -218,8 +218,9 @@ def test_sdxl_folder_loads_jax_weights(tmp_path):
     got = cond.cond("a cat", 128, 128)
     assert [tuple(got[k].shape) for k in ("crossattn", "vector", "time_ids")] == \
         [(1, 77, 16), (1, 16), (1, 6)]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        loader.load_guidance("x.safetensors", pipe.unet.cfg)
+    # StableSR's encoder loads from a file of its own (test_torch_adapters.py)
+    with pytest.raises(FileNotFoundError):
+        loader.load_guidance(str(root / "no_guidance.safetensors"), pipe.unet.cfg, device="cpu")
 
 
 def _kohya(params, names, rank, seed):

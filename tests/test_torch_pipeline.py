@@ -234,29 +234,28 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked(pipes):
 
 
 def test_unported_features_raise(pipes):
+    """Step callbacks (item 21) and the mesh (item 22) are all that raise;
+    DeepCache runs, image CFG asks for its image latent, an unknown
+    upscaler is a KeyError and a guidance leaf on one side a ValueError."""
     _, port, c, u = pipes
     tiny = dict(width=128, height=128, sampler=SamplerConfig(steps=1))
-    cases = [
-        dict(sampler=SamplerConfig(steps=1, image_cfg_scale=1.5)),   # edit-model CFG
-        dict(sampler=SamplerConfig(steps=1, deepcache=2)),
-        dict(step_callback=lambda i, x: None),
-    ]
-    for extra in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.txt2img(c, u, **{**tiny, **extra})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.txt2img(c, u, **tiny, step_callback=lambda i, x: None)
+    res = port.txt2img(c, u, **{**tiny, "sampler": SamplerConfig(steps=2, deepcache=2)},
+                       decode=False)
+    assert torch.isfinite(res.latents).all()
+    with pytest.raises(ValueError, match="image_cfg_scale"):
+        port.txt2img(c, u, **{**tiny, "sampler": SamplerConfig(steps=1, image_cfg_scale=1.5)})
     # DemoFusion has its own entry point (the JAX planner would run the name
     # as MultiDiffusion)
     with pytest.raises(NotImplementedError, match="DiffusionPipeline.demofusion"):
         port.txt2img(c, u, **tiny, tiled_diffusion=TiledDiffusionConfig(
             method=Method.DEMO_FU, tile_w=8, tile_h=8, overlap=4))
     img = np.zeros((64, 64, 3), np.uint8)
-    i2i = dict(sampler=SamplerConfig(steps=2, denoising_strength=0.5))
-    for extra in (dict(cond={**c, "adm": np.zeros((1, 8), np.float32)}),   # unCLIP
-                  dict(tiled_diffusion=TiledDiffusionConfig(upscaler="R-ESRGAN 4x+"))):
-        kw = {"cond": c, **i2i, **extra}
-        with pytest.raises(NotImplementedError, match="item 12"):
-            port.img2img(img, kw.pop("cond"), u, **kw)
-    with pytest.raises(NotImplementedError, match="StableSR"):
+    with pytest.raises(KeyError, match="R-ESRGAN"):
+        port.img2img(img, c, u, sampler=SamplerConfig(steps=2, denoising_strength=0.5),
+                     tiled_diffusion=TiledDiffusionConfig(upscaler="R-ESRGAN 4x+"))
+    with pytest.raises(ValueError, match="guidance"):
         port.txt2img({**c, "guidance": np.zeros((1, 4, 16, 16), np.float32)}, u, **tiny)
     with pytest.raises(NotImplementedError, match="mesh"):
         DiffusionPipeline(port.unet, port.vae, device="cpu", mesh=object())

@@ -21,9 +21,9 @@ from mdu_tpu.tiling import conds as jconds
 from mdu_tpu.utils import image as jimage
 from mdu_tpu.utils.bbox import BBox as JaxBBox
 from mdu_tpu_torch import DiffusionPipeline, SamplerConfig
-from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, UNet2DCondition, load_jax_params,
-                                  random_state_dict, sdxl_unet_config, state_dict_from_jax,
-                                  tiny_sdxl_unet_config, tiny_vae_config)
+from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, StableSRGuidance, UNet2DCondition,
+                                  load_jax_params, random_state_dict, sdxl_unet_config,
+                                  state_dict_from_jax, tiny_sdxl_unet_config, tiny_vae_config)
 from mdu_tpu_torch.tiling import conds
 from mdu_tpu_torch.utils.bbox import BBox
 from mdu_tpu_torch.utils.image import hint_to_tensor
@@ -217,7 +217,14 @@ def test_sdxl_pipeline_needs_its_vector_and_raises_for_stablesr(sdxl_pair):
     with pytest.raises(ValueError, match="vector"):
         pipe._txt2img_from_noise(noise, {"crossattn": torch.zeros(1, 7, CTX)}, None,
                                  SamplerConfig(steps=1), decode=False)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        DiffusionPipeline(port_unet, vae, device="cpu", guidance_model=port_cn)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        pipe._cond({"crossattn": torch.zeros(1, 7, CTX), "guidance": torch.zeros(1, 4, 8, 8)})
+    # StableSR's guidance leaf is taken, and must be on the uncond as well
+    guided = DiffusionPipeline(port_unet, vae, device="cpu", controlnet=port_cn,
+                               guidance_model=StableSRGuidance(port_unet.cfg))
+    vec = torch.zeros(1, 16)
+    c = {"crossattn": torch.zeros(1, 7, CTX), "vector": vec,
+         "guidance": torch.zeros(1, 4, 8, 8)}
+    assert set(guided._cond(c)) == set(c)
+    with pytest.raises(ValueError, match="guidance"):
+        guided._txt2img_from_noise(noise, c, {"crossattn": torch.zeros(1, 7, CTX),
+                                              "vector": vec}, SamplerConfig(steps=1),
+                                   decode=False)

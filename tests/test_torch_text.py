@@ -245,11 +245,13 @@ def test_txt2img_from_prompts_matches_jax(pipes, conditioners):
     plain = run(tc.cond("a cat"), tc.cond("blurry x"))
     assert (plain - got).abs().max() > 1e-3
     assert (run(tc.cond("a cat"), tc.cond(neg, 4)) - plain).abs().max() > 1e-3
-    # noise inversion and DemoFusion take plain conds only
+    # noise inversion takes a plain cond only; DemoFusion resolves the AND
+    # and scheduled cond every step
     image = np.zeros((128, 256, 3), np.uint8)
     with pytest.raises(ValueError, match="plain cond"):
         port._img2img_from_noise(image, noise, noise, tc.cond(text, 4), None,
                                  SamplerConfig(steps=2, denoising_strength=0.5), 5,
                                  TiledDiffusionConfig(noise_inverse=True, **td), decode=False)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        port.demofusion(tc.cond(text, 4), None, 64, 64, decode=False)
+    res = port.demofusion(tc.cond(text, 2), tc.cond(neg, 2), 64, 64,
+                          sampler=SamplerConfig(steps=2), decode=False)
+    assert res.latents.shape == (1, 4, 24, 24) and torch.isfinite(res.latents).all()   # x3
