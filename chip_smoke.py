@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,deepcache,unclip,prompts,
-                                    load,img2img,adapters,stream,regional,upscale8k,stream8k,
-                                    demofusion]
+                                    load,cli,layouts,img2img,adapters,stream,regional,upscale8k,
+                                    stream8k,demofusion,reference_cli]
 
-Phases, one JSON line each (all of them but ``stream8k`` unless ``--phases``
-names some; ``device`` and ``build`` always run):
+Phases, one JSON line each (all of them but ``stream8k`` and
+``reference_cli``, which ``reference`` includes, unless ``--phases`` names
+some; ``device`` and ``build`` always run):
 
 1. ``device``    the card's name and count; the ``nvidia-smi`` name and power
                  limit line is printed as it is.
@@ -87,7 +88,9 @@ names some; ``device`` and ``build`` always run):
                  [4, 640, 64, 64], [4, 1280, 32, 32] and [4, 2560, 32, 32],
                  #6 at [4, 128, 128, 320] -> 320, [4, 64, 64, 640] -> 640,
                  the [4, 64, 64, 320] -> 640 transition and levels 0 and 1 at
-                 batch 2. ``device_ms`` and
+                 batch 2. Config 2 under NHWC (``NHWC_CONV_SHAPES``): #6
+                 at 1280 -> 1280 on [10, 8, 12] and [10, 16, 24], 640 -> 1280
+                 on [10, 16, 24], 960 -> 640 and 1280 -> 640 on [10, 32, 48]. ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
                  and the yardstick's launches (torch.profiler's kernel
                  durations, summed, per call). Bounds: max(flops / peak, bytes /
@@ -135,11 +138,21 @@ names some; ``device`` and ``build`` always run):
                  config 2's canvas ([10, 5, 6144, 64], [10, 10, 1536, 64])
                  and at config 3's 3-way image-CFG batches (15 and 12 at
                  levels 0-2) are in ``kernels``.
+                 Last, PR 14's (``phase_reference_cli``, also named alone as
+                 ``reference_cli``): the CLI's tiny txt2img (a tiny single
+                 file, ``--device cuda`` and ``--device cpu``: PNGs within 1
+                 uint8 level, the infotexts equal); a narrow UNet whose level
+                 1 is 768 wide, built under ``MDU_UNET_LAYOUT=NHWC`` and run
+                 under ``MDU_FUSED_CONV=1`` in fp32 and bf16 (#6 takes every
+                 conv the fused path takes, some above 640 channels);
+                 ``conv3x3_mm`` in both modes and layouts, fp32 and bf16,
+                 with the route of its bf16 products.
 5. ``txt2img``   config 2 through ``DiffusionPipeline.txt2img``: SD1.5 UNet and
                  VAE with random bf16 weights, MultiDiffusion at 2048 x 512
                  (tile 96, overlap 48, tile_bs 8), Euler 20 steps at CFG 7,
-                 exact tiled decode (tile 128); 1 warm and 1 timed image,
-                 with no flag, with the four flags and with MDU_FLASH=fm
+                 exact tiled decode (tile 128); 1 warm image (and 1 timed
+                 outside ``WARM_ONLY``), with no flag, with the four flags
+                 and with MDU_FLASH=fm
                  (the VAE's D = 512 through #1's wide form). Then one image
                  of config 2 built in fp32 (the JAX CLI's default dtype)
                  under MDU_FUSED_CONV=1: #6 in fp32, #1 and #2 in fp32.
@@ -147,8 +160,8 @@ names some; ``device`` and ``build`` always run):
                  just after; each kernel's launches per image must equal the
                  pinned count (and a kernel of the path launched 0 times
                  fails the run).
-6. ``samplers``  config 2 under "DPM++ 2M Karras" and "DPM++ SDE" (1 warm and
-                 1 timed image each, launches pinned: #1 200 and 390, the
+6. ``samplers``  config 2 under "DPM++ 2M Karras" (a warm image) and "DPM++
+                 SDE" (1 warm and 1 timed), launches pinned: #1 200 and 390, the
                  latter 39 UNet calls: two on each of 19 steps, one on the
                  last).
 6b. ``deepcache`` config 2 exactly as ``txt2img`` builds it under DeepCache N
@@ -174,6 +187,27 @@ names some; ``device`` and ``build`` always run):
                  the config-2 image equal to the in-memory pipeline's, the
                  merged LoRA within one bf16 rounding of the fp32 reference
                  (``phase_load``).
+6c. ``cli``      config 2 through the command line (``phase_cli``): its
+                 weights and a random CLIP-L as one single file with a
+                 char-level tokenizer in ``_cli_smoke_*/`` of the checkout
+                 (deleted afterwards); ``python -m mdu_tpu_torch.cli
+                 txt2img`` at config 2's settings in a subprocess (seconds
+                 to start, to load and for the image; its ``perfcount``
+                 line with the peak device memory); its PNG read back
+                 (2048 x 512, the infotext, ``info`` printing it); the same
+                 image in this process twice (the CLI's pixels within the
+                 two images' spread; #1 200, #2 1); an image interrupted by
+                 its step callback after step 10 (#1 100, "Interrupted" in
+                 its infotext); ``cli.main(["img2img", ...])`` at config 3's
+                 settings (#1 570, #2 2).
+6d. ``layouts``  config 2 under ``MDU_UNET_LAYOUT=NHWC`` with no flag and
+                 with the four flags (#6 720 an image: 36 convs a UNet call,
+                 20 of them above 640 channels; #4 0), ``MDU_GN=fold``,
+                 ``chanreduce``, ``MDU_CONV_MM=9mm``, ``im2col``: 1 warm and 1
+                 timed image each against the default's, launches pinned,
+                 img/min and peak memory, each warm image's latents within 3
+                 e + 1e-3 x max of the default's (e: the default's max
+                 difference from the fp32 latents of the same weights).
 7. ``img2img``   config 3 through ``DiffusionPipeline.img2img`` as
                  ``bench.py:345-377`` runs it: a 512 x 512 image, Lanczos x4
                  to 2048 x 2048, Mixture of Diffusers (tile 96, overlap 8,
@@ -236,7 +270,14 @@ names some; ``device`` and ``build`` always run):
                  the global views cached), launches pinned, with its mean
                  absolute latent difference from the exact x2.
 
-Then a ``done`` line with the script's seconds, a ``{"kernels": [...]}`` line
+The reference phases' CPU runs go to ``CPU_REF_WORKERS`` worker processes
+while the card runs its own, and the settings in ``WARM_ONLY`` (config 2
+under ``MDU_FLASH=fm``, the samplers' "DPM++ 2M Karras") keep their warm
+image, its checks and its pinned launches but time no second image: this
+pays for the ``cli`` and ``layouts`` phases within the run's time.
+
+Then a ``done`` line with the script's seconds and each phase's, a
+``{"kernels": [...]}`` line
 (every kernel of the port), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 TF32 is off for matmuls and convolutions.
@@ -284,6 +325,11 @@ F32_RUN = ("fp32 conv", {"MDU_FUSED_CONV": "1"},
 # timed images of the earlier paths (config 2's three settings, configs 3 and 4):
 # 1 after 1 warm, cut from 2 to keep the whole run near half its time limit
 EARLIER_TIMED = 1
+# (phase, setting) pairs that keep their warm image, its checks and pinned
+# launches but time no second image (cut with the reference phases' CPU
+# workers to pay for the cli and layouts phases; such a line reports its warm
+# image's seconds)
+WARM_ONLY = {("txt2img", "fm"), ("samplers", "DPM++ 2M Karras")}
 # config 3 (bench.py:345-377): MoD img2img x4, 512 -> 2048, with noise inversion
 CFG3 = dict(image=512, scale=4.0, steps=20, cfg=7.0, denoise=0.4, tile=96, overlap=8,
             tile_bs=8, inverse_steps=10, renoise=1.0, encoder_tile=1024, decoder_tile=64)
@@ -382,6 +428,11 @@ EXPECTED_UNCLIP = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
                    "flash_attention": 1, "flash_attention.wide": 1}
 # the full-width ESRGAN of the adapters phase (64 features, 23 blocks, grow 32)
 ESRGAN = dict(num_feat=64, num_blocks=23, grow=32)
+# #6's config-2 shapes [B, H, W, C, Co] above 640 channels, which only the
+# NHWC UNet sends it: 1280 -> 1280 at 8 x 12 (11 a UNet call) and 16 x 24 (6),
+# 640 -> 1280 at 16 x 24, 960 -> 640 and 1280 -> 640 at 32 x 48 (1 each)
+NHWC_CONV_SHAPES = [(10, 8, 12, 1280, 1280), (10, 16, 24, 1280, 1280), (10, 16, 24, 640, 1280),
+                    (10, 32, 48, 960, 640), (10, 32, 48, 1280, 640)]
 MUFU_PER_SM_CLOCK = 16        # ex2 a clock per SM (H100)
 N_SMS = 132
 KERNELS = {
@@ -479,12 +530,16 @@ KERNELS = {
         # form's 32 x 8 tile; Co off its 160 channels; odd H, W and C (the
         # mma.sync form, no 16-byte vectors); config 3's level-0 conv;
         # config 4's region calls at levels 0 and 1; config 5's levels 0 and 1
-        # and its 320 -> 640 transition at batch 4, and levels 0 and 1 at 2
+        # and its 320 -> 640 transition at batch 4, and levels 0 and 1 at 2;
+        # config 2's NHWC shapes
         shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
                 (10, 32, 48, 320, 640), (2, 45, 21, 320, 320), (2, 32, 48, 128, 200),
                 (2, 7, 9, 12, 20), (10, 96, 96, 320, 320), (2, 96, 96, 320, 320),
                 (2, 48, 48, 640, 640), (4, 128, 128, 320, 320), (4, 64, 64, 640, 640),
-                (4, 64, 64, 320, 640), (2, 128, 128, 320, 320), (2, 64, 64, 640, 640)],
+                (4, 64, 64, 320, 640), (2, 128, 128, 320, 320), (2, 64, 64, 640, 640),
+                # config 2 under MDU_UNET_LAYOUT=NHWC: the convs above 640 channels
+                # that the JAX planner fits (NCHW stops at 640)
+                *NHWC_CONV_SHAPES],
         # fp32: config 2's four shapes (sm90); H, W and Co off the 32 x 8 x 80
         # tile (sm90); C = 12 (simt)
         f32_shapes=[(10, 64, 96, 320, 320), (10, 32, 48, 640, 640), (10, 64, 96, 640, 320),
@@ -1264,27 +1319,120 @@ def _tiny_sampler(name, churn, decisions, factors):
     return run
 
 
-def _hold_to_cpu(label, run, parts, must_launch, dtypes=None, off_path=()):
+# the reference phases' CPU runs go to worker processes while the card runs
+# its own: they were most of those phases' time (PR 14: 80 % of 227-317 s)
+CPU_REF_WORKERS = 3
+CPU_REF_THREADS = 2           # torch threads in each worker
+
+
+def _cpu_worker_init():
+    """A worker's start: its torch threads, and no kernel flag inherited from
+    the parent (each job sets its own)."""
+    import torch
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    for flag in FLAGS:
+        os.environ.pop(flag, None)
+
+
+def _as_numpy(x):
+    if isinstance(x, dict):
+        return {k: _as_numpy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_as_numpy(v) for v in x)
+    return x.detach().float().cpu().numpy()
+
+
+def _as_torch(x):
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _as_torch(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_as_torch(v) for v in x)
+    return torch.from_numpy(x)
+
+
+def _cpu_refs(spec, flags):
+    """The CPU fp32 and bf16 outputs of one tiny run under ``flags``, with
+    the accept / reject decisions and factors DPM adaptive appended, in a
+    worker process or in this one. ``spec`` is (the name of a run in this
+    module, None) or (the name of a factory of one, its arguments);
+    ``_tiny_sampler`` gets the decision lists too. The outputs come back as
+    numpy arrays."""
+    import torch
+
+    name, args = spec
+    decisions, factors = {}, {}
+    fn = globals()[name]
+    with flags_set(flags):
+        if name == "_tiny_sampler":
+            run = fn(*args, decisions, factors)
+        else:
+            run = fn if args is None else fn(*args)
+        t0 = time.perf_counter()
+        outs = [run("cpu", d) for d in (torch.float32, torch.bfloat16)]
+    return _as_numpy(outs), decisions, factors, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _cpu_pool():
+    """``CPU_REF_WORKERS`` spawned worker processes for ``_cpu_refs``, shut
+    down (pending jobs cancelled) when the block ends."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _submit_refs(pool, jobs):
+    """``jobs``: (spec, flags) pairs; returns a getter of each job's
+    ``_cpu_refs`` result: from the pool, or computed here without one."""
+    futures = [pool.submit(_cpu_refs, spec, flags) if pool is not None else None
+               for spec, flags in jobs]
+
+    def get(i):
+        out = futures[i].result() if futures[i] is not None else _cpu_refs(*jobs[i])
+        return (_as_torch(out[0]),) + tuple(out[1:])
+
+    return get
+
+
+def _hold_to_cpu(label, run, parts, must_launch, dtypes=None, off_path=(), cpu=None):
     """``run`` on the card against the CPU in each dtype (fp32 within 1e-4 of
     the largest CPU value; bf16 within 2x the CPU bf16 run's own error
     against the CPU fp32 run plus 1e-3 of it); each card run must launch
-    ``must_launch[dtype]``, but for the kernels ``off_path`` names. Returns
-    the ``reference`` lines' fields by dtype."""
+    ``must_launch[dtype]``, but for the kernels ``off_path`` names. ``cpu``:
+    ((the CPU fp32 run, the CPU bf16 run), seconds) when they ran elsewhere
+    (``_cpu_refs``). Returns the ``reference`` lines' fields by dtype."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    ref = run("cpu", torch.float32)
-    ref_bf16 = run("cpu", torch.bfloat16)
+    if cpu is None:
+        t0 = time.perf_counter()
+        ref = run("cpu", torch.float32)
+        ref_bf16 = run("cpu", torch.bfloat16)
+        cpu_s = time.perf_counter() - t0
+    else:
+        (ref, ref_bf16), cpu_s = cpu
     out = {}
     for dtype in dtypes or (torch.float32, torch.bfloat16):
         reset_launches()
+        t0 = time.perf_counter()
         got = run("cuda", dtype)
+        card_s = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         for key in must_launch[dtype]:
             if key not in off_path:
                 require(launches[key] > 0, f"{label} {dtype} launched no {key}")
-        fields = {"launches": launches}
+        fields = {"launches": launches, "cpu_s": cpu_s, "card_s": card_s}
         for i, part in enumerate(parts):
             scale = ref[i].abs().max().item()
             err = (got[i] - ref[i]).abs().max().item()
@@ -1299,7 +1447,7 @@ def _hold_to_cpu(label, run, parts, must_launch, dtypes=None, off_path=()):
     return out
 
 
-def phase_reference():
+def phase_reference(pool=None):
     """The tiny txt2img, img2img and regional txt2img pipelines on the card
     against the same pipelines on the CPU (plain versions): in fp32 within
     1e-4 of the largest CPU value; in bf16 within 2x the CPU bf16 run's own
@@ -1314,7 +1462,8 @@ def phase_reference():
     0.81 they are held against, and the yardstick of bf16's rounding: the
     largest gap between the CPU's bf16 and fp32 factors over the decisions
     both dtypes take alike up to that one (``within_bf16_rounding``: the
-    card's gap at most twice that, the form of the bf16 bar)."""
+    card's gap at most twice that, the form of the bf16 bar). The CPU runs
+    go to ``pool``'s workers (``_cpu_refs``), all submitted at the start."""
     import torch
 
     from mdu_tpu_torch.config import Method
@@ -1326,29 +1475,39 @@ def phase_reference():
                                      "fused_tile_blend"],
                      torch.bfloat16: ["flash_attention_t", "fused_group_norm",
                                       "fused_conv3x3", "fused_tile_blend"]})]
-    pipelines = (("DemoFusion SDXL + ControlNet", _tiny_demofusion,
+    # (label, the run's spec for _cpu_refs, parts, kernels off its path)
+    pipelines = (("DemoFusion SDXL + ControlNet", ("_tiny_demofusion", None),
                   ("phase1_latent", "latent"), ("fused_tile_blend",)),
-                 ("txt2img", _tiny_run, ("latent", "image"), ()),
-                 ("img2img", _tiny_img2img, ("latent", "image", "fast_moments",
-                                             "fast_image"), ()),
-                 ("regional MultiDiffusion", _tiny_regional(Method.MULTI_DIFF),
+                 ("txt2img", ("_tiny_run", None), ("latent", "image"), ()),
+                 ("img2img", ("_tiny_img2img", None), ("latent", "image", "fast_moments",
+                                                       "fast_image"), ()),
+                 ("regional MultiDiffusion", ("_tiny_regional", (Method.MULTI_DIFF,)),
                   ("latent", "image"), ()),
-                 ("regional Mixture of Diffusers", _tiny_regional(Method.MIX_DIFF),
+                 ("regional Mixture of Diffusers", ("_tiny_regional", (Method.MIX_DIFF,)),
                   ("latent", "image"), ()))
+    jobs = [(spec, flags) for flags, _ in runs for _, spec, _, _ in pipelines]
+    jobs += [(("_tiny_sampler", (name, churn)), {}) for name, churn in TINY_SAMPLERS]
+    get = _submit_refs(pool, jobs)
+    done = 0
     for flags, must_launch in runs:
         with flags_set(flags):
-            for pipeline, run, parts, off_path in pipelines:
+            for pipeline, (fn, args), parts, off_path in pipelines:
                 label = f"tiny {pipeline} (flags {flags})"
+                run = globals()[fn] if args is None else globals()[fn](*args)
+                refs, _, _, cpu_s = get(done)
+                done += 1
                 for dtype, fields in _hold_to_cpu(label, run, parts, must_launch,
-                                                  off_path=off_path).items():
+                                                  off_path=off_path,
+                                                  cpu=(refs, cpu_s)).items():
                     emit("reference", dtype=_dtype_name(dtype), pipeline=pipeline, flags=flags,
                          **fields)
     must_launch = runs[0][1]
     for name, churn in TINY_SAMPLERS:
-        decisions, factors = {}, {}
+        refs, decisions, factors, cpu_s = get(done)
+        done += 1
         fields = _hold_to_cpu(f"tiny sampler {name} {churn}",
                               _tiny_sampler(name, churn, decisions, factors), ("latent",),
-                              must_launch)
+                              must_launch, cpu=(refs, cpu_s))
         for dtype, f in fields.items():
             extra = {}
             if name == "DPM adaptive":
@@ -1452,10 +1611,11 @@ def build_config2(dtype=None):
     return pipe, cond, uncond, sp, td, tv
 
 
-def run_config2(pipe, cond, uncond, sp, td, tv, expected, label, n=2):
-    """1 warm image and ``n`` timed ones; launches per image must equal
-    ``expected`` (0 for every kernel it does not name). Returns the
-    launches of the warm image and the ``txt2img`` line's fields."""
+def run_config2(pipe, cond, uncond, sp, td, tv, expected, label, n=2, keep=None):
+    """1 warm image and ``n`` timed ones (``n`` = 0: the warm one alone);
+    launches per image must equal ``expected`` (0 for every kernel it does
+    not name). Returns the launches of the warm image and the ``txt2img``
+    line's fields; ``keep``, a list, gets the warm image's result."""
     import torch
 
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -1476,6 +1636,11 @@ def run_config2(pipe, cond, uncond, sp, td, tv, expected, label, n=2):
     require(tuple(res.images.shape) == (1, 512, 2048, 3),
             f"{label}: output shape {tuple(res.images.shape)}")
     require(bool(torch.isfinite(res.latents).all()), f"{label}: non-finite latents")
+    if keep is not None:
+        keep.append(res)
+    if n == 0:
+        return launches, dict(first_image_s=first_s, launches_per_image=launches,
+                              output_shape=list(res.images.shape), finite=True)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1509,7 +1674,7 @@ def phase_txt2img():
         for label, flags, expected in config_runs:
             with flags_set(flags):
                 launches, fields = run_config2(pipe, cond, uncond, sp, td, tv, expected, label,
-                                               n)
+                                               0 if ("txt2img", label) in WARM_ONLY else n)
             emit("txt2img", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 "
                                    + ("fp32" if dtype == torch.float32 else "bf16"),
                  run=label, flags=flags, sampler=sp.name, steps=sp.steps,
@@ -1537,7 +1702,8 @@ def phase_samplers():
         sp_n = dataclasses.replace(sp, name=name)
         expected = {"flash_attention_fm": fm, "flash_attention_fm.sm90": fm,
                     "flash_attention": 1, "flash_attention.wide": 1}
-        _, fields = run_config2(pipe, cond, uncond, sp_n, td, tv, expected, name, n=1)
+        _, fields = run_config2(pipe, cond, uncond, sp_n, td, tv, expected, name,
+                                n=0 if ("samplers", name) in WARM_ONLY else 1)
         emit("samplers", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16",
              flags={}, sampler=name, steps=sp_n.steps, cfg_scale=sp_n.cfg_scale,
              unet_calls_per_image=fm // 10, setup_s=setup_s, expected_launches=expected,
@@ -1962,8 +2128,8 @@ def phase_deepcache():
     """Config 2 (bf16) under DeepCache N = 2, branch 1 (``DEEPCACHE``), built
     as phase ``txt2img`` builds it, with no flag and with the four flags: 1
     warm and 2 timed images with their launches pinned, then the mean
-    absolute pixel difference of the seed-0 image from the exact image of
-    that seed. Returns the launches per image of each run."""
+    absolute pixel difference of the warm (seed-0) image from the exact
+    image of that seed. Returns the launches per image of each run."""
     import dataclasses
 
     import numpy as np
@@ -1976,13 +2142,13 @@ def phase_deepcache():
                                 deepcache_branch=DEEPCACHE["branch"])
     out = {}
     for label, flags, expected in DEEPCACHE_RUNS:
+        kept = []
         with flags_set(flags):
             launches, fields = run_config2(pipe, cond, uncond, sp_dc, td, tv, expected,
-                                           f"deepcache {label}")
-            images = [np.asarray(pipe.txt2img(cond, uncond, width=CFG2["width"],
-                                              height=CFG2["height"], sampler=s, seed=0,
-                                              tiled_diffusion=td, tiled_vae=tv).images)
-                      for s in (sp, sp_dc)]
+                                           f"deepcache {label}", keep=kept)
+            exact = pipe.txt2img(cond, uncond, width=CFG2["width"], height=CFG2["height"],
+                                 sampler=sp, seed=0, tiled_diffusion=td, tiled_vae=tv)
+            images = [np.asarray(exact.images), np.asarray(kept.pop().images)]
         diff = float(np.abs(images[0].astype(np.int16) - images[1].astype(np.int16)).mean())
         emit("deepcache", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16, "
                                  "DeepCache", run=label, flags=flags, sampler=sp.name,
@@ -2352,28 +2518,34 @@ def _tiny_esrgan(device: str, dtype):
     return (esrgan_upscaler(model)(x.to(device), 4.0).float().cpu(),)
 
 
-def phase_reference_adapters():
+def phase_reference_adapters(pool=None):
     """This slice's tiny paths on the card against the CPU, held as
     ``_hold_to_cpu`` holds them (fp32 within 1e-4 of the largest CPU value,
     bf16 within 2x the CPU bf16 run's error + 1e-3 of it): DeepCache N = 2 on
     a tiled txt2img with a BACKGROUND region under Euler, Heun and Euler a; a
     DemoFusion x2 with DeepCache and an AND cond; StableSR + ControlNet on a
     tiled img2img; image CFG 1.5; unCLIP; a tiny ESRGAN upscale (no kernel:
-    its convs are cuDNN's). Each card run of a UNet must launch its #1."""
+    its convs are cuDNN's). Each card run of a UNet must launch its #1. The
+    CPU runs go to ``pool``'s workers, as in ``phase_reference``."""
     import torch
 
     fm = {torch.float32: ["flash_attention_fm_f32"], torch.bfloat16: ["flash_attention_fm"]}
-    runs = [(f"DeepCache {name}", _tiny_deepcache(name), ("latent",), fm)
+    runs = [(f"DeepCache {name}", ("_tiny_deepcache", (name,)), ("latent",), fm)
             for name in ("Euler", "Heun", "Euler a")]
-    runs += [("DemoFusion DeepCache + AND", _tiny_demofusion_dc, ("phase1_latent", "latent"),
-              fm),
-             ("StableSR + ControlNet img2img", _tiny_img2img_adapter("stablesr"), ("latent",),
-              fm),
-             ("image CFG img2img", _tiny_img2img_adapter("image_cfg"), ("latent",), fm),
-             ("unCLIP", _tiny_unclip, ("latent",), fm),
-             ("ESRGAN x4", _tiny_esrgan, ("image",), {torch.float32: [], torch.bfloat16: []})]
-    for label, run, parts, must in runs:
-        for dtype, fields in _hold_to_cpu(f"tiny {label}", run, parts, must).items():
+    runs += [("DemoFusion DeepCache + AND", ("_tiny_demofusion_dc", None),
+              ("phase1_latent", "latent"), fm),
+             ("StableSR + ControlNet img2img", ("_tiny_img2img_adapter", ("stablesr",)),
+              ("latent",), fm),
+             ("image CFG img2img", ("_tiny_img2img_adapter", ("image_cfg",)), ("latent",), fm),
+             ("unCLIP", ("_tiny_unclip", None), ("latent",), fm),
+             ("ESRGAN x4", ("_tiny_esrgan", None), ("image",),
+              {torch.float32: [], torch.bfloat16: []})]
+    get = _submit_refs(pool, [(spec, {}) for _, spec, _, _ in runs])
+    for i, (label, (fn, args), parts, must) in enumerate(runs):
+        run = globals()[fn] if args is None else globals()[fn](*args)
+        refs, _, _, cpu_s = get(i)
+        for dtype, fields in _hold_to_cpu(f"tiny {label}", run, parts, must,
+                                          cpu=(refs, cpu_s)).items():
             emit("reference", dtype=_dtype_name(dtype), pipeline=f"tiny {label}", flags={},
                  **fields)
 
@@ -2912,35 +3084,22 @@ def phase_load():
     the merged LoRA weights within one bf16 rounding of W + scale (alpha / r)
     up @ down computed in fp32 on the CPU. The load's seconds and the file's
     bytes."""
-    import json as _json
     import shutil
     import tempfile
 
     import torch
 
-    from mdu_tpu_torch.models.clip import clip_l_config
     from mdu_tpu_torch.models.loader import load_safetensors
     from mdu_tpu_torch.models.lora import merge_lora
     from mdu_tpu_torch.models.safetensors import save_file
-    from mdu_tpu_torch.models.single_file import ldm_state_dict, load_single_file
+    from mdu_tpu_torch.models.single_file import load_single_file
     from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     pipe, cond, uncond, sp, td, tv = build_config2()
-    tc = _conditioner(clip_l_config(), 3, torch.bfloat16, torch.device("cuda"))
     tmp = tempfile.mkdtemp(dir=ROOT, prefix="_load_smoke_")
     try:
-        path = os.path.join(tmp, "sd15.safetensors")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        save_file(ldm_state_dict(pipe.unet, pipe.vae, tc.model), path)
-        write_s = time.perf_counter() - t0
-        nbytes = os.path.getsize(path)
-        os.makedirs(os.path.join(tmp, "tokenizer"))
-        vocab, _ = synth_vocab(49408)
-        with open(os.path.join(tmp, "tokenizer", "vocab.json"), "w", encoding="utf-8") as f:
-            _json.dump(vocab, f)
-        with open(os.path.join(tmp, "tokenizer", "merges.txt"), "w", encoding="utf-8") as f:
-            f.write("#version: 0.2\n")
+        path, nbytes, write_s, tc = _write_checkpoint(pipe, tmp)
         lora_path = os.path.join(tmp, "lora.safetensors")
         save_file(_kohya_lora(pipe.unet.state_dict(), LOAD_LORA_NAMES, 8,
                               torch.Generator().manual_seed(6)), lora_path)
@@ -3011,6 +3170,529 @@ def phase_load():
     del pipe, lpipe, tc, lcond
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------------- the CLI
+
+CLI_PROMPT = ("a lighthouse on a cliff at dusk, (dramatic sky:1.2)", "blurry, low quality")
+# config 2's settings as the CLI takes them (bench.py's config 2)
+CLI_TXT2IMG = ["-W", "2048", "-H", "512", "--steps", "20", "--cfg-scale", "7", "--sampler",
+               "Euler", "--tile-width", "96", "--tile-height", "96", "--overlap", "48",
+               "--tile-batch-size", "8", "--no-fast-decoder", "--vae-decoder-tile", "128",
+               "--bf16", "--seed", "7"]
+# config 3's settings (bench.py:345-377) as the CLI takes them
+CLI_IMG2IMG = ["--upscaler", "Lanczos", "--scale-factor", "4", "--method", "Mixture of Diffusers",
+               "--tile-width", "96", "--tile-height", "96", "--overlap", "8",
+               "--tile-batch-size", "8", "--noise-inverse", "--noise-inverse-steps", "10",
+               "--noise-inverse-renoise-strength", "1", "--denoising-strength", "0.4",
+               "--steps", "20", "--cfg-scale", "7", "--no-fast-encoder", "--no-fast-decoder",
+               "--vae-encoder-tile", "1024", "--vae-decoder-tile", "64", "--bf16", "--seed", "0"]
+CLI_STOP_AFTER = 10           # the interrupted run: the flag set after step 10
+
+
+def _write_checkpoint(pipe, tmp, clip_seed=3):
+    """Config 2's SD1.5 (``pipe``'s weights) and a random CLIP-L as one LDM
+    single file in ``tmp``, a char-level ``tokenizer/`` folder beside it.
+    Returns (path, bytes, the write's seconds, the CLIP's conditioner)."""
+    import torch
+
+    from mdu_tpu_torch.models.clip import clip_l_config
+    from mdu_tpu_torch.models.safetensors import save_file
+    from mdu_tpu_torch.models.single_file import ldm_state_dict
+
+    tc = _conditioner(clip_l_config(), clip_seed, torch.bfloat16, torch.device("cuda"))
+    path = os.path.join(tmp, "sd15.safetensors")
+    t0 = time.perf_counter()
+    save_file(ldm_state_dict(pipe.unet, pipe.vae, tc.model), path)
+    write_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(tmp, "tokenizer"))
+    vocab, _ = synth_vocab(49408)
+    with open(os.path.join(tmp, "tokenizer", "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tmp, "tokenizer", "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+    return path, os.path.getsize(path), write_s, tc
+
+
+def _run_cli_subprocess(argv, timeout=600):
+    """``python -m mdu_tpu_torch.cli *argv`` from the checkout, its standard
+    error read line by line with the time each line arrived. Returns
+    (seconds, [(t, line), ...]); fails on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "mdu_tpu_torch.cli", *argv], cwd=str(ROOT),
+                            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    lines = []
+    try:
+        for line in proc.stderr:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli subprocess exited {proc.returncode}: "
+            + " | ".join(l for _, l in lines[-5:]))
+    return seconds, lines
+
+
+def phase_cli():
+    """Config 2 through the command line, as a user runs it: config 2's
+    weights (random bf16) and a random CLIP-L written as one single file into
+    ``_cli_smoke_*/`` in the checkout (deleted afterwards), with a char-level
+    tokenizer beside it. ``python -m mdu_tpu_torch.cli txt2img`` at config
+    2's settings in a subprocess: its seconds to start, to load and to make
+    the image, and its ``perfcount`` line (peak device memory). Its PNG,
+    read back by the port's reader: 2048 x 512, the ``parameters`` infotext,
+    which ``cli.main(["info", ...])`` prints. In this process, the same file
+    loaded and the same image made with ``pipe.txt2img`` (the conds from
+    ``conditioner.pair``, seed 7) twice: the CLI's pixels within the card's
+    own spread (the two in-process images' difference), #1 200 and #2 1 an
+    image. Then an image interrupted by its step callback after step 10: #1
+    100, finite, ``"Interrupted": true`` in its infotext. Then
+    ``cli.main(["img2img", ...])`` at config 3's settings on a 512 x 512 PNG
+    the phase writes, on the pipeline loaded above (``cli._load`` returns
+    it): #1 570, #2 2, a 2048 x 2048 PNG."""
+    import argparse
+    import io
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mdu_tpu_torch import cli
+    from mdu_tpu_torch.models.single_file import load_single_file
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.utils.image import read_png, save_png
+
+    pipe, *_ = build_config2()
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix="_cli_smoke_")
+    saved_sigint = signal.getsignal(signal.SIGINT)
+    try:
+        path, nbytes, write_s, _ = _write_checkpoint(pipe, tmp)
+        del pipe
+        torch.cuda.empty_cache()
+        out_png = os.path.join(tmp, "out.png")
+        argv = (["txt2img", "--model-dir", path, "--prompt", CLI_PROMPT[0], "--negative",
+                 CLI_PROMPT[1], "--out", out_png] + CLI_TXT2IMG)
+        total_s, lines = _run_cli_subprocess(argv)
+        t_load = next(t for t, l in lines if l.startswith("loading checkpoint"))
+        perf = [(t, l) for t, l in lines if l.startswith("[Tiled Diffusion]: Done in")]
+        require(len(perf) == 1, f"cli: no perfcount line in {[l for _, l in lines]}")
+        t_done, perf_line = perf[0]
+        image_s = float(perf_line.split("Done in ")[1].split("s")[0])
+        require("peak device" in perf_line, f"cli: no peak memory in {perf_line!r}")
+        png = read_png(out_png)
+        require(png.size == (2048, 512) and png.mode == "RGB",
+                f"cli: PNG of {png.size} {png.mode}")
+        info = json.loads(png.text["parameters"])
+        want = {"Prompt": CLI_PROMPT[0], "Negative prompt": CLI_PROMPT[1], "Sampler": "Euler",
+                "Steps": 20, "CFG scale": 7.0, "Seed": 7}
+        require(all(info.get(k) == v for k, v in want.items())
+                and info["Tiled Diffusion"]["Tile tile width"] == 96
+                and info["Tiled Diffusion"]["Tile Overlap"] == 48,
+                f"cli: infotext {info}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["info", out_png])
+        require(buf.getvalue() == json.dumps(info, indent=2) + "\n", "cli: info printed "
+                + buf.getvalue()[:200])
+        signal.signal(signal.SIGINT, saved_sigint)
+
+        # the same image in this process
+        args = cli.build_parser().parse_args(argv)
+        td, tv, sp, _ = cli._configs(args)
+        t0 = time.perf_counter()
+        lpipe, lcond = load_single_file(path, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cond, uncond = lcond.pair(CLI_PROMPT[0], CLI_PROMPT[1], sp.steps)
+
+        def image(**kw):
+            res = lpipe.txt2img(cond, uncond, 2048, 512, sp, 7, tiled_diffusion=td,
+                                tiled_vae=tv, **kw)
+            torch.cuda.synchronize()
+            return res
+
+        reset_launches()
+        a = image()
+        launches = dict(LAUNCHES)
+        want_l = {k: EXPECTED_LAUNCHES.get(k, 0) for k in launches}
+        require(launches == want_l, f"cli: in-process launches {launches}, expected {want_l}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = image()
+        inproc_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        spread = int(np.abs(a.images.astype(int) - b.images.astype(int)).max())
+        pix = png.convert("RGB").astype(int)
+        diff = int(np.abs(pix - a.images[0].astype(int)).max())
+        mean_diff = float(np.abs(pix - a.images[0].astype(int)).mean())
+        require(diff <= spread, f"cli: the CLI's pixels differ from the in-process image by "
+                                f"{diff} levels (two in-process images: {spread})")
+
+        # interrupted by the step callback after step 10
+        def stop(i, x):
+            if i == CLI_STOP_AFTER - 1:
+                lpipe.interrupted = True
+
+        reset_launches()
+        try:
+            r = image(step_callback=stop)
+        finally:
+            interrupted = lpipe.interrupted
+            lpipe.interrupted = False
+        int_launches = dict(LAUNCHES)
+        want_i = {"flash_attention_fm": 10 * CLI_STOP_AFTER,
+                  "flash_attention_fm.sm90": 10 * CLI_STOP_AFTER,
+                  "flash_attention": 1, "flash_attention.wide": 1}
+        want_i = {k: want_i.get(k, 0) for k in int_launches}
+        require(int_launches == want_i, f"cli interrupted: launches {int_launches}, "
+                                        f"expected {want_i}")
+        require(bool(torch.isfinite(r.latents).all()), "cli interrupted: non-finite latents")
+        info_i = cli._with_prompt(argparse.Namespace(prompt=CLI_PROMPT[0],
+                                                     negative=CLI_PROMPT[1],
+                                                     _pipe=argparse.Namespace(
+                                                         interrupted=interrupted)), r.info)
+        require(info_i.get("Interrupted") is True, f"cli interrupted: infotext {info_i}")
+        del a, b, r
+
+        # img2img through cli.main at config 3's settings, on the pipeline
+        # loaded above from the same file (the CLI's loader, not run twice)
+        init = os.path.join(tmp, "init.png")
+        yy, xx = np.mgrid[0:512, 0:512]
+        save_png(init, np.stack([(yy // 2) % 256, (xx // 2) % 256, ((yy + xx) // 4) % 256],
+                                -1).astype(np.uint8))
+        out_i2i = os.path.join(tmp, "i2i.png")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        load = cli._load
+        cli._load = lambda args: (lpipe, lcond)
+        try:
+            with contextlib.redirect_stderr(err):
+                cli.main(["img2img", "--model-dir", path, "--init", init, "--prompt",
+                          CLI_PROMPT[0], "--negative", CLI_PROMPT[1], "--out", out_i2i]
+                         + CLI_IMG2IMG)
+        finally:
+            cli._load = load
+        torch.cuda.synchronize()
+        i2i_s = time.perf_counter() - t0
+        i2i_peak = torch.cuda.max_memory_allocated()
+        i2i_launches = dict(LAUNCHES)
+        want_3 = {k: EXPECTED_CONFIG3.get(k, 0) for k in i2i_launches}
+        require(i2i_launches == want_3, f"cli img2img: launches {i2i_launches}, expected {want_3}")
+        i2i = read_png(out_i2i)
+        require(i2i.size == (2048, 2048), f"cli img2img: PNG of {i2i.size}")
+        i2i_perf = [l for l in err.getvalue().splitlines() if l.startswith("[Tiled Diffusion]")]
+        del lpipe, lcond
+        torch.cuda.empty_cache()
+    finally:
+        signal.signal(signal.SIGINT, saved_sigint)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("cli", config="config 2 through `python -m mdu_tpu_torch.cli txt2img` (SD1.5 bf16 + "
+                       "random CLIP-L as one single file)",
+         file_bytes=nbytes, write_s=write_s, subprocess_s=total_s, startup_s=t_load,
+         load_and_image_s=t_done - t_load, image_s=image_s, load_s=t_done - t_load - image_s,
+         perfcount=perf_line, infotext=info, inprocess_load_s=load_s,
+         inprocess_seconds_per_image=inproc_s, inprocess_img_per_min=60.0 / inproc_s,
+         inprocess_peak_bytes=peak, pixel_max_abs_diff=diff, pixel_mean_abs_diff=mean_diff,
+         same_pipeline_pixel_spread=spread, launches=launches,
+         interrupted_after=CLI_STOP_AFTER, interrupted_launches=int_launches,
+         img2img_s=i2i_s, img2img_peak_bytes=i2i_peak, img2img_launches=i2i_launches,
+         img2img_perfcount=i2i_perf)
+    return {"txt2img": launches, "interrupted": int_launches, "img2img": i2i_launches}
+
+
+# ----------------------------------------------------------------- the layouts
+
+# config 2 under MDU_UNET_LAYOUT=NHWC with the four flags: #6 takes every
+# ResBlock conv the JAX planner fits, 36 a UNet call (NCHW's 16 and 20 above
+# 640 channels: 1280 -> 1280 at 16 x 24 and 8 x 12, 640 -> 1280, 1280 -> 640
+# and 960 -> 640 at 32 x 48); #4 never (JAX's NHWC GroupNorm is the plain one)
+EXPECTED_NHWC_FLAGGED = {"flash_attention_t": 200, "flash_attention_t.sm90": 200,
+                         "flash_attention": 1, "flash_attention.wide": 1,
+                         "fused_conv3x3": 720, "fused_conv3x3.sm90": 720,
+                         "fused_tile_blend": 20}
+LAYOUT_RUNS = (("NHWC", {"MDU_UNET_LAYOUT": "NHWC"}, EXPECTED_LAUNCHES),
+               ("NHWC flagged", {"MDU_UNET_LAYOUT": "NHWC", **FLAGS}, EXPECTED_NHWC_FLAGGED),
+               ("MDU_GN=fold", {"MDU_GN": "fold"}, EXPECTED_LAUNCHES),
+               ("MDU_GN=chanreduce", {"MDU_GN": "chanreduce"}, EXPECTED_LAUNCHES),
+               ("MDU_CONV_MM=9mm", {"MDU_CONV_MM": "9mm"}, EXPECTED_LAUNCHES),
+               ("MDU_CONV_MM=im2col", {"MDU_CONV_MM": "im2col"}, EXPECTED_LAUNCHES))
+
+
+def phase_layouts():
+    """Config 2 (bf16, random weights) under each of ``LAYOUT_RUNS`` against
+    the default: 1 warm and 1 timed image each, launches pinned (forms
+    included), img/min and peak memory. The NHWC pipeline's UNet is built
+    under ``MDU_UNET_LAYOUT=NHWC`` as the loaders build it, on the default
+    UNet's weights. Each setting's seed-0 latents against the default's
+    within 3 e + 1e-3 x max, e the default's own bf16 error (its max abs
+    difference from the fp32 latents of the same weights): the two are bf16
+    roundings of one fp32 computation, so their difference is at most the
+    sum of their errors, and a reordering may double its own."""
+    import torch
+
+    from mdu_tpu_torch import DiffusionPipeline
+    from mdu_tpu_torch.models import UNet2DCondition, default_unet_layout, sd15_unet_config
+    from mdu_tpu_torch.ops.conv_mm import mm_route
+
+    pipe, cond, uncond, sp, td, tv = build_config2()
+    with torch.device("meta"):
+        u32 = UNet2DCondition(sd15_unet_config(), dtype=torch.float32)
+    u32.load_state_dict({k: v.float() for k, v in pipe.unet.state_dict().items()}, assign=True)
+    p32 = DiffusionPipeline(u32, pipe.vae)
+    t0 = time.perf_counter()
+    ref32 = p32.txt2img(cond, uncond, width=CFG2["width"], height=CFG2["height"], sampler=sp,
+                        seed=0, tiled_diffusion=td, tiled_vae=tv, decode=False).latents.float()
+    torch.cuda.synchronize()
+    ref32_s = time.perf_counter() - t0
+    del p32, u32
+    torch.cuda.empty_cache()
+    kept = []
+    launches, base = run_config2(pipe, cond, uncond, sp, td, tv, EXPECTED_LAUNCHES, "default",
+                                 n=1, keep=kept)
+    default = kept.pop().latents.float()
+    own = (default - ref32).abs().max().item()
+    scale = ref32.abs().max().item()
+    bar = 3.0 * own + 1e-3 * scale
+    emit("layouts", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16", run="default",
+         flags={}, bf16_error_vs_fp32=own, fp32_reference_s=ref32_s, **base)
+    out = {"default": launches}
+    nhwc = None
+    for label, flags, expected in LAYOUT_RUNS:
+        with flags_set(flags):
+            run_pipe = pipe
+            if "MDU_UNET_LAYOUT" in flags:
+                if nhwc is None:
+                    layout = default_unet_layout()
+                    with torch.device("meta"):
+                        unet = UNet2DCondition(sd15_unet_config(), dtype=torch.bfloat16,
+                                               layout=layout)
+                    unet.load_state_dict(pipe.unet.state_dict(), assign=True)
+                    nhwc = DiffusionPipeline(unet, pipe.vae)
+                    require(nhwc.unet.layout == "NHWC", "layouts: the UNet is not channels-last")
+                run_pipe = nhwc
+            got_l, fields = run_config2(run_pipe, cond, uncond, sp, td, tv, expected, label, n=1,
+                                        keep=kept)
+            lat = kept.pop().latents.float()
+        diff = (lat - default).abs().max().item()
+        require(diff <= bar, f"layouts {label}: latents differ from the default's by {diff} > "
+                             f"{bar} (3 x the bf16 error {own} + 1e-3 x {scale})")
+        extra = {"mm_route": mm_route("cuda", torch.bfloat16)} if "MDU_CONV_MM" in flags else {}
+        emit("layouts", config="config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16",
+             run=label, flags=flags, latent_max_abs_diff=diff,
+             latent_mean_abs_diff=(lat - default).abs().mean().item(), bar=bar,
+             expected_launches=expected, default_img_per_min=base["img_per_min"], **extra,
+             **fields)
+        out[label] = got_l
+    del pipe, nhwc
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ this slice's tiny paths
+
+# a narrow UNet whose level 1 is wider than 640 channels: under NHWC the fused
+# conv takes 768 -> 768 and 1536 -> 768 there (NCHW stops at 640)
+WIDE_TINY_UNET = dict(block_out_channels=(64, 768), layers_per_block=1, cross_attention_dim=16,
+                      num_heads=8, transformer_layers=(0, 0), norm_num_groups=32)
+
+
+@contextlib.contextmanager
+def _tiny_factories():
+    """The config factories the single-file loader calls, pointed at the tiny
+    configs for a ``with`` block (the CLI has no config flags)."""
+    from mdu_tpu_torch.models import clip as clip_mod
+    from mdu_tpu_torch.models import unet as unet_mod
+    from mdu_tpu_torch.models import vae as vae_mod
+
+    tu, tv, tc = unet_mod.tiny_unet_config(), vae_mod.tiny_vae_config(), clip_mod.tiny_clip_config()
+    saved = [(unet_mod, "sd15_unet_config"), (vae_mod, "VAEConfig"), (clip_mod, "clip_l_config")]
+    old = [getattr(m, n) for m, n in saved]
+    unet_mod.sd15_unet_config = lambda: tu
+    vae_mod.VAEConfig = lambda **kw: tv
+    clip_mod.clip_l_config = lambda: tc
+    try:
+        yield tu, tv, tc
+    finally:
+        for (m, n), f in zip(saved, old):
+            setattr(m, n, f)
+
+
+@contextlib.contextmanager
+def _cpu_drawn_noise():
+    """``DiffusionPipeline.txt2img`` drawing its starting noise from a CPU
+    generator seeded with the seed for a ``with`` block, so that a card run
+    gets the CPU run's draws (a CUDA generator draws other numbers)."""
+    import torch
+
+    from mdu_tpu_torch.pipeline import DiffusionPipeline
+
+    orig = DiffusionPipeline.txt2img
+
+    def txt2img(self, cond, uncond, width=512, height=512, sampler=None, seed=0,
+                tiled_diffusion=None, tiled_vae=None, region_conds=(), **kw):
+        noise = torch.randn((1, self.unet.cfg.out_channels, height // 8, width // 8),
+                            generator=torch.Generator().manual_seed(seed))
+        return self._txt2img_from_noise(noise, cond, uncond, sampler, seed, tiled_diffusion,
+                                        tiled_vae, region_conds=region_conds, **kw)
+
+    DiffusionPipeline.txt2img = txt2img
+    try:
+        yield
+    finally:
+        DiffusionPipeline.txt2img = orig
+
+
+def _tiny_cli(tmp):
+    """The tiny pipeline and the tiny CLIP (random fp32 weights drawn on the
+    CPU) as one single file (no tokenizer beside it: the loader's hash
+    tokenizer, of the tiny CLIP's length), and the CLI's txt2img on it, on
+    the card and on the CPU, its noise drawn on the CPU for both: (png on
+    cuda, png on cpu)."""
+    import signal
+
+    import torch
+
+    from mdu_tpu_torch import cli
+    from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
+                                      tiny_unet_config, tiny_vae_config)
+    from mdu_tpu_torch.models.clip import CLIPTextModel, tiny_clip_config
+    from mdu_tpu_torch.models.safetensors import save_file
+    from mdu_tpu_torch.models.single_file import ldm_state_dict
+
+    unet = UNet2DCondition(tiny_unet_config())
+    unet.load_state_dict(random_state_dict(unet, 0, device="cpu"))
+    vae = AutoencoderKL(tiny_vae_config())
+    vae.load_state_dict(random_state_dict(vae, 1, device="cpu"))
+    clip = CLIPTextModel(tiny_clip_config())
+    clip.load_state_dict(_clip_weights(clip, 3, torch.float32, "cpu"))
+    path = os.path.join(tmp, "tiny.safetensors")
+    save_file(ldm_state_dict(unet, vae, clip), path)
+    saved = signal.getsignal(signal.SIGINT)
+    outs = {}
+    try:
+        with _tiny_factories(), _cpu_drawn_noise():
+            for dev in ("cuda", "cpu"):
+                outs[dev] = os.path.join(tmp, f"{dev}.png")
+                cli.main(["txt2img", "--model-dir", path, "--prompt", "a (red:1.3) cat",
+                          "--negative", "dog", "-W", "512", "-H", "256", "--steps", "3",
+                          "--tile-width", "32", "--tile-height", "32", "--overlap", "16",
+                          "--tile-batch-size", "3", "--no-fast-decoder",
+                          "--vae-decoder-tile", "32", "--seed", "3", "--device", dev,
+                          "--out", outs[dev]])
+    finally:
+        signal.signal(signal.SIGINT, saved)
+    return outs["cuda"], outs["cpu"]
+
+
+def _wide_unet(device, dtype, fused_shapes=None):
+    """``WIDE_TINY_UNET`` (random weights drawn on the CPU) built under
+    ``MDU_UNET_LAYOUT=NHWC`` and run under ``MDU_FUSED_CONV=1`` on a [2, 4,
+    16, 16] latent; ``fused_shapes`` collects the (C, Co) of every conv that
+    takes the fused path. Returns the output on the CPU in fp32."""
+    import torch
+
+    from mdu_tpu_torch.models import UNet2DCondition, UNetConfig, random_state_dict
+    from mdu_tpu_torch.models.layers import Conv2D
+    from mdu_tpu_torch.models.unet import default_unet_layout
+
+    with flags_set({"MDU_UNET_LAYOUT": "NHWC", "MDU_FUSED_CONV": "1"}):
+        unet = UNet2DCondition(UNetConfig(**WIDE_TINY_UNET), dtype=dtype,
+                               layout=default_unet_layout())
+        unet.load_state_dict(random_state_dict(unet, 5, dtype, device="cpu"))
+        unet = unet.to(device).to(memory_format=torch.channels_last).eval()
+        if fused_shapes is not None:
+            def hook(m, args, kwargs):
+                if kwargs.get("scale") is not None and m._fused_ok(args[0]):
+                    fused_shapes.append(tuple(m.weight.shape[:2][::-1]))
+            for m in unet.modules():
+                if isinstance(m, Conv2D):
+                    m.register_forward_pre_hook(hook, with_kwargs=True)
+        gen = torch.Generator().manual_seed(6)
+        x = torch.randn(2, 4, 16, 16, generator=gen)
+        ctx = torch.randn(2, 7, 16, generator=gen)
+        with torch.no_grad():
+            y = unet(x.to(device), torch.tensor([20.0, 600.0], device=device),
+                     ctx.to(device, dtype))
+    return y.float().cpu()
+
+
+def phase_reference_cli():
+    """This slice's tiny paths on the card against the CPU: the CLI's tiny
+    txt2img (fp32, the PNGs within 1 uint8 level: fp32's 1e-4 of the
+    largest value, rounded, the infotexts equal; #1 launched); the wide tiny
+    UNet under NHWC with #6 on (fp32 and bf16 at the usual bars; every conv
+    the fused path takes launches #6, some of them wider than 640 channels);
+    ``conv3x3_mm`` in both modes and layouts, fp32 and bf16, at the usual
+    bars, with the route of its bf16 products on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mdu_tpu_torch.ops.conv_mm import conv3x3_mm, mm_route
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.utils.image import read_png
+
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix="_cli_smoke_")
+    try:
+        reset_launches()
+        card, cpu = _tiny_cli(tmp)
+        launches = dict(LAUNCHES)
+        a, b = read_png(card), read_png(cpu)
+        diff = int(np.abs(a.pixels.astype(int) - b.pixels.astype(int)).max())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(launches.get("flash_attention_fm_f32", 0) > 0, f"tiny CLI: launches {launches}")
+    require(a.size == b.size == (512, 256) and diff <= 1,
+            f"tiny CLI: card and CPU PNGs differ by {diff} levels")
+    require(a.text == b.text, "tiny CLI: the infotexts differ")
+    emit("reference", dtype="float32", pipeline="tiny CLI txt2img", flags={},
+         launches=launches, pixel_max_abs_diff=diff, tol=1)
+
+    ref = _wide_unet("cpu", torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        own = None if dtype == torch.float32 else {
+            "out": (_wide_unet("cpu", dtype) - ref).abs().max().item()}
+        shapes = []
+        reset_launches()
+        got = _wide_unet("cuda", dtype, shapes)
+        launches = dict(LAUNCHES)
+        key = "fused_conv3x3" if dtype == torch.bfloat16 else "fused_conv3x3_f32"
+        require(launches.get(key, 0) == len(shapes) > 0
+                and any(max(s) > 640 for s in shapes),
+                f"wide tiny UNet {dtype}: {key} {launches.get(key, 0)}, fused convs {shapes}")
+        fields = _hold_parts("wide tiny UNet NHWC", {"out": got}, {"out": ref}, own, dtype)
+        emit("reference", dtype=_dtype_name(dtype), pipeline="wide tiny UNet, NHWC",
+             flags={"MDU_UNET_LAYOUT": "NHWC", "MDU_FUSED_CONV": "1"}, launches=launches,
+             fused_shapes=sorted(set(shapes)), **fields)
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 320, 32, 48, generator=gen)
+    w = torch.randn(640, 320, 3, 3, generator=gen) / (9 * 320) ** 0.5
+    for mode in ("9mm", "im2col"):
+        for layout in ("NCHW", "NHWC"):
+            xl = x if layout == "NCHW" else x.permute(0, 2, 3, 1).contiguous()
+            ref = conv3x3_mm(xl, w, mode, layout)
+            for dtype in (torch.float32, torch.bfloat16):
+                own = None if dtype == torch.float32 else {"out": (conv3x3_mm(
+                    xl.to(dtype), w.to(dtype), mode, layout).float() - ref).abs().max().item()}
+                got = conv3x3_mm(xl.to("cuda", dtype), w.to("cuda", dtype), mode, layout)
+                fields = _hold_parts(f"conv3x3_mm {mode} {layout}", {"out": got.float().cpu()},
+                                     {"out": ref}, own, dtype)
+                emit("reference", dtype=_dtype_name(dtype), pipeline=f"conv3x3_mm {mode} {layout}",
+                     flags={}, shape=[2, 320, 32, 48, 640],
+                     route=mm_route("cuda", dtype), **fields)
 
 
 def phase_stream8k():
@@ -3168,9 +3850,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,reference,txt2img,samplers,deepcache,unclip,prompts,load,"
-                            "img2img,adapters,stream,regional,upscale8k,demofusion",
-                    help="comma-separated phases after device and build (stream8k runs "
-                         "only when named)")
+                            "cli,layouts,img2img,adapters,stream,regional,upscale8k,"
+                            "demofusion",
+                    help="comma-separated phases after device and build (stream8k and "
+                         "reference_cli, a part of reference, run only when named)")
     phases = set(ap.parse_args().phases.split(","))
     try:
         import torch
@@ -3204,42 +3887,59 @@ def main() -> int:
          ptxas={k: v["ptxas"] for k, v in report.items()})
 
     checks, launches = {}, {}
+    phase_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+
     if "kernels" in phases:
-        checks = phase_kernels()
+        checks = timed("kernels", phase_kernels)
         emit("kernels", kernels={k: [dict(shape=c["shape"], dtype=c["dtype"],
                                           max_abs_err=c["max_abs_err"], tol=c["tol"])
                                      for c in v] for k, v in checks.items()})
     if "reference" in phases:
-        phase_reference()
-        phase_reference_slice()
-        phase_reference_adapters()
+        with _cpu_pool() as pool:
+            timed("reference", lambda: phase_reference(pool))
+            timed("reference_slice", phase_reference_slice)
+            timed("reference_adapters", lambda: phase_reference_adapters(pool))
+    if "reference" in phases or "reference_cli" in phases:
+        timed("reference_cli", phase_reference_cli)
     if "txt2img" in phases:
-        launches = phase_txt2img()
+        launches = timed("txt2img", phase_txt2img)
     if "samplers" in phases:
-        phase_samplers()
+        timed("samplers", phase_samplers)
     slice_runs = {}
     if "deepcache" in phases:
-        slice_runs["deepcache"] = phase_deepcache()
+        slice_runs["deepcache"] = timed("deepcache", phase_deepcache)
     if "unclip" in phases:
-        slice_runs["unclip"] = {"unclip": phase_unclip()}
+        slice_runs["unclip"] = {"unclip": timed("unclip", phase_unclip)}
     if "prompts" in phases:
-        slice_runs["prompts"] = phase_prompts()
+        slice_runs["prompts"] = timed("prompts", phase_prompts)
     if "load" in phases:
-        slice_runs["load"] = {"loaded": phase_load()}
-    config3 = phase_img2img() if "img2img" in phases else None
+        slice_runs["load"] = {"loaded": timed("load", phase_load)}
+    if "cli" in phases:
+        slice_runs["cli"] = timed("cli", phase_cli)
+    if "layouts" in phases:
+        slice_runs["layouts"] = timed("layouts", phase_layouts)
+    config3 = timed("img2img", phase_img2img) if "img2img" in phases else None
     if "adapters" in phases:
-        slice_runs["adapters"] = phase_adapters()
+        slice_runs["adapters"] = timed("adapters", phase_adapters)
     if "stream" in phases:
-        slice_runs["stream"] = phase_stream()
-    config4 = phase_regional() if "regional" in phases else None
-    up8k = phase_upscale8k() if "upscale8k" in phases else None
+        slice_runs["stream"] = timed("stream", phase_stream)
+    config4 = timed("regional", phase_regional) if "regional" in phases else None
+    up8k = timed("upscale8k", phase_upscale8k) if "upscale8k" in phases else None
     if "stream8k" in phases:
-        slice_runs["stream8k"] = {"decode": phase_stream8k()}
-    config5 = phase_demofusion() if "demofusion" in phases else None
+        slice_runs["stream8k"] = {"decode": timed("stream8k", phase_stream8k)}
+    config5 = timed("demofusion", phase_demofusion) if "demofusion" in phases else None
     if config5 is not None:
         slice_runs["demofusion_deepcache"] = {"x2": config5.pop("deepcache x2")}
 
-    emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases))
+    emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases),
+         phase_seconds=phase_s)
     print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4,
                                              config5, slice_runs)}))
     print(smi)

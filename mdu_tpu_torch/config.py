@@ -6,6 +6,7 @@ img2img upscaling and DemoFusion paths read, with the same names and defaults.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 from dataclasses import dataclass, field
@@ -35,6 +36,9 @@ class TiledDiffusionConfig:
     scale_factor: float = 2.0
     # regional prompt control; without regions the grid is always drawn
     draw_background: bool = True
+    # the reference's causal-layers knob, carried as the JAX package carries
+    # it (``mdu_tpu/config.py:42``): nothing reads it
+    causal_layers: bool = False
     regions: List[RegionSpec] = field(default_factory=list)
     # noise inversion (img2img only)
     noise_inverse: bool = False
@@ -45,6 +49,14 @@ class TiledDiffusionConfig:
     # pad every tile UNet batch to exactly tile_bs (same call shape for
     # every batch)
     deterministic: bool = False
+
+    def validate(self) -> "TiledDiffusionConfig":
+        """A copy with the overlap clamped below the tile size
+        (``mdu_tpu/config.py:67-71``)."""
+        from .utils.grid import clamp_overlap
+
+        return dataclasses.replace(self, overlap=clamp_overlap(self.tile_w, self.tile_h,
+                                                               self.overlap))
 
 
 @dataclass

@@ -1,12 +1,21 @@
 """Shared building blocks (counterpart of ``mdu_tpu/models/layers.py``).
 
 Parameters keep torch names and layouts, as the JAX package does: conv
-``weight`` OIHW, linear ``weight`` [out, in]. Activations are NCHW. Each
-module computes in its ``dtype``: inputs and weights are cast to it, while
-GroupNorm and LayerNorm compute their statistics in fp32. ``Conv2D`` and
-``GroupNorm`` take the fused kernels under the JAX package's flags
+``weight`` OIHW, linear ``weight`` [out, in]. Activations have NCHW shape.
+Each module computes in its ``dtype``: inputs and weights are cast to it,
+while GroupNorm and LayerNorm compute their statistics in fp32. ``Conv2D``
+and ``GroupNorm`` take the fused kernels under the JAX package's flags
 ``MDU_FUSED_CONV`` and ``MDU_FUSED_GN`` (``flags.py``), on the same layers
-as the JAX package does.
+as the JAX package does; ``Conv2D`` takes ``conv3x3_mm`` under
+``MDU_CONV_MM`` after the fused path (``mdu_tpu/models/layers.py:126-166``).
+
+``layout`` is the activations' memory format: ``NCHW`` (contiguous) or
+``NHWC`` (``torch.channels_last``, the JAX package's channels-last UNet,
+``MDU_UNET_LAYOUT``). Shapes and parameters are the same in both. Under
+NHWC the fused conv takes any channel count the JAX planner fits (NCHW: at
+most 640, JAX's ``layers.py:131``) and the permutes around it are views;
+GroupNorm is always the plain per-sample norm, never #4 (JAX's NHWC branch,
+``layers.py:231-243``).
 """
 from __future__ import annotations
 
@@ -18,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import flags
-from ..ops.groupnorm import GroupNormStats, apply_group_norm, group_norm_affine, group_stats
+from ..ops.conv_mm import conv3x3_mm
+from ..ops.groupnorm import (GroupNormStats, apply_group_norm, group_norm_affine,
+                             group_norm_affine_nhwc, group_norm_nhwc, group_stats)
 from ..ops.kernels import (conv3x3_plan_fits, fused_conv3x3, fused_group_norm,
                            pack_conv3x3_weight)
 from ..ops.tile_context import TileContext, tile_group_norm
@@ -41,8 +52,10 @@ class Conv2D(nn.Module):
                  kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
                  padding: Union[int, Sequence[Tuple[int, int]]] = 1,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 layout: str = "NCHW"):
         super().__init__()
+        self.layout = layout
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
@@ -55,7 +68,8 @@ class Conv2D(nn.Module):
         Co, C, kh, kw = self.weight.shape
         H, W = x.shape[2], x.shape[3]
         return ((kh, kw) == (3, 3) and self.strides == (1, 1) and self.padding == 1
-                and H * W >= 64 and max(C, Co) <= 640 and flags.fused_conv()
+                and H * W >= 64 and (self.layout == "NHWC" or max(C, Co) <= 640)
+                and flags.fused_conv()
                 and conv3x3_plan_fits(H, W, C, Co))
 
     def _packed_weight(self):
@@ -68,11 +82,12 @@ class Conv2D(nn.Module):
 
     def forward(self, x, scale=None, shift=None):
         if scale is not None and self._fused_ok(x):
-            xh = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()        # NHWC
+            # NHWC memory: the permute is a view and contiguous() copies nothing
+            xh = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
             wh = self.weight.to(self.dtype).permute(2, 3, 1, 0)           # HWIO
             y = fused_conv3x3(xh, wh, scale, shift, fuse_act=True,
                               packed=self._packed_weight()).permute(0, 3, 1, 2)
-            if self.bias is not None:
+            if self.bias is not None:                   # keeps y's memory format
                 y = y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
             return y
         if scale is not None:
@@ -81,6 +96,14 @@ class Conv2D(nn.Module):
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         b = self.bias.to(self.dtype) if self.bias is not None else None
+        mm = flags.conv_mm_mode()
+        if (mm and tuple(w.shape[2:]) == (3, 3) and self.strides == (1, 1)
+                and self.padding == 1):
+            if self.layout == "NHWC":
+                y = conv3x3_mm(x.permute(0, 2, 3, 1), w, mm, "NHWC").permute(0, 3, 1, 2)
+            else:
+                y = conv3x3_mm(x, w, mm, "NCHW")
+            return y if b is None else y + b.reshape(1, -1, 1, 1)
         if isinstance(self.padding, int):
             return F.conv2d(x, w, b, stride=self.strides, padding=self.padding)
         (top, bottom), (left, right) = self.padding
@@ -118,11 +141,15 @@ class GroupNorm(nn.Module):
     5. per sample, or pooled across the lockstep-batched tiles of a
        ``TileContext``.
 
-    So a norm with injected or captured statistics never runs the kernel."""
+    So a norm with injected or captured statistics never runs the kernel.
+    Under ``layout="NHWC"`` (the channels-last UNet) it is the per-sample
+    norm of ``group_norm_nhwc`` (or its folded affine), whatever the flags:
+    the pooled and injected modes are the VAE's, which stays NCHW."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, layout: str = "NCHW"):
         super().__init__()
+        self.layout = layout
         self.num_groups = num_groups
         self.eps = eps
         self.dtype = dtype
@@ -131,6 +158,14 @@ class GroupNorm(nn.Module):
 
     def forward(self, x, ctx: Optional[TileContext] = None, affine_only: bool = False,
                 stats: Optional[GroupNormStats] = None):
+        if self.layout == "NHWC":
+            if ctx is not None or stats is not None:
+                raise ValueError("a channels-last GroupNorm takes per-sample statistics only")
+            if affine_only:
+                return group_norm_affine_nhwc(x, self.num_groups, self.weight, self.bias,
+                                              self.eps)
+            return group_norm_nhwc(x, self.num_groups, self.weight, self.bias,
+                                   self.eps).to(self.dtype)
         if affine_only:
             if ctx is not None or stats is not None:
                 raise ValueError("affine_only takes per-sample statistics only")

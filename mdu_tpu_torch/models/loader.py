@@ -359,7 +359,8 @@ def load_pipeline(model_dir: str, dtype: torch.dtype = torch.float32, schedule=N
         _read_json(os.path.join(model_dir, "text_encoder", "config.json")),
         clip_skip=2 if is_sdxl else 1, ln_penultimate=not is_sdxl)
     with torch.device("meta"):
-        unet = unet_mod.UNet2DCondition(ucfg, dtype=dtype)
+        unet = unet_mod.UNet2DCondition(ucfg, dtype=dtype,
+                                        layout=unet_mod.default_unet_layout())
         vae = vae_mod.AutoencoderKL(vcfg, dtype=dtype)
         clip = clip_mod.CLIPTextModel(ccfg, dtype=dtype)
 

@@ -335,7 +335,8 @@ def load_single_file(path: str, dtype: Optional[torch.dtype] = None, schedule=No
         c_state = strip("conditioner.embedders.0.transformer.")
     ccfg = clip_config or ccfg
     with torch.device("meta"):
-        unet = unet_mod.UNet2DCondition(ucfg, dtype=dtype)
+        unet = unet_mod.UNet2DCondition(ucfg, dtype=dtype,
+                                        layout=unet_mod.default_unet_layout())
         vae = vae_mod.AutoencoderKL(vcfg, dtype=dtype)
         clip = clip_mod.CLIPTextModel(ccfg, dtype=dtype)
     load_module(unet, u_state, translate_unet_name, dtype, device)

@@ -14,6 +14,15 @@ DeepCache (arXiv 2312.00858): ``cache_mode="write"`` also returns the
 activation that enters the last ``cache_branch`` up-levels; ``"read"`` runs
 only conv_in, the first ``cache_branch`` down levels and those up-levels,
 resuming from that cached activation (``mdu_tpu/models/unet.py:290-429``).
+
+``layout="NHWC"`` (``MDU_UNET_LAYOUT=NHWC`` through ``default_unet_layout``,
+which the loaders read) runs the network on ``torch.channels_last``
+activations: the input is converted once at entry and the output once at
+exit (JAX's two transposes), ControlNet residuals once at their add sites;
+the shapes, the ``state_dict`` and the call contract are those of NCHW. The
+token reshapes around attention are views, and so are the permutes around
+the fused conv, which takes every channel count the JAX planner fits. The
+DeepCache feature stays channels-last, as JAX's is NHWC.
 """
 from __future__ import annotations
 
@@ -81,6 +90,13 @@ def sdxl_unet_config() -> UNetConfig:
         block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
         num_heads=None, head_dim=64, transformer_layers=(0, 2, 10),
         use_linear_projection=True, addition_embed_type="text_time")
+
+
+def default_unet_layout() -> str:
+    """The layout of a newly built UNet: ``MDU_UNET_LAYOUT`` (``NCHW`` by
+    default, or ``NHWC``; any other value raises), as
+    ``mdu_tpu/models/unet.py:87-101`` reads it."""
+    return flags.unet_layout()
 
 
 def tiny_unet_config() -> UNetConfig:
@@ -167,16 +183,23 @@ class Transformer2D(nn.Module):
     def forward(self, x, context):
         B, C, H, W = x.shape
         h = self.norm(x)
-        if self.linear:
-            h = self.proj_in(h.reshape(B, C, H * W).transpose(1, 2))
+        if self.norm.layout == "NHWC":
+            # channels-last: the token reshapes are views
+            def to_tokens(t):
+                return t.permute(0, 2, 3, 1).reshape(B, H * W, C)
+
+            def from_tokens(t):
+                return t.reshape(B, H, W, C).permute(0, 3, 1, 2)
         else:
-            h = self.proj_in(h).reshape(B, C, H * W).transpose(1, 2)
+            def to_tokens(t):
+                return t.reshape(B, C, H * W).transpose(1, 2)
+
+            def from_tokens(t):
+                return t.transpose(1, 2).reshape(B, C, H, W)
+        h = self.proj_in(to_tokens(h)) if self.linear else to_tokens(self.proj_in(h))
         for d in range(self.depth):
             h = getattr(self, f"block_{d}")(h, context)
-        if self.linear:
-            h = self.proj_out(h).transpose(1, 2).reshape(B, C, H, W)
-        else:
-            h = self.proj_out(h.transpose(1, 2).reshape(B, C, H, W))
+        h = from_tokens(self.proj_out(h)) if self.linear else self.proj_out(from_tokens(h))
         return x + h
 
 
@@ -231,16 +254,24 @@ class Upsample2D(nn.Module):
             # jax.image.resize(..., "nearest")
             x = F.interpolate(x, size=tuple(int(s) for s in out_size),
                               mode="nearest-exact")
+            if self.conv.layout == "NHWC":
+                x = x.contiguous(memory_format=torch.channels_last)
+        elif self.conv.layout == "NHWC":
+            xh = x.permute(0, 2, 3, 1)
+            x = xh.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2).permute(0, 3, 1, 2)
         else:
             x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         return self.conv(x)
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
+                 layout: str = "NCHW"):
         super().__init__()
         if cfg.addition_embed_type not in (None, "text_time"):
             raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
+        if layout not in ("NCHW", "NHWC"):
+            raise ValueError(f"layout must be NCHW or NHWC, got {layout!r}")
         self.cfg = cfg
         self.dtype = dtype
         bc = cfg.block_out_channels
@@ -293,6 +324,10 @@ class UNet2DCondition(nn.Module):
 
         self.norm_out = GroupNorm(ch, g, eps=1e-5, dtype=dtype)
         self.conv_out = Conv2D(ch, cfg.out_channels, dtype=dtype)
+        self.layout = layout
+        for m in self.modules():
+            if isinstance(m, (Conv2D, GroupNorm)):
+                m.layout = layout
 
     def forward(self, x, timesteps, context, added_cond: Optional[dict] = None,
                 residuals: Optional[tuple] = None, cache: Optional[torch.Tensor] = None,
@@ -323,6 +358,9 @@ class UNet2DCondition(nn.Module):
             lab = added_cond["adm"].to(temb.dtype)
             temb = temb + self.label_embed_2(silu(self.label_embed_1(lab)))
 
+        nhwc = self.layout == "NHWC"
+        if nhwc:
+            x = x.contiguous(memory_format=torch.channels_last)
         h = self.conv_in(x)
         skips = [h]
         for i in range(cache_branch if read else L):
@@ -339,10 +377,13 @@ class UNet2DCondition(nn.Module):
 
         if residuals is not None:
             down_res, mid_res = residuals
+            if nhwc:                        # the adapters' residuals come NCHW
+                down_res = [r.contiguous(memory_format=torch.channels_last) for r in down_res]
+                mid_res = mid_res.contiguous(memory_format=torch.channels_last)
             skips = [s + r for s, r in zip(skips, down_res)]
 
         if read:
-            h = cache
+            h = cache.contiguous(memory_format=torch.channels_last) if nhwc else cache
         else:
             h = self.mid_res_0(h, temb)
             h = self.mid_attn(h, context)
@@ -366,6 +407,8 @@ class UNet2DCondition(nn.Module):
 
         h = self.norm_out(h)
         out = self.conv_out(silu(h))
+        if nhwc:
+            out = out.contiguous()
         return (out, feature) if cache_mode == "write" else out
 
 

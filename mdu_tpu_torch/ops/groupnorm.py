@@ -7,6 +7,13 @@
 * ``group_norm_affine`` the same statistics folded into a per-(batch,
                         channel) fp32 (a, b) with group_norm(x) = x * a + b,
                         for a consumer that fuses the normalisation;
+* ``group_norm_fold`` / ``group_norm_chanreduce``  the plain GroupNorm as
+                        per-channel moments and that folded affine
+                        (``MDU_GN=fold|chanreduce``);
+* ``group_norm_nhwc`` / ``group_norm_affine_nhwc`` the same on the
+                        channels-last UNet's activations (a tensor of NCHW
+                        shape in ``torch.channels_last`` memory; the result
+                        keeps it);
 * ``GroupNormStats``    statistics recorded by one call and injected into
                         another (the JAX package's ``gn_stats`` collection).
 """
@@ -63,8 +70,9 @@ def group_norm(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
 
 
 def group_norm_affine(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
-    """Folded GroupNorm affine of an NCHW tensor: per-(batch, channel) fp32
-    (a, b), each [B, C], with group_norm(x) == x * a + b."""
+    """Folded GroupNorm affine of an NCHW-shaped tensor in either memory
+    format (no reshape of ``x``): per-(batch, channel) fp32 (a, b), each [B,
+    C], with group_norm(x) == x * a + b."""
     B, C, H, W = x.shape
     G = num_groups
     xf = x.float()
@@ -82,6 +90,35 @@ def group_norm_affine(x, num_groups: int, weight=None, bias=None, eps: float = 1
     a_c = rstd_c * w[None, :]
     b_c = b[None, :] - mu_c * a_c
     return a_c, b_c
+
+
+def group_norm_fold(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
+    """GroupNorm as the folded affine applied in one elementwise pass, x * a +
+    b in fp32, rounded to x's dtype (``MDU_GN=fold``; JAX keeps every fp32
+    value inside its fusions this way, ``mdu_tpu/ops/groupnorm.py:123``)."""
+    a_c, b_c = group_norm_affine(x, num_groups, weight, bias, eps)
+    return (x.float() * a_c[:, :, None, None] + b_c[:, :, None, None]).to(x.dtype)
+
+
+def group_norm_chanreduce(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
+    """GroupNorm from per-channel moments pooled on the [B, C] pair, then the
+    folded affine (``MDU_GN=chanreduce``, ``mdu_tpu/ops/groupnorm.py:235``).
+    The JAX package's ``fold`` and ``chanreduce`` differ only in how XLA
+    fuses them; eager PyTorch runs both as ``group_norm_fold``."""
+    return group_norm_fold(x, num_groups, weight, bias, eps)
+
+
+def group_norm_nhwc(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
+    """The channels-last UNet's GroupNorm (``mdu_tpu/ops/groupnorm.py:177``):
+    per-channel moments, the folded affine, one elementwise pass. ``x`` has
+    NCHW shape in ``torch.channels_last`` memory, and so has the result."""
+    return group_norm_fold(x, num_groups, weight, bias, eps)
+
+
+def group_norm_affine_nhwc(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6):
+    """The folded (a, b) of a channels-last ``x`` for the fused conv
+    (``mdu_tpu/ops/groupnorm.py:201``)."""
+    return group_norm_affine(x, num_groups, weight, bias, eps)
 
 
 class GroupNormStats:

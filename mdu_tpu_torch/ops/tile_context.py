@@ -12,7 +12,9 @@ from typing import Optional
 
 import torch
 
-from .groupnorm import apply_group_norm, group_norm, group_stats
+from .. import flags
+from .groupnorm import (apply_group_norm, group_norm, group_norm_chanreduce, group_norm_fold,
+                        group_stats)
 
 
 @dataclass(frozen=True)
@@ -40,8 +42,15 @@ class TileContext:
 def tile_group_norm(x, num_groups: int, weight, bias,
                     ctx: Optional[TileContext], eps: float = 1e-6):
     """GroupNorm whose statistics pool across the tile axis when ``ctx`` is
-    given. ``x`` is [(T*B), C, h, w], tile index major."""
+    given. ``x`` is [(T*B), C, h, w], tile index major. Without a context it
+    is the plain per-sample GroupNorm in the formulation ``MDU_GN`` names
+    (``mdu_tpu/ops/tile_context.py:65-78``)."""
     if ctx is None:
+        mode = flags.gn_mode()
+        if mode == "chanreduce":
+            return group_norm_chanreduce(x, num_groups, weight, bias, eps)
+        if mode == "fold":
+            return group_norm_fold(x, num_groups, weight, bias, eps)
         return group_norm(x, num_groups, weight, bias, eps)
 
     TB, C, h, w = x.shape

@@ -39,10 +39,18 @@ and the noise of the stochastic samplers comes from a generator seeded with
 seed's key for the same draws). DemoFusion's phase ``s`` draws its noise
 from a generator seeded with ``derived_seed(seed, 100 + s)``.
 
+Step callbacks: ``txt2img`` and ``img2img`` take ``step_callback(i, x)``,
+which every sampler calls after each step (``samplers/samplers.py``).
+Interruption: setting ``pipe.interrupted`` (from a callback, a signal
+handler or another thread) makes every denoiser return ``x`` unchanged and
+run no UNet from the next call on (a DeepCache denoiser keeps its caches as
+they are), so the run ends with the partial latent, which is decoded as
+usual; DemoFusion also stops between phases. Callers clear the flag before
+they reuse the pipeline (``mdu_tpu/pipeline.py:595-628``).
+
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
-Features of ``mdu_tpu`` that the port does not have yet (step callbacks, the
-multi-device mesh) raise ``NotImplementedError`` naming the ROADMAP item they
-wait for.
+The multi-device mesh of ``mdu_tpu`` is not ported yet and raises
+``NotImplementedError`` naming the ROADMAP item it waits for.
 """
 from __future__ import annotations
 
@@ -178,6 +186,10 @@ class DiffusionPipeline:
             raise _unported("the multi-device mesh (ROADMAP queue 1, item 22)")
         self.device = resolve_device(device)
         self.unet = unet.to(self.device).eval()
+        if getattr(unet, "layout", "NCHW") == "NHWC":
+            # the channels-last UNet's conv weights in the same memory format,
+            # so that cuDNN converts none of them at every call
+            self.unet.to(memory_format=torch.channels_last)
         self.vae = vae.to(self.device).eval()
         self.controlnet = controlnet.to(self.device).eval() if controlnet is not None else None
         self.guidance_model = (guidance_model.to(self.device).eval()
@@ -190,6 +202,9 @@ class DiffusionPipeline:
         # the tiled VAE's mode in the last encode or decode: "untiled", "fast",
         # "lockstep", "stream-device" or "stream-host"
         self.last_vae_mode: Optional[str] = None
+        # cooperative interruption (ref state.interrupted checks): read by every
+        # denoiser call and by DemoFusion between phases
+        self.interrupted = False
 
     # ------------------------------------------------------------ denoisers
 
@@ -443,7 +458,7 @@ class DiffusionPipeline:
 
         if plan is None:
             fn = lambda x, sigma, step: run(x, sigma, cond_f(step), u_at(step), 0, step)  # noqa: E731
-            return fn if caches is None else mark_deepcache(fn)
+            return self._interruptible(fn if caches is None else mark_deepcache(fn))
         hw = (plan.h, plan.w)
         if len(region_conds) < len(plan.regions):
             raise ValueError(f"{len(plan.regions)} regions need as many (cond, uncond) "
@@ -465,7 +480,19 @@ class DiffusionPipeline:
 
         fn = make_tiled_denoiser(plan, tile_denoise, region_denoise,
                                  stateful=caches is not None)
-        return fn if caches is None else mark_deepcache(fn)
+        return self._interruptible(fn if caches is None else mark_deepcache(fn))
+
+    def _interruptible(self, fn):
+        """``fn`` that returns ``x`` unchanged, running nothing, once
+        ``self.interrupted`` is set (``mdu_tpu/pipeline.py:595-628``); a
+        DeepCache denoiser stays marked and keeps its caches as they are."""
+
+        def wrapped(x, sigma, step):
+            if self.interrupted:
+                return x
+            return fn(x, sigma, step)
+
+        return mark_deepcache(wrapped) if getattr(fn, "deepcache", False) else wrapped
 
     def _deepcache_aux(self, plan: Optional[DiffusionTilePlan], cond, uncond,
                        cfg_scale: float, branch: int, B: int, hw: Tuple[int, int],
@@ -545,19 +572,21 @@ class DiffusionPipeline:
         return generator_noise(noise) if isinstance(noise, torch.Generator) else noise
 
     @staticmethod
-    def _sample(sp: SamplerConfig, den_fn, x, sigmas, noise: NoiseFn):
+    def _sample(sp: SamplerConfig, den_fn, x, sigmas, noise: NoiseFn, step_callback=None):
         """Run the sampler as the JAX package dispatches it: churn for Euler,
         Heun and DPM2 when ``s_churn > 0``; the noise for the stochastic
-        samplers; the others without noise. The sets are keyed on the name
-        without " Karras" (the JAX package keys them on the full name, so
-        that "Euler a Karras" misses its key there)."""
+        samplers; the others without noise; ``step_callback`` to every one.
+        The sets are keyed on the name without " Karras" (the JAX package
+        keys them on the full name, so that "Euler a Karras" misses its key
+        there)."""
         base, fn = base_name(sp.name), get_sampler(sp.name)
+        kw = {"step_callback": step_callback}
         if sp.s_churn > 0 and base in CHURN_SAMPLERS:
             return fn(den_fn, x, sigmas, noise, s_churn=sp.s_churn, s_tmin=sp.s_tmin,
-                      s_tmax=sp.s_tmax, s_noise=sp.s_noise)
+                      s_tmax=sp.s_tmax, s_noise=sp.s_noise, **kw)
         if base in STOCHASTIC_SAMPLERS:
-            return fn(den_fn, x, sigmas, noise)
-        return fn(den_fn, x, sigmas)
+            return fn(den_fn, x, sigmas, noise, **kw)
+        return fn(den_fn, x, sigmas, **kw)
 
     # --------------------------------------------------------------- txt2img
 
@@ -574,9 +603,7 @@ class DiffusionPipeline:
         seeded patch pasted in. Region i of ``tiled_diffusion.regions`` is
         guided with ``region_conds[i]`` = ``(cond, uncond)`` and, where
         ``region_unet_params[i]`` is a ``state_dict``, with those UNet
-        weights."""
-        if step_callback is not None:
-            raise _unported("step callbacks (ROADMAP queue 1, item 21)")
+        weights. ``step_callback(i, x)`` is called after every sampler step."""
         h, w = height // 8, width // 8
         C = self.unet.cfg.out_channels
         noise = []
@@ -591,7 +618,8 @@ class DiffusionPipeline:
         return self._txt2img_from_noise(noise, cond, uncond, sampler, seed, tiled_diffusion,
                                         tiled_vae, decode, region_conds=region_conds,
                                         region_seeds=region_seeds, plan=plan,
-                                        region_unet_params=region_unet_params)
+                                        region_unet_params=region_unet_params,
+                                        step_callback=step_callback)
 
     @torch.inference_mode()
     def _txt2img_from_noise(self, noise, cond: Cond, uncond: Optional[Cond],
@@ -601,7 +629,7 @@ class DiffusionPipeline:
                             decode: bool = True, region_conds: Sequence = (),
                             sampler_noise=None, region_seeds: Optional[Sequence[int]] = None,
                             plan: Optional[DiffusionTilePlan] = None,
-                            region_unet_params=None) -> GenerationResult:
+                            region_unet_params=None, step_callback=None) -> GenerationResult:
         """txt2img from given unit-variance noise [B, 4, h, w], the regions'
         patches already in it (``region_seeds`` only names them in the
         info). ``sampler_noise``: a noise function or generator for the
@@ -622,7 +650,7 @@ class DiffusionPipeline:
         sigmas = torch.as_tensor(self.schedule.sampling_sigmas(sp.steps, sp.schedule),
                                  device=self.device)
         latents = self._sample(sp, den_fn, noise * sigmas[0], sigmas,
-                               self._sampler_noise(sampler_noise, seed))
+                               self._sampler_noise(sampler_noise, seed), step_callback)
         images = self._decode(latents, tiled_vae) if decode else None
         return GenerationResult(images, latents, seed,
                                 self._info(sp, tiled_diffusion, seed, region_seeds))
@@ -711,8 +739,6 @@ class DiffusionPipeline:
         from (``mdu_tpu/pipeline.py:767-970``). Drawn from a generator, the
         sampling noise gets the regions' patches; a given tensor is taken as
         it is. ``sampler_noise`` as in ``_txt2img_from_noise``."""
-        if step_callback is not None:
-            raise _unported("step callbacks (ROADMAP queue 1, item 21)")
         sp = self._resolve_sampler(sampler)
         td = tiled_diffusion
         if td is not None and td.noise_inverse and sp.name != "Euler":
@@ -784,7 +810,8 @@ class DiffusionPipeline:
             if getattr(inner, "deepcache", False):
                 mark_deepcache(den_fn)
 
-        latents = self._sample(sp, den_fn, x, sigmas, self._sampler_noise(sampler_noise, seed))
+        latents = self._sample(sp, den_fn, x, sigmas, self._sampler_noise(sampler_noise, seed),
+                               step_callback)
         images = self._decode(latents, tiled_vae) if decode else None
         info = self._info(sp, td, seed, region_seeds)
         if target_size is not None:
@@ -916,6 +943,27 @@ class DiffusionPipeline:
         """Clear the noise-inversion cache (ref 'Free GPU' button,
         tilediffusion.py:591-593)."""
         self.noise_inverse_cache = None
+
+    def reset(self, clear_compiled: bool = True) -> Dict[str, Optional[float]]:
+        """Drop the caches, collect garbage and report the device memory (ref
+        reset_and_gc, tilediffusion.py:579-609; ``mdu_tpu/pipeline.py:
+        1327-1345``). The port compiles nothing per call, so
+        ``clear_compiled`` has nothing to drop; it is accepted for the JAX
+        package's signature. Returns {"device_in_use_mb", "device_peak_mb"}
+        (None on the CPU)."""
+        import gc
+
+        from .utils.telemetry import device_memory_mb, device_peak_memory_mb
+
+        self.free_cache()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        report = {"device_in_use_mb": device_memory_mb(self.device),
+                  "device_peak_mb": device_peak_memory_mb(self.device)}
+        print(f"[Tiled Diffusion] reset: device memory in use {report['device_in_use_mb']} "
+              f"MB, peak {report['device_peak_mb']} MB", file=sys.stderr)
+        return report
 
     # ------------------------------------------------------------------- VAE
 

@@ -20,6 +20,13 @@ twice on each step with ``sn > 0``, DPM++ 2M SDE once on each step with
 Restart, DPM fast and DPM adaptive split their schedule on the host and
 refuse a denoised function that keeps DeepCache state (``deepcache = True``,
 ``samplers/denoiser.py``), as the JAX package refuses their ``aux``.
+
+Every sampler takes ``step_callback(step_index, x)`` and calls it where the
+JAX package's ``_notify`` does (16 call sites): after each step, with that
+step's index and the new ``x``; DPM fast after each of its leading order-3
+segments and after the final jump; DPM adaptive after every iteration,
+accepted or not; Restart in each of its Heun passes. The loops run on the
+host, so it is a plain call (the JAX package needs ``jax.debug.callback``).
 """
 from __future__ import annotations
 
@@ -30,6 +37,12 @@ import torch
 
 DenoisedStepFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 NoiseFn = Callable[[torch.Tensor], torch.Tensor]
+StepCallback = Callable[[int, torch.Tensor], None]
+
+
+def _notify(cb: Optional[StepCallback], i: int, x: torch.Tensor) -> None:
+    if cb is not None:
+        cb(int(i), x)
 
 
 def generator_noise(gen: torch.Generator) -> NoiseFn:
@@ -80,7 +93,7 @@ def _ancestral_step(s, sn, eta=1.0):
 
 def sample_euler(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn] = None,
                  s_churn: float = 0.0, s_tmin: float = 0.0, s_tmax: float = float("inf"),
-                 s_noise: float = 1.0):
+                 s_noise: float = 1.0, step_callback: Optional[StepCallback] = None):
     """Euler, with Karras churn when ``s_churn > 0`` and a noise source is given."""
     n = sigmas.shape[0] - 1
     use_churn = s_churn > 0 and noise is not None
@@ -91,11 +104,12 @@ def sample_euler(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn
         den = denoised_fn(x, s, i)
         d = (x - den) / s
         x = x + d * (sn - s)
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_euler_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
-                           eta: float = 1.0):
+                           eta: float = 1.0, step_callback: Optional[StepCallback] = None):
     for i in range(sigmas.shape[0] - 1):
         s, sn = sigmas[i], sigmas[i + 1]
         den = denoised_fn(x, s, i)
@@ -103,12 +117,13 @@ def sample_euler_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseF
         d = (x - den) / s
         x = x + d * (down - s)
         x = x + noise(x) * up
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_heun(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn] = None,
                 s_churn: float = 0.0, s_tmin: float = 0.0, s_tmax: float = float("inf"),
-                s_noise: float = 1.0):
+                s_noise: float = 1.0, step_callback: Optional[StepCallback] = None):
     n = sigmas.shape[0] - 1
     host = _host(sigmas)
     use_churn = s_churn > 0 and noise is not None
@@ -124,10 +139,12 @@ def sample_heun(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn]
             x = x + 0.5 * (d + (x_euler - den2) / sn) * (sn - s)
         else:
             x = x_euler
+        _notify(step_callback, i, x)
     return x
 
 
-def sample_dpmpp_2m(denoised_fn: DenoisedStepFn, x, sigmas):
+def sample_dpmpp_2m(denoised_fn: DenoisedStepFn, x, sigmas,
+                    step_callback: Optional[StepCallback] = None):
     """DPM-Solver++(2M), k-diffusion formulation."""
     host = _host(sigmas)
     old_den = None
@@ -147,21 +164,24 @@ def sample_dpmpp_2m(denoised_fn: DenoisedStepFn, x, sigmas):
         else:
             x = den
         old_den = den
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_ddim(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn] = None,
-                eta: float = 0.0):
+                eta: float = 0.0, step_callback: Optional[StepCallback] = None):
     """DDIM in VE coordinates: x = den + s_next * eps. With ``eta > 0`` and a
     noise source it is Euler a at that eta, as in the JAX package; the
     pipeline, like the JAX package's, calls it with neither."""
     if eta > 0.0 and noise is not None:
-        return sample_euler_ancestral(denoised_fn, x, sigmas, noise, eta)
+        return sample_euler_ancestral(denoised_fn, x, sigmas, noise, eta,
+                                      step_callback=step_callback)
     for i in range(sigmas.shape[0] - 1):
         s, sn = sigmas[i], sigmas[i + 1]
         den = denoised_fn(x, s, i)
         eps = (x - den) / s
         x = den + sn * eps
+        _notify(step_callback, i, x)
     return x
 
 
@@ -187,7 +207,8 @@ def _lms_coeffs(host: torch.Tensor, i: int, cur_order: int,
     return out
 
 
-def sample_lms(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 4):
+def sample_lms(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 4,
+               step_callback: Optional[StepCallback] = None):
     """Linear multistep (k-diffusion LMS, order 4) with the JAX package's
     trapezoid coefficients (``_lms_coeffs``)."""
     host = _host(sigmas)
@@ -200,11 +221,12 @@ def sample_lms(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 4):
         for c, d in zip(_lms_coeffs(host, i, min(i + 1, order)), hist):
             upd = upd + c * d
         x = x + upd
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_dpmpp_2s_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
-                              eta: float = 1.0):
+                              eta: float = 1.0, step_callback: Optional[StepCallback] = None):
     """DPM-Solver++(2S) ancestral: a midpoint model call every step (also the
     last), then ancestral noise."""
     host = _host(sigmas)
@@ -221,12 +243,13 @@ def sample_dpmpp_2s_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: Noi
         x_second = (down_c / s) * x - torch.expm1(-h) * den2
         x = x_second if _ancestral_step(host[i], host[i + 1], eta)[0] > 0 else den
         x = x + noise(x) * up
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_dpm2(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn] = None,
                 s_churn: float = 0.0, s_tmin: float = 0.0, s_tmax: float = float("inf"),
-                s_noise: float = 1.0):
+                s_noise: float = 1.0, step_callback: Optional[StepCallback] = None):
     """DPM-Solver-2: a midpoint step at the geometric-mean sigma."""
     n = sigmas.shape[0] - 1
     host = _host(sigmas)
@@ -244,11 +267,12 @@ def sample_dpm2(denoised_fn: DenoisedStepFn, x, sigmas, noise: Optional[NoiseFn]
             x = x + (x_2 - den_2) / s_mid * (sn - s)
         else:
             x = x + d * (sn - s)
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_dpm2_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
-                          eta: float = 1.0):
+                          eta: float = 1.0, step_callback: Optional[StepCallback] = None):
     host = _host(sigmas)
     for i in range(sigmas.shape[0] - 1):
         s, sn = sigmas[i], sigmas[i + 1]
@@ -263,11 +287,13 @@ def sample_dpm2_ancestral(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn
         else:
             x = x + d * (down - s)
         x = x + noise(x) * up
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_dpmpp_sde(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
-                     eta: float = 1.0, s_noise: float = 1.0, r: float = 0.5):
+                     eta: float = 1.0, s_noise: float = 1.0, r: float = 0.5,
+                     step_callback: Optional[StepCallback] = None):
     """DPM-Solver++ SDE with plain per-step noise (not k-diffusion's Brownian
     tree), as in the JAX package: on each step with ``sn > 0`` a draw at the
     midpoint and one at the endpoint."""
@@ -277,6 +303,7 @@ def sample_dpmpp_sde(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
         den = denoised_fn(x, s, i)
         if not host[i + 1] > 0:
             x = x + (x - den) / s * (sn - s)
+            _notify(step_callback, i, x)
             continue
         t, t_next = _t_of(s), _t_of(sn)
         h = t_next - t
@@ -290,10 +317,12 @@ def sample_dpmpp_sde(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
         den_d = (1.0 - fac) * den + fac * den_2
         x_out = (sd2 / s) * x - torch.expm1(t - _t_of(sd2)) * den_d
         x = x_out + noise(x) * s_noise * su2
+        _notify(step_callback, i, x)
     return x
 
 
-def sample_plms(denoised_fn: DenoisedStepFn, x, sigmas):
+def sample_plms(denoised_fn: DenoisedStepFn, x, sigmas,
+                step_callback: Optional[StepCallback] = None):
     """PLMS: Adams-Bashforth over eps on the timestep grid, primed by a
     second evaluation on the first step (CompVis p_sample_plms in VE
     coordinates)."""
@@ -315,6 +344,7 @@ def sample_plms(denoised_fn: DenoisedStepFn, x, sigmas):
             eps_prime = (55 * eps - 59 * hist[0] + 37 * hist[1] - 9 * hist[2]) / 24
         x = (x - s * eps) + sn * eps_prime
         hist = [eps] + hist[:2]
+        _notify(step_callback, i, x)
     return x
 
 
@@ -358,7 +388,8 @@ def _dpm3(denoised_fn, x, t, t_next, i, r1=1 / 3, r2=2 / 3, eps=None, eps_r1=Non
             - torch.exp(-t_next) / r2 * (torch.expm1(h) / h - 1) * (eps_r2 - eps))
 
 
-def sample_dpm_fast(denoised_fn: DenoisedStepFn, x, sigmas):
+def sample_dpm_fast(denoised_fn: DenoisedStepFn, x, sigmas,
+                    step_callback: Optional[StepCallback] = None):
     """DPM-Solver-Fast (k-diffusion sample_dpm_fast): a uniform grid in
     t = -log sigma from sigma_max to the smallest nonzero sigma, order-3
     segments and an order-(2, 1 | n % 3) tail, then an exact jump to
@@ -371,11 +402,16 @@ def sample_dpm_fast(denoised_fn: DenoisedStepFn, x, sigmas):
     ts_np = np.linspace(-np.log(sig_np[0]), -np.log(sig_np[-2]), m + 1)
     orders = ([3] * (m - 2) + [2, 1]) if n % 3 == 0 else [3] * (m - 1) + [n % 3]
     ts = torch.as_tensor(ts_np, dtype=torch.float32, device=sigmas.device)
+    n3 = orders.count(3)                      # the leading order-3 segments
     i = 0
     for j, o in enumerate(orders):
         x = {1: _dpm1, 2: _dpm2, 3: _dpm3}[o](denoised_fn, x, ts[j], ts[j + 1], i)
+        if j < n3:
+            _notify(step_callback, i, x)
         i += o
-    return denoised_fn(x, sigmas[-2], i)
+    x = denoised_fn(x, sigmas[-2], i)
+    _notify(step_callback, i, x)
+    return x
 
 
 def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
@@ -383,7 +419,8 @@ def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
                         pcoeff: float = 0.0, icoeff: float = 1.0, dcoeff: float = 0.0,
                         accept_safety: float = 0.81, max_iters: int = 128,
                         decisions: Optional[List[bool]] = None,
-                        factors: Optional[List[float]] = None):
+                        factors: Optional[List[float]] = None,
+                        step_callback: Optional[StepCallback] = None):
     """DPM-Solver-12/23 adaptive (k-diffusion dpm_solver_adaptive): embedded
     (order-1, 2 | 2, 3) pairs estimate the local error, which drives a PID
     step-size controller with the atan limiter. A host loop of at most
@@ -443,13 +480,15 @@ def sample_dpm_adaptive(denoised_fn: DenoisedStepFn, x, sigmas, order: int = 3,
             errs = torch.stack([e0, e0, e1])
         else:
             errs = torch.stack([e0, errs[1], errs[2]])
+        _notify(step_callback, i, x)
         h = h * factor
         i += 3 if order == 3 else 2
     return denoised_fn(x, sigmas[-2], i)
 
 
 def sample_dpmpp_2m_sde(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
-                        eta: float = 1.0, s_noise: float = 1.0):
+                        eta: float = 1.0, s_noise: float = 1.0,
+                        step_callback: Optional[StepCallback] = None):
     """DPM-Solver++(2M) SDE, midpoint type, with plain per-step noise on each
     step with ``sn > 0`` (the JAX package's stand-in for the Brownian tree)."""
     host = _host(sigmas)
@@ -470,12 +509,14 @@ def sample_dpmpp_2m_sde(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
         else:
             x = den
         old_den = den
+        _notify(step_callback, i, x)
     return x
 
 
 def sample_restart(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
                    s_noise: float = 1.0,
-                   restart_info: Optional[Tuple[float, float, int, int]] = None):
+                   restart_info: Optional[Tuple[float, float, int, int]] = None,
+                   step_callback: Optional[StepCallback] = None):
     """Restart sampling (Xu et al. 2023; A1111's 'Restart'): Heun down the
     main schedule to sigma_min_r, then K cycles that re-noise up to
     sigma_max_r and descend again over an exp-spaced segment, then the tail.
@@ -489,15 +530,15 @@ def sample_restart(denoised_fn: DenoisedStepFn, x, sigmas, noise: NoiseFn,
     cut = max(2, min(cut, len(sig_np) - 1))
     upper = sigmas[:cut]
     lower = sigmas[cut - 1:]
-    x = sample_heun(denoised_fn, x, upper)
+    x = sample_heun(denoised_fn, x, upper, step_callback=step_callback)
     ends = torch.log(torch.tensor([s_max_r, float(sig_np[cut - 1])], dtype=torch.float32))
     seg = torch.exp(torch.linspace(float(ends[0]), float(ends[1]), n_seg,
                                    dtype=torch.float32)).to(sigmas.device)
     for _ in range(k_restarts):
         bump = torch.sqrt(torch.clamp(seg[0] ** 2 - seg[-1] ** 2, min=0.0))
         x = x + noise(x) * s_noise * bump
-        x = sample_heun(denoised_fn, x, seg)
-    return sample_heun(denoised_fn, x, lower)
+        x = sample_heun(denoised_fn, x, seg, step_callback=step_callback)
+    return sample_heun(denoised_fn, x, lower, step_callback=step_callback)
 
 
 SAMPLERS = {

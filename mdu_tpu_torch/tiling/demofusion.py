@@ -361,7 +361,9 @@ def demofusion_generate(pipe, cond, uncond, width: int, height: int,
     DemoFusion denoiser and re-anchors its mean and std to phase 1's.
     ``cond`` and ``uncond`` are prepared conds (plain, banks, AND conds or
     callables). ``sampler_noise``: the stochastic samplers' noise, for every
-    phase. The result's ``latents`` is the last kept phase's and
+    phase. Once ``pipe.interrupted`` is set the phase's denoiser runs
+    nothing and no later phase starts (``mdu_tpu/tiling/demofusion.py:
+    835-836, 872-873``). The result's ``latents`` is the last kept phase's and
     ``phase_latents`` holds every phase's."""
     from ..pipeline import GenerationResult
 
@@ -382,6 +384,8 @@ def demofusion_generate(pipe, cond, uncond, width: int, height: int,
     guided, guided_cached = pipe._make_guided(sp.cfg_scale, sp.deepcache_branch)
     n_and = len(cond["__and__"]) if is_and(cond) else 0
     for phase_i, scale in enumerate(range(2, cfg.scale_factor + 1)):
+        if pipe.interrupted:
+            break                      # cooperative interruption between phases
         H, W = h0 * scale, w0 * scale
         lat0 = resize_nchw(latents, (H, W), "cubic")
         plan = plan_demofusion_phase(H, W, scale, cfg)
@@ -397,8 +401,10 @@ def demofusion_generate(pipe, cond, uncond, width: int, height: int,
         caches = (demofusion_deepcache_aux(pipe, plan, uncond is None, sp.cfg_scale, n_and,
                                            sp.deepcache_branch, lat0.shape[0])
                   if sp.deepcache > 1 else None)
-        den_fn = make_demofusion_denoiser(plan, cfg, guided, c_phase, u_phase, lat0, noise,
-                                          t_enc, jitter, sp.deepcache, guided_cached, caches)
+        # per-step cooperative interruption, as in the tiled pipeline
+        den_fn = pipe._interruptible(make_demofusion_denoiser(
+            plan, cfg, guided, c_phase, u_phase, lat0, noise, t_enc, jitter, sp.deepcache,
+            guided_cached, caches))
         latents = pipe._sample(sp, den_fn, lat0 + noise * sigmas[0], sigmas, sampler_noise)
         latents = ((latents - latents.mean()) / latents.std(correction=0) * anchor_std
                    + anchor_mean)

@@ -545,6 +545,11 @@ def test_tile_blend_kernel_on_mod_weighted_tiles(h, w, BC):
     (2, 96, 96, 320, 320, torch.bfloat16, "sm90"),   # config 4's region calls, level 0
     (2, 48, 48, 640, 640, torch.bfloat16, "sm90"),   # and level 1
     (4, 128, 128, 320, 320, torch.bfloat16, "sm90"),  # config 5's level 0
+    (2, 8, 12, 1280, 1280, torch.bfloat16, "sm90"),  # config 2 under NHWC: above 640
+    (2, 16, 24, 1280, 1280, torch.bfloat16, "sm90"),  # channels (JAX drops NCHW's limit)
+    (2, 16, 24, 640, 1280, torch.bfloat16, "sm90"),
+    (2, 32, 48, 960, 640, torch.bfloat16, "sm90"),
+    (2, 32, 48, 1280, 640, torch.bfloat16, "sm90"),
     (2, 64, 96, 320, 320, torch.float32, "sm90"),   # config 2's four widths
     (2, 64, 96, 640, 320, torch.float32, "sm90"),
     (2, 32, 48, 320, 640, torch.float32, "sm90"),

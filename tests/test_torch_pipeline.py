@@ -234,13 +234,14 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked(pipes):
 
 
 def test_unported_features_raise(pipes):
-    """Step callbacks (item 21) and the mesh (item 22) are all that raise;
-    DeepCache runs, image CFG asks for its image latent, an unknown
+    """The mesh (item 22) is all that raises; step callbacks run (one call a
+    step), DeepCache runs, image CFG asks for its image latent, an unknown
     upscaler is a KeyError and a guidance leaf on one side a ValueError."""
     _, port, c, u = pipes
     tiny = dict(width=128, height=128, sampler=SamplerConfig(steps=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.txt2img(c, u, **tiny, step_callback=lambda i, x: None)
+    seen = []
+    port.txt2img(c, u, **tiny, step_callback=lambda i, x: seen.append(i), decode=False)
+    assert seen == [0]
     res = port.txt2img(c, u, **{**tiny, "sampler": SamplerConfig(steps=2, deepcache=2)},
                        decode=False)
     assert torch.isfinite(res.latents).all()
