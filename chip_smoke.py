@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``mdu_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,deepcache,unclip,prompts,
-                                    load,cli,layouts,img2img,adapters,stream,regional,upscale8k,
-                                    stream8k,demofusion,reference_cli]
+    python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,deepcache,mesh,unclip,
+                                    prompts,load,cli,layouts,img2img,adapters,stream,regional,
+                                    upscale8k,stream8k,demofusion,reference_cli]
 
 Phases, one JSON line each (all of them but ``stream8k`` and
 ``reference_cli``, which ``reference`` includes, unless ``--phases`` names
@@ -170,6 +170,17 @@ some; ``device`` and ``build`` always run):
                  launches pinned (#1 / #3 150, #5 0: the DeepCache grid
                  sums with the scatter-add), and the mean absolute pixel
                  difference of the seed-0 image from the exact one.
+6e. ``mesh``     config 2 as ``txt2img`` builds it under ``deterministic`` on a
+                 tile mesh (``phase_mesh``): one device without a mesh, a
+                 1-shard mesh, a 2-shard mesh on cuda:0 (also under
+                 MDU_FUSED_BLEND=1: #5 0) and the 2-shard mesh under
+                 DeepCache N = 2; launches pinned (#1 400 and #2 2 an image
+                 on two shards: two UNet calls a step, the decode's 2 tiles
+                 one a shard), img/min and peak memory, each mesh image's
+                 latents to the bit or within 1e-3 x max of one device's;
+                 then the sharded exact decode of the same latents against
+                 the lockstep decode: in fp32 within 1 uint8 level, in bf16
+                 within 2 e + 1e-3 x max (e: bf16's error against fp32).
 6c. ``unclip``   SD2.1-unCLIP (ViT-H, adm 2048) on config 2's canvas and
                  sampler, random bf16 weights; 1 warm and 1 timed image,
                  #1's launches at D = 64 pinned.
@@ -272,9 +283,11 @@ some; ``device`` and ``build`` always run):
 
 The reference phases' CPU runs go to ``CPU_REF_WORKERS`` worker processes
 while the card runs its own, and the settings in ``WARM_ONLY`` (config 2
-under ``MDU_FLASH=fm``, the samplers' "DPM++ 2M Karras") keep their warm
-image, its checks and its pinned launches but time no second image: this
-pays for the ``cli`` and ``layouts`` phases within the run's time.
+under ``MDU_FLASH=fm``, the samplers' "DPM++ 2M Karras", and the
+``layouts`` phase's ``MDU_GN`` and ``MDU_CONV_MM`` settings) keep their
+warm image, its checks and its pinned launches but time no second image:
+this pays for the ``cli``, ``layouts`` and ``mesh`` phases within the run's
+time.
 
 Then a ``done`` line with the script's seconds and each phase's, a
 ``{"kernels": [...]}`` line
@@ -329,7 +342,9 @@ EARLIER_TIMED = 1
 # launches but time no second image (cut with the reference phases' CPU
 # workers to pay for the cli and layouts phases; such a line reports its warm
 # image's seconds)
-WARM_ONLY = {("txt2img", "fm"), ("samplers", "DPM++ 2M Karras")}
+WARM_ONLY = {("txt2img", "fm"), ("samplers", "DPM++ 2M Karras"),
+             ("layouts", "MDU_GN=fold"), ("layouts", "MDU_GN=chanreduce"),
+             ("layouts", "MDU_CONV_MM=9mm"), ("layouts", "MDU_CONV_MM=im2col")}
 # config 3 (bench.py:345-377): MoD img2img x4, 512 -> 2048, with noise inversion
 CFG3 = dict(image=512, scale=4.0, steps=20, cfg=7.0, denoise=0.4, tile=96, overlap=8,
             tile_bs=8, inverse_steps=10, renoise=1.0, encoder_tile=1024, decoder_tile=64)
@@ -416,6 +431,18 @@ EXPECTED_DEEPCACHE_FLAGGED = {"flash_attention_t": 150, "flash_attention_t.sm90"
                               "fused_conv3x3.sm90": 250}
 DEEPCACHE_RUNS = (("default", {}, EXPECTED_DEEPCACHE),
                   ("flagged", FLAGS, EXPECTED_DEEPCACHE_FLAGGED))
+# config 2 on a tile mesh under ``deterministic`` (every UNet call padded to
+# tile_bs 8: 16 samples with CFG). One shard: the 5 tiles in one call a step,
+# as on one device; two shards on the one card: 3 tiles each (the last tile
+# repeated to pad 5 to 6), one call a shard, so two a step and #1 twice
+# one device's; the sharded exact decode's 2 tiles one a shard, so #2 once a
+# shard; #5 never on the mesh, under MDU_FUSED_BLEND too
+MESH_SHARDS = (1, 2)
+EXPECTED_MESH = {1: EXPECTED_LAUNCHES,
+                 2: {"flash_attention_fm": 400, "flash_attention_fm.sm90": 400,
+                     "flash_attention": 2, "flash_attention.wide": 2}}
+EXPECTED_MESH_DEEPCACHE = {"flash_attention_fm": 300, "flash_attention_fm.sm90": 300,
+                           "flash_attention": 2, "flash_attention.wide": 2}
 # config 5 x2 under DeepCache N = 2: the base phase's 20 calls and phase 2's 20
 # view calls alternate full (104 flash calls: the UNet's 70, the ControlNet's
 # 34) and cached (the ControlNet's 34: SDXL's level 0 has no transformer, so
@@ -1109,17 +1136,18 @@ def flags_set(flags):
                 os.environ[k] = v
 
 
-def _tiny_pipeline(device: str, dtype):
-    """The tiny pipeline on ``device`` with random weights drawn on the CPU
-    (so that both devices get the same weights), and a cond and an uncond:
-    returns (pipe, cond, uncond, the CPU generator that drew them)."""
+def _tiny_pipeline(device: str, dtype, unet_config=None):
+    """The tiny pipeline on ``device`` (``unet_config``: the tiny config by
+    default) with random weights drawn on the CPU (so that both devices get
+    the same weights), and a cond and an uncond: returns (pipe, cond, uncond,
+    the CPU generator that drew them)."""
     import torch
 
     from mdu_tpu_torch import DiffusionPipeline
     from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, random_state_dict,
                                       tiny_unet_config, tiny_vae_config)
 
-    unet = UNet2DCondition(tiny_unet_config(), dtype=dtype)
+    unet = UNet2DCondition(unet_config or tiny_unet_config(), dtype=dtype)
     vae = AutoencoderKL(tiny_vae_config(), dtype=dtype)
     unet.load_state_dict(random_state_dict(unet, 0, dtype, device="cpu"))
     vae.load_state_dict(random_state_dict(vae, 1, dtype, device="cpu"))
@@ -1279,6 +1307,9 @@ def _tiny_demofusion(device: str, dtype):
 
 
 # the reference phase's samplers: every sampler, a Karras name, Euler with churn
+# the tiny config's first level and its mid-block (the reference samplers' UNet)
+TINY_TWO_LEVELS = dict(block_out_channels=(8, 16), cross_attention_dim=16, num_heads=2,
+                       transformer_layers=(1, 0), norm_num_groups=4)
 TINY_SAMPLERS = [(name, {}) for name in (
     "Euler", "Euler a", "Heun", "DPM2", "DPM2 a", "DPM++ 2M", "DPM++ 2S a", "DPM++ SDE",
     "DPM++ 2M SDE", "DPM fast", "DPM adaptive", "DDIM", "LMS", "PLMS", "Restart",
@@ -1286,8 +1317,10 @@ TINY_SAMPLERS = [(name, {}) for name in (
 
 
 def _tiny_sampler(name, churn, decisions, factors):
-    """The tiny pipeline untiled on a 32 x 32 latent (1024 tokens at UNet
-    level 0, a flash kernel on the card) under sampler ``name``, 3 steps,
+    """The tiny pipeline on a two-level UNet (the tiny config's first level
+    and its mid-block: what a sampler's arithmetic needs, at half the cost)
+    untiled on a 32 x 32 latent (1024 tokens at UNet level 0, a
+    flash kernel on the card) under sampler ``name``, 3 steps,
     the samplers' noise drawn from a CPU generator (the same draws on both
     devices). DPM adaptive's accept / reject decisions go to
     ``decisions[(device, dtype)]`` and the controller's factor of each to
@@ -1301,7 +1334,9 @@ def _tiny_sampler(name, churn, decisions, factors):
         from mdu_tpu_torch import SamplerConfig
         from mdu_tpu_torch.samplers import samplers
 
-        pipe, c, u, gen = _tiny_pipeline(device, dtype)
+        from mdu_tpu_torch.models.unet import UNetConfig
+
+        pipe, c, u, gen = _tiny_pipeline(device, dtype, UNetConfig(**TINY_TWO_LEVELS))
         noise = torch.randn(1, 4, 32, 32, generator=gen)
         adaptive = samplers.SAMPLERS["DPM adaptive"]
         key = (device, _dtype_name(dtype))
@@ -1321,6 +1356,7 @@ def _tiny_sampler(name, churn, decisions, factors):
 
 # the reference phases' CPU runs go to worker processes while the card runs
 # its own: they were most of those phases' time (PR 14: 80 % of 227-317 s)
+# and 4 workers made the phase slower than 3 (145.3 s against 124.7 s)
 CPU_REF_WORKERS = 3
 CPU_REF_THREADS = 2           # torch threads in each worker
 
@@ -2156,6 +2192,115 @@ def phase_deepcache():
              deepcache_branch=sp_dc.deepcache_branch, setup_s=setup_s,
              mean_abs_pixel_diff_from_exact=diff, expected_launches=expected, **fields)
         out[label] = launches
+    del pipe, cond, uncond
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh():
+    """Config 2 (bf16, exactly as ``txt2img`` builds it) under
+    ``deterministic`` on a tile mesh: on one device without a mesh (the
+    reference image), on a 1-shard mesh, on a 2-shard mesh on cuda:0 (and
+    once under MDU_FUSED_BLEND=1, #5 0) and on the 2-shard mesh under
+    DeepCache N = 2 against one device's DeepCache image; launches pinned,
+    img/min and peak memory of the three mesh runs, whether each mesh
+    image's latents equal the reference's to the bit (the expectation: every
+    UNet call has one device's shape) and else that they are within 1e-3 x
+    max of them (the reference phase's bar, 2 e + 1e-3 x max, without its
+    e), and the pixel difference of its sharded exact decode. Then the sharded exact
+    decode of the reference latents against the lockstep decode, in fp32
+    within 1 uint8 level and in bf16 within 2 e + 1e-3 x max (e: the bf16
+    lockstep's error against the fp32 lockstep). Returns each run's launches
+    per image."""
+    import numpy as np
+    import torch
+
+    from mdu_tpu_torch.parallel import make_tile_mesh
+
+    t0 = time.perf_counter()
+    pipe, cond, uncond, sp, td, tv = build_config2()
+    td = dataclasses.replace(td, deterministic=True)
+    sp_dc = dataclasses.replace(sp, deepcache=DEEPCACHE["interval"],
+                                deepcache_branch=DEEPCACHE["branch"])
+    setup_s = time.perf_counter() - t0
+    config = "config 2: MultiDiffusion txt2img 2048x512, SD1.5 bf16, deterministic"
+    refs = []
+    for sampler, expected, label in ((sp, EXPECTED_LAUNCHES, "one device"),
+                                     (sp_dc, EXPECTED_DEEPCACHE, "one device, DeepCache")):
+        run_config2(pipe, cond, uncond, sampler, td, tv, expected, f"mesh: {label}", n=0,
+                    keep=refs)
+    ref, ref_dc = refs
+    runs = [(n, "", sp, {}, EXPECTED_MESH[n], ref, 1) for n in MESH_SHARDS]
+    runs += [(2, " MDU_FUSED_BLEND", sp, {"MDU_FUSED_BLEND": "1"}, EXPECTED_MESH[2], ref, 0),
+             (2, " DeepCache", sp_dc, {}, EXPECTED_MESH_DEEPCACHE, ref_dc, 1)]
+    out = {}
+    for n, what, sampler, flags, expected, want, timed in runs:
+        label = f"{n} shard{'s' if n > 1 else ''}{what}"
+        pipe.mesh = make_tile_mesh(devices=["cuda:0"] * n)
+        kept = []
+        try:
+            with flags_set(flags):
+                _, fields = run_config2(pipe, cond, uncond, sampler, td, tv, expected,
+                                        f"mesh {label}", n=timed, keep=kept)
+        finally:
+            pipe.mesh = None
+        res = kept.pop()
+        diff = (res.latents.float() - want.latents.float()).abs().max().item()
+        scale = want.latents.float().abs().max().item()
+        require(diff <= 1e-3 * scale, f"mesh {label}: latents {diff} from one device's")
+        pixels = np.abs(np.asarray(res.images).astype(np.int16)
+                        - np.asarray(want.images).astype(np.int16))
+        emit("mesh", config=config, run=label, shards=n, devices=["cuda:0"] * n, flags=flags,
+             sampler=sampler.name, steps=sampler.steps, deepcache=sampler.deepcache,
+             setup_s=setup_s, latents_bitwise_equal=diff == 0.0, latents_max_abs_diff=diff,
+             latents_bar=1e-3 * scale, image_max_abs_diff=int(pixels.max()),
+             image_mean_abs_diff=float(pixels.mean()), expected_launches=expected, **fields)
+        out[label] = fields["launches_per_image"]
+
+    # the sharded exact decode against the lockstep of the same latents: in
+    # fp32 (a float copy of the VAE) within 1 uint8 level, the JAX tests'
+    # bar; in bf16 within 2 e + 1e-3 x max, e the bf16 lockstep's largest
+    # difference from the fp32 lockstep (a bf16 rounding that the pooled
+    # sums' other order flips moves through the decoder)
+    from mdu_tpu_torch.models import AutoencoderKL, VAEConfig
+    from mdu_tpu_torch.utils.image import tensor_to_image
+
+    vae16 = pipe.vae
+    with torch.device("meta"):
+        vae32 = AutoencoderKL(VAEConfig(), dtype=torch.float32)
+    vae32.load_state_dict({k: v.float() for k, v in vae16.state_dict().items()},
+                          strict=True, assign=True)
+    decoded = {}
+    try:
+        for name, vae in (("bf16", vae16), ("fp32", vae32)):
+            pipe.vae = vae
+            for shards in (0, 2):
+                pipe.mesh = make_tile_mesh(devices=["cuda:0"] * shards) if shards else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                z = pipe._decode_tensor(ref.latents, tv).float()
+                torch.cuda.synchronize()
+                decoded[name, shards] = (z, time.perf_counter() - t0, pipe.last_vae_mode)
+    finally:
+        pipe.vae, pipe.mesh = vae16, None
+    require([decoded[k][2] for k in sorted(decoded)] == ["lockstep", "sharded"] * 2,
+            f"mesh decode: modes {[decoded[k][2] for k in sorted(decoded)]}")
+    lock32 = decoded["fp32", 0][0]
+    e = (decoded["bf16", 0][0] - lock32).abs().max().item()
+    for name in ("fp32", "bf16"):
+        lock, shard = decoded[name, 0][0], decoded[name, 2][0]
+        diff = (shard - lock).abs().max().item()
+        levels = int(np.abs(tensor_to_image(shard).astype(np.int16)
+                            - tensor_to_image(lock).astype(np.int16)).max())
+        bar = 2 * e + 1e-3 * lock32.abs().max().item()
+        if name == "fp32":
+            require(levels <= 1, f"mesh decode fp32: {levels} uint8 levels from the lockstep")
+        else:
+            require(diff <= bar, f"mesh decode bf16: {diff} from the lockstep, bar {bar}")
+        emit("mesh", run=f"sharded exact decode {name}, 2 shards on cuda:0",
+             decoder_tile=tv.decoder_tile_size, lockstep_s=decoded[name, 0][1],
+             sharded_s=decoded[name, 2][1], max_abs_diff=diff, uint8_levels=levels,
+             bar=("1 uint8 level" if name == "fp32" else bar), bf16_lockstep_error=e)
     del pipe, cond, uncond
     torch.cuda.empty_cache()
     return out
@@ -3430,8 +3575,9 @@ LAYOUT_RUNS = (("NHWC", {"MDU_UNET_LAYOUT": "NHWC"}, EXPECTED_LAUNCHES),
 
 def phase_layouts():
     """Config 2 (bf16, random weights) under each of ``LAYOUT_RUNS`` against
-    the default: 1 warm and 1 timed image each, launches pinned (forms
-    included), img/min and peak memory. The NHWC pipeline's UNet is built
+    the default: 1 warm and 1 timed image each (the warm one alone for the
+    settings in ``WARM_ONLY``), launches pinned (forms included), img/min
+    and peak memory. The NHWC pipeline's UNet is built
     under ``MDU_UNET_LAYOUT=NHWC`` as the loaders build it, on the default
     UNet's weights. Each setting's seed-0 latents against the default's
     within 3 e + 1e-3 x max, e the default's own bf16 error (its max abs
@@ -3480,7 +3626,8 @@ def phase_layouts():
                     nhwc = DiffusionPipeline(unet, pipe.vae)
                     require(nhwc.unet.layout == "NHWC", "layouts: the UNet is not channels-last")
                 run_pipe = nhwc
-            got_l, fields = run_config2(run_pipe, cond, uncond, sp, td, tv, expected, label, n=1,
+            got_l, fields = run_config2(run_pipe, cond, uncond, sp, td, tv, expected, label,
+                                        n=0 if ("layouts", label) in WARM_ONLY else 1,
                                         keep=kept)
             lat = kept.pop().latents.float()
         diff = (lat - default).abs().max().item()
@@ -3849,8 +3996,8 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,reference,txt2img,samplers,deepcache,unclip,prompts,load,"
-                            "cli,layouts,img2img,adapters,stream,regional,upscale8k,"
+                    default="kernels,reference,txt2img,samplers,deepcache,mesh,unclip,prompts,"
+                            "load,cli,layouts,img2img,adapters,stream,regional,upscale8k,"
                             "demofusion",
                     help="comma-separated phases after device and build (stream8k and "
                          "reference_cli, a part of reference, run only when named)")
@@ -3915,6 +4062,8 @@ def main() -> int:
     slice_runs = {}
     if "deepcache" in phases:
         slice_runs["deepcache"] = timed("deepcache", phase_deepcache)
+    if "mesh" in phases:
+        slice_runs["mesh"] = timed("mesh", phase_mesh)
     if "unclip" in phases:
         slice_runs["unclip"] = {"unclip": timed("unclip", phase_unclip)}
     if "prompts" in phases:

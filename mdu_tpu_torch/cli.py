@@ -14,8 +14,11 @@ otherwise. Images are read and written as PNG by the port's own codec
 ``parameters`` text; other input formats need PIL. Noise: the pipeline's
 seeded generators; ``demofusion --init`` and ``vae-roundtrip`` sample the
 encoder's moments from a ``torch.Generator`` seeded with the seed (0 for
-``vae-roundtrip``). ``--devices N`` above the one card raises: the mesh is
-not ported yet.
+``vae-roundtrip``). ``--devices N`` shards the grid's tiles over the first
+N cards (``parallel.make_tile_mesh``); with fewer cards it warns and takes
+those there are, and with one it runs unsharded, as the JAX CLI does.
+``demofusion`` on more than one device raises: its sharded windows are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--bf16", action="store_true", help="bfloat16 weights/compute")
     p.add_argument("--devices", type=int, default=1,
                    help="shard grid tiles over this many devices (1 = off; "
-                        "more than one card is not ported yet)")
+                        "txt2img and img2img only: DemoFusion refuses a mesh)")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the first CUDA device)")
     p.add_argument("--lora", action="append", default=[],
@@ -127,18 +130,25 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--no-draw-background", dest="draw_background", action="store_false")
 
 
-def _devices(args) -> int:
-    """How many devices of the requested ``--devices`` exist: the cards, or
-    one for any other device (``mdu_tpu/cli.py:139-148``)."""
+def _available_devices(dev) -> list:
+    """The devices a mesh may take: the cards, or ``dev`` alone for any other
+    device."""
     import torch
 
-    dev = args._device
-    have = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n = min(args.devices, have)
-    if n < args.devices:
-        print(f"warning: only {n} of {args.devices} requested devices "
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _devices(args) -> list:
+    """The first ``--devices`` of the available devices, with a warning when
+    fewer are there (``mdu_tpu/cli.py:139-148``)."""
+    have = _available_devices(args._device)
+    devs = have[:args.devices]
+    if len(devs) < args.devices:
+        print(f"warning: only {len(devs)} of {args.devices} requested devices "
               "available", file=sys.stderr)
-    return n
+    return devs
 
 
 def _load(args):
@@ -159,11 +169,17 @@ def _load(args):
             tokenizer_dir=getattr(args, "tokenizer_dir", None), device=device)
     else:
         pipe, conditioner = load_pipeline(args.model_dir, dtype=dtype, device=device)
-    if getattr(args, "devices", 1) > 1 and _devices(args) > 1:
-        from .pipeline import _unported
+    if getattr(args, "devices", 1) > 1:
+        from .parallel import make_tile_mesh
 
-        raise _unported("sharding grid tiles over several cards (the multi-device mesh, "
-                        "ROADMAP queue 1, item 22)")
+        devs = _devices(args)
+        if len(devs) > 1:
+            if args.fn is cmd_demofusion:
+                from .pipeline import MESH_DEMOFUSION
+
+                raise NotImplementedError(MESH_DEMOFUSION)
+            pipe.mesh = make_tile_mesh(devices=devs)
+            print(f"sharding grid tiles over {len(devs)} devices", file=sys.stderr)
     if getattr(args, "controlnet", None):
         from .models.loader import load_controlnet
 

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -38,6 +39,9 @@ SOURCES = {
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one first-use build and load at a time: the tile shards' threads may reach
+# the same library together
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -114,12 +118,17 @@ def build_all(names=None) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if it is missing."""
+    """The loaded library of one kernel, built first if it is missing; built
+    and loaded once when several threads ask for it together."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
     return lib

@@ -25,6 +25,7 @@ only for a tensor off the current device.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -49,11 +50,15 @@ LAUNCHES = {
 }
 # (loaded library, C function name) -> the function, its argtypes set
 _FNS: Dict[Tuple[ctypes.CDLL, str], ctypes._CFuncPtr] = {}
+# the counts are read-modify-writes, and the tile shards' threads launch
+# kernels together
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -89,9 +94,10 @@ def launch(name: str, library: str, fn_name: str, device: torch.device, *args,
     else:
         with torch.cuda.device(device):
             err = fn(*args, _raw_stream(device.index))
-    LAUNCHES[name] += 1
-    if form is not None:
-        LAUNCHES[f"{name}.{form}"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if form is not None:
+            LAUNCHES[f"{name}.{form}"] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 

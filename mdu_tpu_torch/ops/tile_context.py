@@ -1,5 +1,10 @@
 """TileContext: GroupNorm statistics pooled across lockstep-batched tiles
-(counterpart of ``mdu_tpu/ops/tile_context.py``, without the mesh axis).
+(counterpart of ``mdu_tpu/ops/tile_context.py``).
+
+When the tiles are split over a mesh's shards (``parallel/sharded.py``),
+``axis`` is this shard's place on the mesh (``parallel.mesh.ShardAxis``):
+the pooled sums then also add over the shards (``axis.psum``, the
+counterpart of ``jax.lax.psum`` over ``TileContext.axis_name``).
 
 ``masks`` holds each tile's owned region at the base resolution;
 ``mask_for`` derives it at any integer up- or down-sampled resolution, which
@@ -23,6 +28,7 @@ class TileContext:
     base_hw: tuple
     masks: Optional[torch.Tensor] = None   # [T, 1, h, w] 0/1 owned regions
     reference_pooling: bool = False        # average per-tile biased vars
+    axis: Optional[object] = None          # the shard's ShardAxis on a mesh
 
     def mask_for(self, h: int, w: int) -> Optional[torch.Tensor]:
         if self.masks is None:
@@ -79,10 +85,15 @@ def tile_group_norm(x, num_groups: int, weight, bias,
     sn = n_t.sum(dim=0)
     s1 = (mean_t * n_t).sum(dim=0)
     s2 = (meansq_t * n_t).sum(dim=0)
+    if ctx.axis is not None:
+        sn, s1, s2 = ctx.axis.psum([sn, s1, s2])
     mean = s1 / sn
     if ctx.reference_pooling:
         var_t = torch.clamp(meansq_t - mean_t * mean_t, min=0.0)
-        var = (var_t * n_t).sum(dim=0) / sn
+        sv = (var_t * n_t).sum(dim=0)
+        if ctx.axis is not None:
+            sv, = ctx.axis.psum([sv])
+        var = sv / sn
     else:
         var = torch.clamp(s2 / sn - mean * mean, min=0.0)
 

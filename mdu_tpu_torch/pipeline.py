@@ -49,11 +49,21 @@ usual; DemoFusion also stops between phases. Callers clear the flag before
 they reuse the pipeline (``mdu_tpu/pipeline.py:595-628``).
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``.
-The multi-device mesh of ``mdu_tpu`` is not ported yet and raises
-``NotImplementedError`` naming the ROADMAP item it waits for.
+
+A tile mesh (``parallel.make_tile_mesh``, ``mesh=``) shards the background
+grid's tiles over its devices (``tiling/schedulers.py::make_sharded_grid``,
+through the flat-denoiser contract of ``mdu_tpu/pipeline.py:489-533``: the
+conds stacked per tile, CFG, AND and scheduled conds included), DeepCache's
+caches riding their shard, noise inversion's grid too, and runs the exact
+tiled decode and encode sharded (``parallel/sharded.py``), each GroupNorm's
+statistics pooled over the shards. Regions run unsharded after the grid.
+The UNet, ControlNet, guidance model and VAE are copied to each mesh device
+other than the pipeline's own (``_on``); two shards on one device share its
+modules.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import os
@@ -70,16 +80,19 @@ from .models.stablesr import combine_residuals
 from .models.unet import UNet2DCondition
 from .models.vae import AutoencoderKL, sample_from_moments
 from .ops.resize import resize_nchw
+from .parallel.mesh import canonical_device
+from .parallel.sharded import sharded_tiled_vae_decode, sharded_tiled_vae_encode_moments
 from .samplers.denoiser import (cfg_combine, denoised_from_model, denoised_from_model_cached,
                                 mark_deepcache, scalings)
 from .samplers.samplers import (CHURN_SAMPLERS, STOCHASTIC_SAMPLERS, NoiseFn, base_name,
                                  generator_noise, get_sampler)
 from .samplers.schedule import NoiseSchedule
 from .tiling.conds import (Cond, concat_conds, dequantize_hint, fit_cond_canvases, is_and,
-                           map_leaves, quantize_control_hints, tile_cond)
+                           map_leaves, quantize_control_hints, tile_cond, tile_cond_stacked)
 from .tiling.demofusion import demofusion_generate
 from .tiling.regions import compose_region_noise, resolve_seed
-from .tiling.schedulers import DiffusionTilePlan, make_tiled_denoiser, plan_tiled_diffusion
+from .tiling.schedulers import (DiffusionTilePlan, make_sharded_grid, make_tiled_denoiser,
+                                plan_tiled_diffusion)
 from .tiling.streaming_vae import DEFAULT_BUDGET, exact_vae_mode, streaming_tiled_vae
 from .tiling.tiled_vae import tiled_vae_decode, tiled_vae_encode_moments
 from .upscale import get_upscaler
@@ -165,8 +178,10 @@ def _is_plain(c) -> bool:
     return not callable(c) and not is_and(c) and "__bank__" not in (c or {})
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to mdu_tpu_torch yet")
+# DemoFusion shards its windows and views on the JAX package's mesh
+# (``mdu_tpu/tiling/demofusion.py:555-559``); the port refuses a mesh there
+MESH_DEMOFUSION = ("DemoFusion on a tile mesh (its windows and views sharded) is not ported "
+                   "yet (ROADMAP queue 1, item 25); run it without a mesh (--devices 1)")
 
 
 class DiffusionPipeline:
@@ -177,14 +192,17 @@ class DiffusionPipeline:
     (``models/stablesr.py``), an edit model's ``concat`` image latent and an
     unCLIP UNet's ``adm`` image embedding). ``unet``, ``vae``,
     ``controlnet`` and ``guidance_model`` hold their weights and are moved
-    to the pipeline's device."""
+    to the pipeline's device. ``mesh``: a ``TileMesh`` (``parallel/mesh.py``)
+    whose devices are of the pipeline's device type; it may be set later
+    (``pipe.mesh = ...``), as the CLI's ``--devices`` does."""
 
     def __init__(self, unet: UNet2DCondition, vae: AutoencoderKL,
                  schedule: Optional[NoiseSchedule] = None, device=None,
                  controlnet=None, mesh=None, guidance_model=None):
-        if mesh is not None:
-            raise _unported("the multi-device mesh (ROADMAP queue 1, item 22)")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # the modules' copies on the mesh's other devices, by (name, device)
+        self._replicas: Dict[Tuple[str, torch.device], Tuple[Tuple, torch.nn.Module]] = {}
         self.unet = unet.to(self.device).eval()
         if getattr(unet, "layout", "NCHW") == "NHWC":
             # the channels-last UNet's conv weights in the same memory format,
@@ -200,11 +218,49 @@ class DiffusionPipeline:
         # "estimated stats" or "latent preview"
         self.last_decode: Optional[str] = None
         # the tiled VAE's mode in the last encode or decode: "untiled", "fast",
-        # "lockstep", "stream-device" or "stream-host"
+        # "lockstep", "sharded" (the lockstep over the mesh), "stream-device"
+        # or "stream-host"
         self.last_vae_mode: Optional[str] = None
         # cooperative interruption (ref state.interrupted checks): read by every
         # denoiser call and by DemoFusion between phases
         self.interrupted = False
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh):
+        """The mesh guard (``mdu_tpu/pipeline.py:158-161``): a mesh needs a
+        ``tiles`` axis, and its devices must be of the pipeline's type."""
+        if mesh is not None:
+            if "tiles" not in getattr(mesh, "shape", {}):
+                raise ValueError("pipeline mesh needs a 'tiles' axis (parallel.make_tile_mesh)")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"a mesh over {list(mesh.devices)} for a pipeline on "
+                                 f"{self.device}")
+        self._mesh = mesh
+
+    def _on(self, name: str, device: Optional[torch.device]):
+        """The module ``name`` (``unet``, ``vae``, ``controlnet`` or
+        ``guidance_model``) on ``device``: itself on the pipeline's device, else a
+        copy made on first use and made again when the module or its weights
+        change (``weights_key``); made outside inference mode, so that its
+        weights stay ordinary tensors (``Conv2D._packed_weight`` reads their
+        version)."""
+        module = getattr(self, name)
+        if module is None or device is None:
+            return module
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return module
+        key = (id(module), weights_key(module))
+        held = self._replicas.get((name, device))
+        if held is None or held[0] != key:
+            with torch.inference_mode(False):
+                held = (key, copy.deepcopy(module).to(device))
+            self._replicas[name, device] = held
+        return held[1]
 
     # ------------------------------------------------------------ denoisers
 
@@ -258,7 +314,8 @@ class DiffusionPipeline:
             return cond_fn
         return lambda step: c
 
-    def _model_fn(self, params: Optional[Dict[str, torch.Tensor]] = None):
+    def _model_fn(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                  device: Optional[torch.device] = None):
         """``fn(x, t, cond, cache=None, cache_mode=None, cache_branch=1)``: the
         UNet with SDXL's added cond (``vector``, and ``time_ids``, ones of [B,
         6] by default), an unCLIP UNet's ``adm``, the ControlNet's residuals
@@ -266,14 +323,17 @@ class DiffusionPipeline:
         from the ``guidance`` leaf (``mdu_tpu/pipeline.py:175-237``), and the
         DeepCache arguments passed on to the UNet. ``params``: weights that
         replace the UNet's own for this function
-        (``torch.func.functional_call``)."""
-        controlnet, guidance, cfg = self.controlnet, self.guidance_model, self.unet.cfg
+        (``torch.func.functional_call``). ``device``: the modules' copies on
+        that mesh device (``_on``)."""
+        controlnet, guidance = self._on("controlnet", device), self._on("guidance_model", device)
+        own_unet = self._on("unet", device)
+        cfg = own_unet.cfg
         is_xl = cfg.addition_embed_type == "text_time"
 
         def unet(*args, **kwargs):
             if params is None:
-                return self.unet(*args, **kwargs)
-            return torch.func.functional_call(self.unet, params, args, kwargs)
+                return own_unet(*args, **kwargs)
+            return torch.func.functional_call(own_unet, params, args, kwargs)
 
         def fn(x, t, cond: Cond, cache=None, cache_mode=None, cache_branch=1):
             xin = x
@@ -338,7 +398,8 @@ class DiffusionPipeline:
         return out
 
     def _make_guided(self, cfg_scale: float, deepcache_branch: int = 1,
-                     image_cfg_scale: Optional[float] = None):
+                     image_cfg_scale: Optional[float] = None,
+                     device: Optional[torch.device] = None):
         """``(guided, guided_cached)``: ``guided(x, sigma, c, u, den=None)`` is
         the CFG'd denoiser, [uncond, cond] batched into one model call; an AND
         cond batches every branch and the uncond, den_u + cfg * sum_i w_i
@@ -347,8 +408,9 @@ class DiffusionPipeline:
         image_cfg (di - du) + cfg (dc - di) (``mdu_tpu/pipeline.py:
         299-416``). ``den`` replaces the pipeline's denoiser (a region's own
         weights). ``guided_cached(x, sigma, c, u, cache, is_cached) ->
-        (denoised, cache)`` is the same over the DeepCache denoiser."""
-        model_fn = self._model_fn()
+        (denoised, cache)`` is the same over the DeepCache denoiser. ``device``:
+        over the modules' copies on that mesh device."""
+        model_fn = self._model_fn(device=device)
         den_default = denoised_from_model(model_fn, self.schedule)
         den_cached = denoised_from_model_cached(model_fn, self.schedule, deepcache_branch)
 
@@ -435,9 +497,14 @@ class DiffusionPipeline:
         (``_prepare``), resolved every step. Under DeepCache the denoiser
         keeps one cache a tile batch (``_deepcache_aux``) and takes the
         cached pass on the steps that ``deepcache`` does not divide; the
-        regions run the full model."""
+        regions run the full model. On a mesh the grid goes through the
+        flat-denoiser contract (``mdu_tpu/pipeline.py:489-533``): the conds
+        of every tile stacked (``tile_cond_stacked``), an AND cond's weights
+        put back on each chunk's cond, one cache a chunk on its shard's
+        device."""
         guided, guided_cached = self._make_guided(sp.cfg_scale, sp.deepcache_branch,
                                                   sp.image_cfg_scale)
+        guides = {canonical_device(self.device): (guided, guided_cached)}
         cond_f, uncond_f = self._as_cond_fn(cond), self._as_cond_fn(uncond)
         every = sp.deepcache
         caches = None
@@ -450,10 +517,16 @@ class DiffusionPipeline:
             return uncond_f(step) if uncond_f is not None else None
 
         def run(x, sigma, c, u, slot, step):
-            """``guided``, or ``guided_cached`` on cache ``slot``."""
+            """``guided``, or ``guided_cached`` on cache ``slot``, over the
+            modules on ``x``'s device."""
+            dev = canonical_device(x.device)
+            if dev not in guides:
+                guides[dev] = self._make_guided(sp.cfg_scale, sp.deepcache_branch,
+                                                sp.image_cfg_scale, dev)
+            g, g_cached = guides[dev]
             if caches is None:
-                return guided(x, sigma, c, u)
-            out, caches[slot] = guided_cached(x, sigma, c, u, caches[slot], step % every != 0)
+                return g(x, sigma, c, u)
+            out, caches[slot] = g_cached(x, sigma, c, u, caches[slot], step % every != 0)
             return out
 
         if plan is None:
@@ -478,8 +551,29 @@ class DiffusionPipeline:
             u = tile_cond(ruf(step), box, hw) if ruf is not None else None
             return guided(xr, sigma, tile_cond(rcf(step), box, hw), u, region_dens[i])
 
+        and_weights = {}
+
+        def conds_fn(step):
+            """Every tile's conds, stacked; an AND cond's weights aside."""
+            stacked = {}
+            for key, c in (("c", cond_f(step)), ("u", u_at(step))):
+                and_weights[key] = c["__weights__"] if is_and(c) else None
+                if c is not None:
+                    stacked[key] = tile_cond_stacked(c, plan.bboxes, hw)
+            return stacked
+
+        def sharded_td(flat, sigma, step, conds, chunk):
+            c, u = conds["c"], conds.get("u")
+            if and_weights["c"] is not None:
+                c = {**c, "__weights__": and_weights["c"]}
+            if u is not None and and_weights["u"] is not None:
+                u = {**u, "__weights__": and_weights["u"]}
+            return run(flat, sigma, c, u, chunk, step)
+
+        grid = (make_sharded_grid(plan, self.mesh, sharded_td, conds_fn, caches is not None)
+                if self.mesh is not None else None)
         fn = make_tiled_denoiser(plan, tile_denoise, region_denoise,
-                                 stateful=caches is not None)
+                                 stateful=caches is not None, sharded_grid=grid)
         return self._interruptible(fn if caches is None else mark_deepcache(fn))
 
     def _interruptible(self, fn):
@@ -503,8 +597,10 @@ class DiffusionPipeline:
         is the guidance batch (3 under image CFG, P + 1 under an AND of P,
         2 under CFG, else 1), ``Kp`` the batch's tiles (``tile_bs`` when
         batches are uniform), ``C_b`` the UNet's width entering the branch
-        (``mdu_tpu/pipeline.py:535-593``, the unrolled grid). Step 0 always
-        runs the full model, so the zeros are never read."""
+        (``mdu_tpu/pipeline.py:535-593``, the unrolled grid). On a mesh, one
+        a chunk of the sharded grid, shard by shard, each with ``tile_bs``
+        tiles on its shard's device (``:567-578``). Step 0 always runs the
+        full model, so the zeros are never read."""
         bc = self.unet.cfg.block_out_channels
         if not 1 <= branch <= len(bc) - 1:
             raise ValueError(f"cache_branch must be in [1, {len(bc) - 1}]")
@@ -516,17 +612,22 @@ class DiffusionPipeline:
             mult = 1 if (uncond is None or cfg_scale == 1.0) else 2
         down = 2 ** (branch - 1)
 
-        def zeros(n, hh, ww):
+        def zeros(n, hh, ww, device=self.device):
             if hh % down or ww % down:
                 raise ValueError(f"deepcache_branch={branch} needs tile dims divisible by "
                                  f"{down}, got {hh}x{ww}")
             return torch.zeros((n, bc[branch], hh // down, ww // down),
-                               dtype=self.unet.dtype, device=self.device)
+                               dtype=self.unet.dtype, device=device)
 
         if plan is None:
             return [zeros(mult * B, *hw)]
         if not plan.draw_background:
             return []
+        if self.mesh is not None and plan.bboxes:
+            t_local = -(-len(plan.bboxes) // self.mesh.tiles)
+            n_local = -(-t_local // plan.tile_bs)
+            return [zeros(mult * plan.tile_bs * B, plan.tile_h, plan.tile_w, dev)
+                    for dev in self.mesh.devices for _ in range(n_local)]
         return [zeros(mult * (plan.tile_bs if plan.uniform_batches else len(bb)) * B,
                       plan.tile_h, plan.tile_w) for bb in plan.batched]
 
@@ -852,6 +953,8 @@ class DiffusionPipeline:
         """DemoFusion from given unit noise: ``base_noise`` [1, 4, h, w] for
         phase 1 and ``phase_noises``, the later phases' noises in order.
         ``sampler_noise`` as in ``_txt2img_from_noise``, for every phase."""
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_DEMOFUSION)
         cfg = cfg or DemoFusionConfig()
         sp = sampler or SamplerConfig()
         self._check_sampler(self._resolve_sampler(sp))
@@ -903,13 +1006,15 @@ class DiffusionPipeline:
         """Tiled reverse Euler over the ``steps`` ascending sigmas with the
         positive cond only and no CFG, the regions included (ref
         abstractdiffusion.py:683-742, multidiffusion.py:220-243); the carry is
-        fp32 and the result is divided by the largest sigma."""
+        fp32 and the result is divided by the largest sigma. On a mesh the
+        grid is sharded, as the sampling's is."""
         cond = self._cond(cond)
         sch = self.schedule
         sig_asc = torch.as_tensor(sch.sampling_sigmas(steps)[:-1][::-1].copy(),
                                   device=self.device)
         prev = torch.cat([torch.zeros(1, device=self.device), sig_asc[:-1]])
         model_fn = self._model_fn()
+        model_fns = {canonical_device(self.device): model_fn}
 
         def eps_org(x, sigma, step):
             return self._raw_eps(model_fn, x, sigma, cond, retouch)
@@ -923,7 +1028,17 @@ class DiffusionPipeline:
                 c = tile_cond(cond, [plan.regions[i]], (plan.h, plan.w))
                 return self._raw_eps(model_fn, xr, sigma, c, retouch)
 
-            tiled_eps = make_tiled_denoiser(plan, eps_tile, eps_region)
+            def eps_sharded(flat, sigma, step, conds, chunk):
+                dev = canonical_device(flat.device)
+                if dev not in model_fns:
+                    model_fns[dev] = self._model_fn(device=dev)
+                return self._raw_eps(model_fns[dev], flat, sigma, conds, retouch)
+
+            grid = None
+            if self.mesh is not None:
+                grid = make_sharded_grid(plan, self.mesh, eps_sharded, lambda step: (
+                    tile_cond_stacked(cond, plan.bboxes, (plan.h, plan.w))))
+            tiled_eps = make_tiled_denoiser(plan, eps_tile, eps_region, sharded_grid=grid)
         else:
             tiled_eps = eps_org
         x = torch.as_tensor(init_latent, device=self.device).float()
@@ -1000,15 +1115,20 @@ class DiffusionPipeline:
         """'lockstep', 'stream-device' or 'stream-host' by the JAX package's
         rule (``tiling/streaming_vae.py::exact_vae_mode``). The budget is
         ``MDU_HBM_BYTES`` where that is set, else the card's free memory
-        (``torch.cuda.mem_get_info``); on the CPU the JAX package's 10 GiB."""
+        (``torch.cuda.mem_get_info``); on the CPU the JAX package's 10 GiB.
+        On a mesh the lockstep is the sharded one: the tiles of the device
+        that holds the most shards, against the least free memory of the
+        mesh's devices."""
+        devices = self.mesh.devices if self.mesh is not None else (self.device,)
         env = os.environ.get("MDU_HBM_BYTES")
         if env:
             budget = int(env)
         elif self.device.type == "cuda":
-            budget = torch.cuda.mem_get_info(self.device)[0]
+            budget = min(torch.cuda.mem_get_info(d)[0] for d in set(devices))
         else:
             budget = DEFAULT_BUDGET
-        return exact_vae_mode(which, tile_size, h, w, B, group, budget)
+        shards = (len(devices), max(devices.count(d) for d in devices))
+        return exact_vae_mode(which, tile_size, h, w, B, group, budget, shards=shards)
 
     def _stream_vae(self, which: str, x, tv: TiledVAEConfig, host_resident: bool):
         """The streaming exact tiled VAE with ``tv``'s tile size, ``tile_batch``
@@ -1036,12 +1156,16 @@ class DiffusionPipeline:
         if mode == "lockstep":
             return None
         if not tv.streaming:
+            where = " on one device" if self.mesh is not None else ""
             print(f"[Tiled VAE] the exact lockstep {which} exceeds the memory budget; "
-                  f"switching to {mode} exact mode", file=sys.stderr)
+                  f"switching to {mode} exact mode{where}", file=sys.stderr)
         out = self._stream_vae(which, x, tv, host_resident=(mode == "stream-host"))
         if out is None:
             self.last_vae_mode = "untiled"
         return out
+
+    def _vae_replicas(self) -> Dict[torch.device, AutoencoderKL]:
+        return {d: self._on("vae", d) for d in self.mesh.devices}
 
     @torch.inference_mode()
     def _decode_tensor(self, latents, tv: Optional[TiledVAEConfig]):
@@ -1053,6 +1177,10 @@ class DiffusionPipeline:
         out = self._exact_stream("decoder", z, tv)
         if out is not None:
             return out
+        if self.mesh is not None and not tv.fast_decoder:
+            self.last_vae_mode = "sharded"
+            return sharded_tiled_vae_decode(self.mesh, self._vae_replicas(), z,
+                                            tv.decoder_tile_size)
         return tiled_vae_decode(self.vae, z, tile_size=tv.decoder_tile_size,
                                 fast=tv.fast_decoder, tile_batch=tv.tile_batch)
 
@@ -1066,6 +1194,10 @@ class DiffusionPipeline:
         out = self._exact_stream("encoder", x_img, tv)
         if out is not None:
             return out
+        if self.mesh is not None and not tv.fast_encoder:
+            self.last_vae_mode = "sharded"
+            return sharded_tiled_vae_encode_moments(self.mesh, self._vae_replicas(), x_img,
+                                                    tv.encoder_tile_size)
         return tiled_vae_encode_moments(self.vae, x_img, tile_size=tv.encoder_tile_size,
                                         fast=tv.fast_encoder, tile_batch=tv.tile_batch,
                                         color_fix=tv.color_fix)

@@ -136,3 +136,28 @@ def concat_conds(a: Cond, b: Cond) -> Cond:
         raise ValueError("a 'guidance' leaf on only one of the conds batched together: "
                          "StableSR guidance needs it on the cond and the uncond")
     return map_leaves(lambda x, y: torch.cat([x, y]), a, b)
+
+
+def _stack_leaf(leaf, bboxes: Sequence[BBox], latent_hw: Tuple[int, int]):
+    h, w = latent_hw
+    if leaf.dim() == 4 and tuple(leaf.shape[2:]) == (h, w):
+        return torch.stack([leaf[:, :, b.y:b.y + b.h, b.x:b.x + b.w] for b in bboxes])
+    f = LATENT_TO_PIXEL
+    if leaf.dim() == 4 and tuple(leaf.shape[2:]) == (h * f, w * f):
+        return torch.stack([leaf[:, :, b.y * f:(b.y + b.h) * f, b.x * f:(b.x + b.w) * f]
+                            for b in bboxes])
+    return leaf[None].expand((len(bboxes),) + tuple(leaf.shape))
+
+
+def tile_cond_stacked(cond: Optional[Cond], bboxes: Sequence[BBox],
+                      latent_hw: Tuple[int, int]) -> Optional[Cond]:
+    """Like ``tile_cond``, with an explicit leading tile axis ``[T, B, ...]``
+    on every leaf (``mdu_tpu/tiling/conds.py:171``): the form the sharded
+    grid splits over the mesh's shards. An AND cond loses its
+    ``__weights__``, as in the JAX package; the caller puts them back on
+    each chunk's cond."""
+    if cond is None:
+        return None
+    if is_and(cond):
+        return {"__and__": [tile_cond_stacked(p, bboxes, latent_hw) for p in cond["__and__"]]}
+    return map_leaves(lambda leaf: _stack_leaf(leaf, bboxes, latent_hw), cond)

@@ -26,6 +26,14 @@ A tile denoiser that keeps DeepCache state (``stateful=True``: one cache a
 tile batch, kept by the pipeline's denoiser) never takes the fused blend, as
 the JAX package's stateful grid never does
 (``mdu_tpu/tiling/schedulers.py:303-305``); the scatter-add sums the grid.
+
+With a tile mesh (``parallel/mesh.py``) the grid is sharded
+(``make_sharded_grid``, the counterpart of
+``mdu_tpu/tiling/schedulers.py:505-632``): the tiles, padded to a multiple
+of the mesh's size, split over its shards, each shard denoises its tiles in
+chunks on its own device, and the denoised tiles come back to the canvas's
+device, where they are added in bbox order as the unsharded loop adds them.
+The mesh never takes the fused blend either.
 """
 from __future__ import annotations
 
@@ -44,12 +52,18 @@ from ..ops.kernels import BlendTable, fused_tile_blend
 from ..utils.bbox import BBox, BlendMode, RegionBBox, RegionSpec
 from ..utils.grid import batch_bboxes, clamp_overlap, paint_count, split_grid
 from ..utils.weights import feather_mask, gaussian_weights
+from .conds import map_leaves
 
 # tile_denoise(x_tiles [K*B, C, th, tw], sigma, step, bboxes, batch_idx)
 TileDenoiseFn = Callable[[torch.Tensor, torch.Tensor, int, Sequence[BBox], int],
                          torch.Tensor]
 # region_denoise(x_region [B, C, rh, rw], sigma, step, region_idx)
 RegionDenoiseFn = Callable[[torch.Tensor, torch.Tensor, int, int], torch.Tensor]
+# sharded_tile_denoise(x_tiles [K*B, C, th, tw], sigma, step, conds, chunk_idx):
+# conds are the chunk's tile conds flattened tile-major; chunk_idx counts the
+# mesh's chunks shard by shard
+ShardedTileDenoiseFn = Callable[[torch.Tensor, torch.Tensor, int, object, int],
+                                torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -169,14 +183,19 @@ def _region_maps(plan: DiffusionTilePlan) -> List[Optional[np.ndarray]]:
     return maps
 
 
-def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
+def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: Optional[TileDenoiseFn],
                         region_denoise: Optional[RegionDenoiseFn] = None,
-                        stateful: bool = False):
+                        stateful: bool = False, sharded_grid=None):
     """``denoised_fn(x, sigma, step)`` that denoises the plan's tile batches
     and regions and fuses them (ref multidiffusion.py:131-218,
     mixtureofdiffusers.py:61-179). ``stateful``: ``tile_denoise`` keeps
     DeepCache state by ``batch_idx``, and the grid is summed without the
-    fused blend."""
+    fused blend.
+
+    ``sharded_grid`` (``make_sharded_grid``) denoises the background grid's
+    tiles over a mesh in place of ``tile_denoise``; as in the JAX package it
+    is taken only when the grid is drawn, and the regions run unsharded
+    after it."""
     is_mod = plan.method == Method.MIX_DIFF
     if plan.regions and region_denoise is None:
         raise ValueError("a plan with regions needs a region_denoise")
@@ -184,6 +203,8 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
     maps_np = _region_maps(plan)
     weights = ptw = maps = None
     table = None                       # the fused blend's contributor table
+    if not (plan.draw_background and plan.bboxes):
+        sharded_grid = None
 
     def denoised_fn(x, sigma, step):
         nonlocal weights, ptw, maps, table
@@ -196,11 +217,17 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
             ptw = None if ptw_np is None else torch.as_tensor(ptw_np, device=x.device)
             maps = [None if m is None else torch.as_tensor(m, device=x.device)
                     for m in maps_np]
-        fused = flags.fused_blend() and bool(plan.bboxes) and not stateful
+        fused = (flags.fused_blend() and bool(plan.bboxes) and not stateful
+                 and sharded_grid is None)
         tidx = 0
         outs = []
         buf = None if fused else torch.zeros_like(x)
-        for batch_i, bboxes in enumerate(plan.batched):
+        if sharded_grid is not None:
+            out = sharded_grid(x, sigma, step)
+            for t, b in enumerate(plan.bboxes):
+                tile = out[t] * ptw[t] if is_mod else out[t]
+                buf[:, :, b.y:b.y + b.h, b.x:b.x + b.w] += tile
+        for batch_i, bboxes in enumerate(() if sharded_grid is not None else plan.batched):
             tiles = gather_tiles(x, bboxes)                  # [K, B, C, th, tw]
             K = tiles.shape[0]
             Kp = plan.tile_bs if plan.uniform_batches else K
@@ -248,3 +275,66 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: TileDenoiseFn,
         return x_out if fbuf is None else feather_blend(x_out, fbuf, fmask, fcount)
 
     return denoised_fn
+
+
+def _pad_tiles(a: torch.Tensor, n: int) -> torch.Tensor:
+    """``a`` with its leading axis padded to ``n`` by repeating its last entry."""
+    if a.shape[0] >= n:
+        return a
+    return torch.cat([a, a[-1:].expand(n - a.shape[0], *a.shape[1:])])
+
+
+def make_sharded_grid(plan: DiffusionTilePlan, mesh,
+                      sharded_tile_denoise: ShardedTileDenoiseFn, tile_conds_fn=None,
+                      stateful: bool = False):
+    """``grid_tiles(x, sigma, step) -> [T, B, C, th, tw]``: the grid's denoised
+    tiles, in bbox order on ``x``'s device (``mdu_tpu/tiling/schedulers.py:
+    505-632``). The T tiles are padded to a multiple of the mesh's size by
+    repeating the last tile; shard d takes tiles [d * t, (d + 1) * t) and
+    denoises them on its device in chunks of ``tile_bs``, each padded to
+    ``tile_bs`` under ``uniform_batches`` or ``stateful`` (the DeepCache
+    caches need one call shape); chunk ``ci`` of shard d is ``chunk_idx``
+    d * n_local + ci, the device-major order of the JAX package's caches.
+    The host walks the shards in order; each shard's calls run on its own
+    device, so the cards' work overlaps. A shard that fails raises.
+
+    ``tile_conds_fn(step)`` gives the conds stacked on a leading tile axis
+    (``tile_cond_stacked``), or None.
+
+    The tiles come back rather than partial canvases, so
+    ``make_tiled_denoiser`` adds them in bbox order with the unsharded
+    loop's arithmetic: under
+    ``uniform_batches`` every call has the unsharded one's shape and the
+    result is bitwise that of one device."""
+    devices = mesh.devices
+    n_dev = len(devices)
+    T = len(plan.bboxes)
+    t_local = -(-T // n_dev)
+    th, tw, bs = plan.tile_h, plan.tile_w, plan.tile_bs
+    pad_chunks = plan.uniform_batches or stateful
+
+    def grid_tiles(x, sigma, step):
+        B, C = x.shape[0], x.shape[1]
+        tiles = _pad_tiles(gather_tiles(x, plan.bboxes), n_dev * t_local)
+        conds = tile_conds_fn(step) if tile_conds_fn is not None else None
+        if conds is not None:
+            conds = map_leaves(lambda leaf: _pad_tiles(leaf, n_dev * t_local), conds)
+        outs = []
+        for d, dev in enumerate(devices):
+            lo = d * t_local
+            s_dev = sigma.to(dev)
+            for ci, s0 in enumerate(range(0, t_local, bs)):
+                k = min(bs, t_local - s0)
+                kp = bs if pad_chunks else k
+                chunk = _pad_tiles(tiles[lo + s0:lo + s0 + k], kp).to(dev)
+                cchunk = None
+                if conds is not None:
+                    cchunk = map_leaves(
+                        lambda leaf: _pad_tiles(leaf[lo + s0:lo + s0 + k], kp).to(dev).reshape(
+                            (kp * leaf.shape[1],) + tuple(leaf.shape[2:])), conds)
+                out = sharded_tile_denoise(chunk.reshape(kp * B, C, th, tw), s_dev, step,
+                                           cchunk, d * (-(-t_local // bs)) + ci)
+                outs.append(out.reshape(kp, B, C, th, tw)[:k])
+        return torch.cat([o.to(x.device) for o in outs])[:T]
+
+    return grid_tiles

@@ -203,16 +203,22 @@ def auto_group_size(which: str, in_h: int, in_w: int, B: int, requested: int,
 
 
 def exact_vae_mode(which: str, tile_size: int, h: int, w: int, B: int, group: int,
-                   budget: int, dtype_bytes: int = 2) -> str:
+                   budget: int, dtype_bytes: int = 2, shards: Tuple[int, int] = (1, 1)) -> str:
     """The exact tiled VAE's mode by the JAX package's rule
     (``mdu_tpu/pipeline.py:1139-1169``): 'lockstep' when every tile fits
     through the network at once, else 'stream-device' when one layer of every
-    tile and one group fit, else 'stream-host'."""
+    tile and one group fit, else 'stream-host'. ``shards``: (the mesh's
+    shards, the most of them on one device); the lockstep tiles are then
+    those of that device's shards, the padding included, against a device's
+    ``budget`` (the JAX package skips this guard on a mesh,
+    ``mdu_tpu/pipeline.py:1188-1189``)."""
     pad = ENCODER_PAD if which == "encoder" else DECODER_PAD
     plan = plan_vae_tiles(h, w, tile_size, pad)
     if plan is None:
         return "lockstep"
-    if lockstep_footprint_bytes(which, tile_size, plan.num_tiles, B, dtype_bytes) <= budget:
+    n_shards, on_one = shards
+    lockstep_tiles = -(-plan.num_tiles // n_shards) * on_one
+    if lockstep_footprint_bytes(which, tile_size, lockstep_tiles, B, dtype_bytes) <= budget:
         return "lockstep"
     if streaming_device_footprint_bytes(which, tile_size, plan.num_tiles, B, group,
                                         dtype_bytes) <= budget:

@@ -289,7 +289,7 @@ def test_lora_tags_merge_what_jax_merges(env):
 
 def test_devices_above_the_cards_run_as_one(env, monkeypatch, tmp_path, capsys):
     """``--devices 2`` with one device warns and gives the ``--devices 1``
-    image; the mesh itself is not ported."""
+    image (the mesh over two devices: ``tests/test_torch_mesh.py``)."""
     _feed_jax_noise(monkeypatch)
     outs = []
     for n in ("1", "2"):

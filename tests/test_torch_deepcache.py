@@ -28,6 +28,7 @@ from mdu_tpu.models import UNet2DCondition as JaxUNet
 from mdu_tpu.models import random_params
 from mdu_tpu.models import tiny_unet_config as jax_tiny_unet
 from mdu_tpu.models import tiny_vae_config as jax_tiny_vae
+from mdu_tpu.models.unet import UNetConfig as JaxUNetConfig
 from mdu_tpu.models.unet import tiny_sdxl_unet_config as jax_tiny_sdxl
 from mdu_tpu.pipeline import DiffusionPipeline as JaxPipeline
 from mdu_tpu.tiling import demofusion as jdf
@@ -39,6 +40,7 @@ from mdu_tpu_torch import (DemoFusionConfig, DiffusionPipeline, Method, SamplerC
 from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, load_jax_params,
                                   random_state_dict, tiny_sdxl_unet_config, tiny_unet_config,
                                   tiny_vae_config)
+from mdu_tpu_torch.models.unet import UNetConfig
 from mdu_tpu_torch.samplers import samplers
 from mdu_tpu_torch.samplers.denoiser import mark_deepcache
 from mdu_tpu_torch.tiling import demofusion as pdf
@@ -265,14 +267,18 @@ def test_unet_cache_modes_match_jax(rng, arch, branch):
 
 
 def test_real_unet_txt2img_deepcache_matches_jax():
-    """The tiny UNet untiled (16 x 16 latent), Euler 4 steps at CFG 7 under
-    deepcache=2: steps 1 and 3 read the cache step 0 and 2 wrote."""
-    ucfg = jax_tiny_unet()
-    junet, vae = JaxUNet(ucfg), JaxVAE(jax_tiny_vae())
+    """A real UNet (the tiny config's first level and its mid-block, which
+    JAX compiles in about half the four-level one's time) untiled (16 x 16
+    latent), Euler 4 steps at CFG 7 under deepcache=2: steps 1 and 3 read the
+    cache step 0 and 2 wrote."""
+    two_levels = dict(block_out_channels=(8, 16), cross_attention_dim=16, num_heads=2,
+                      transformer_layers=(1, 0), norm_num_groups=4)
+    junet, vae = JaxUNet(JaxUNetConfig(**two_levels)), JaxVAE(jax_tiny_vae())
     up = random_params(junet, 0, jnp.zeros((1, 4, 16, 16)), jnp.zeros((1,)),
                        jnp.zeros((1, 7, 16)))
     jpipe = JaxPipeline(junet, up, vae, {})
-    port = DiffusionPipeline(load_jax_params(UNet2DCondition(tiny_unet_config()), _np(up)),
+    port = DiffusionPipeline(load_jax_params(UNet2DCondition(UNetConfig(**two_levels)),
+                                             _np(up)),
                              AutoencoderKL(tiny_vae_config()), device="cpu")
     c, u = jax_cond(0), jax_cond(1)
     sp = dict(name="Euler", steps=4, deepcache=2)

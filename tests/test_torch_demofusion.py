@@ -18,6 +18,7 @@ from mdu_tpu import config as jcfg
 from mdu_tpu.models import AutoencoderKL as JaxVAE
 from mdu_tpu.models import random_params
 from mdu_tpu.models import tiny_vae_config as jax_tiny_vae
+from mdu_tpu.models.unet import tiny_sdxl_unet_config as jax_tiny_sdxl
 from mdu_tpu.ops import blur as jblur
 from mdu_tpu.pipeline import DiffusionPipeline as JaxPipeline
 from mdu_tpu.tiling import demofusion as jdf
@@ -162,7 +163,10 @@ def test_denoiser_matches_jax(rng, knobs):
 
 @pytest.fixture(scope="module")
 def sdxl_pipes():
-    unet, up, cn, cp, port_unet, port_cn = build_tiny_sdxl()
+    # a two-level SDXL UNet and ControlNet (the tiny config's first two
+    # levels): JAX compiles the DemoFusion programs in about half the time
+    unet, up, cn, cp, port_unet, port_cn = build_tiny_sdxl(dataclasses.replace(
+        jax_tiny_sdxl(), block_out_channels=(8, 16), transformer_layers=(0, 1)))
     vae = JaxVAE(jax_tiny_vae())
     vp = random_params(vae, 1, jnp.zeros((1, 3, 32, 32)), jax.random.PRNGKey(0))
     jpipe = JaxPipeline(unet, up, vae, vp, controlnet=cn, controlnet_params=cp)

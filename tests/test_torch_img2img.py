@@ -16,9 +16,9 @@ from mdu_tpu import upscale as jupscale
 from mdu_tpu.models import AutoencoderKL as JaxVAE
 from mdu_tpu.models import UNet2DCondition as JaxUNet
 from mdu_tpu.models import random_params
-from mdu_tpu.models import tiny_unet_config as jax_tiny_unet
 from mdu_tpu.models import tiny_vae_config as jax_tiny_vae
 from mdu_tpu.models.layers import GroupNorm as JaxGroupNorm
+from mdu_tpu.models.unet import UNetConfig as JaxUNetConfig
 from mdu_tpu.ops import resize as jresize
 from mdu_tpu.ops.tile_context import TileContext as JaxTileContext
 from mdu_tpu.pipeline import DiffusionPipeline as JaxPipeline
@@ -30,8 +30,8 @@ from mdu_tpu.utils import image as jimage
 from mdu_tpu.utils import weights as jweights
 from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig, TiledDiffusionConfig,
                            TiledVAEConfig, get_upscaler, list_upscalers)
-from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, load_jax_params,
-                                  tiny_unet_config, tiny_vae_config)
+from mdu_tpu_torch.models import AutoencoderKL, UNet2DCondition, load_jax_params, tiny_vae_config
+from mdu_tpu_torch.models.unet import UNetConfig
 from mdu_tpu_torch.models import layers
 from mdu_tpu_torch.ops import resize
 from mdu_tpu_torch.ops.groupnorm import GroupNormStats
@@ -41,6 +41,10 @@ from mdu_tpu_torch.tiling.schedulers import make_tiled_denoiser, plan_tiled_diff
 from mdu_tpu_torch.utils import guided_filter, image, weights
 
 torch.set_num_threads(2)
+# a two-level UNet (the tiny config's first level and its mid-block): JAX
+# compiles the pipelines in about half the four-level one's time
+TWO_LEVELS = dict(block_out_channels=(8, 16), cross_attention_dim=16, num_heads=2,
+                  transformer_layers=(1, 0), norm_num_groups=4)
 
 
 def _close(got, want, rel=1e-4):
@@ -231,14 +235,14 @@ def test_img2img_steps_match_jax(steps, strength):
 
 @pytest.fixture(scope="module")
 def pipes():
-    ucfg = jax_tiny_unet()
+    ucfg = JaxUNetConfig(**TWO_LEVELS)
     unet, vae = JaxUNet(ucfg), JaxVAE(jax_tiny_vae())
     up = random_params(unet, 0, jnp.zeros((1, 4, 16, 16)), jnp.zeros((1,)),
                        jnp.zeros((1, 7, ucfg.cross_attention_dim)))
     vp = random_params(vae, 1, jnp.zeros((1, 3, 64, 64)), jax.random.PRNGKey(0))
     jpipe = JaxPipeline(unet, up, vae, vp)
     to_np = lambda p: jax.tree.map(np.asarray, p)            # noqa: E731
-    port = DiffusionPipeline(load_jax_params(UNet2DCondition(tiny_unet_config()), to_np(up)),
+    port = DiffusionPipeline(load_jax_params(UNet2DCondition(UNetConfig(**TWO_LEVELS)), to_np(up)),
                              load_jax_params(AutoencoderKL(tiny_vae_config()), to_np(vp)),
                              device="cpu")
     c = {"crossattn": np.asarray(jax.random.normal(jax.random.PRNGKey(0), (1, 7, 16))) * 0.1}

@@ -14,7 +14,8 @@ from mdu_tpu.ops.pallas import flash_attention as jax_flash
 from mdu_tpu.ops.pallas import flash_attention_t_fm as jax_flash_fm
 from mdu_tpu_torch.ops import attention as port_attention
 from mdu_tpu_torch.ops.kernels import (LAUNCHES, flash_attention, flash_attention_fm,
-                                       flash_attention_fm_plain, flash_attention_plain)
+                                       flash_attention_fm_plain, flash_attention_plain,
+                                       reset_launches)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -211,3 +212,65 @@ def test_bf16_exp_exact_inputs_leave_no_score_ambiguous(rng, D):
                                    scale, bf16_exp=True)
     assert torch.equal(rev, got)
     assert (flash_attention_fm_plain(tq, tk, tv, scale) - got).abs().max() > 1e-3
+
+
+def test_launch_counts_and_first_load_under_threads(monkeypatch):
+    """Sixteen threads (more than the cores) through the kernels' count and
+    first-use load paths at a short switch interval, with a stub library
+    whose build takes a while (so that the other threads reach the load
+    before it ends): every launch is counted, and the library is built and
+    loaded once."""
+    import sys
+    import threading
+    import time
+
+    from mdu_tpu_torch.ops.kernels import build, launch
+
+    n_threads, n = 16, 500
+    loads, barrier = [], threading.Barrier(n_threads)
+
+    class StubLibrary:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    def fake_cdll(path):
+        loads.append(path)
+        return StubLibrary()
+
+    class MissingPath:
+        def exists(self):
+            return False
+
+        def __str__(self):
+            return "stub"
+
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "build_all",
+                        lambda names: (time.sleep(0.05), loads.append("build")))
+    monkeypatch.setattr(build.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(build, "library_path", lambda name: MissingPath())
+    monkeypatch.setattr(launch, "_FNS", {})
+    monkeypatch.setattr(launch, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(launch.torch.cuda, "current_device", lambda: 0)
+    reset_launches()
+
+    def work():
+        barrier.wait()
+        for _ in range(n):
+            launch.launch("fused_tile_blend", "stub", "fn", torch.device("cuda", 0),
+                          launch.ptr(torch.zeros(1)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert LAUNCHES["fused_tile_blend"] == n_threads * n
+    assert loads == ["build", "stub"]
+    reset_launches()

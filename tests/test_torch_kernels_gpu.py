@@ -22,6 +22,7 @@ from mdu_tpu_torch.tiling.schedulers import mod_tile_weights, plan_tiled_diffusi
 from mdu_tpu_torch.utils.grid import paint_count, split_grid
 
 pytestmark = pytest.mark.gpu
+torch.set_num_threads(2)
 
 # (kernel, (B, H, Lq, Lk, D), the form the wrapper must pick; None: one form)
 CASES = [

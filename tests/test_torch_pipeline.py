@@ -16,8 +16,8 @@ import mdu_tpu.config as jcfg
 from mdu_tpu.models import AutoencoderKL as JaxVAE
 from mdu_tpu.models import UNet2DCondition as JaxUNet
 from mdu_tpu.models import random_params
-from mdu_tpu.models import tiny_unet_config as jax_tiny_unet
 from mdu_tpu.models import tiny_vae_config as jax_tiny_vae
+from mdu_tpu.models.unet import UNetConfig as JaxUNetConfig
 from mdu_tpu.ops import fusion as jfusion
 from mdu_tpu.pipeline import DiffusionPipeline as JaxPipeline
 from mdu_tpu.samplers import samplers as jsamplers
@@ -28,8 +28,8 @@ from mdu_tpu.tiling.schedulers import plan_tiled_diffusion as jax_plan
 from mdu_tpu.utils import grid as jgrid
 from mdu_tpu_torch import (DiffusionPipeline, Method, SamplerConfig,
                            TiledDiffusionConfig, TiledVAEConfig)
-from mdu_tpu_torch.models import (AutoencoderKL, UNet2DCondition, load_jax_params,
-                                  tiny_unet_config, tiny_vae_config)
+from mdu_tpu_torch.models import AutoencoderKL, UNet2DCondition, load_jax_params, tiny_vae_config
+from mdu_tpu_torch.models.unet import UNetConfig
 from mdu_tpu_torch.ops import fusion
 from mdu_tpu_torch.samplers import samplers
 from mdu_tpu_torch.samplers.schedule import NoiseSchedule
@@ -38,6 +38,10 @@ from mdu_tpu_torch.tiling.schedulers import plan_tiled_diffusion
 from mdu_tpu_torch.utils import grid
 
 torch.set_num_threads(2)
+# a two-level UNet (the tiny config's first level and its mid-block): JAX
+# compiles the pipelines in about half the four-level one's time
+TWO_LEVELS = dict(block_out_channels=(8, 16), cross_attention_dim=16, num_heads=2,
+                  transformer_layers=(1, 0), norm_num_groups=4)
 REPO = Path(__file__).resolve().parents[1]
 
 # (w, h, tile_w, tile_h, overlap): config 2's latent canvas first
@@ -168,7 +172,7 @@ def test_samplers_match_jax_on_toy_denoiser(rng, name):
 
 @pytest.fixture(scope="module")
 def pipes():
-    ucfg = jax_tiny_unet()
+    ucfg = JaxUNetConfig(**TWO_LEVELS)
     unet, vae = JaxUNet(ucfg), JaxVAE(jax_tiny_vae())
     up = random_params(unet, 0, jnp.zeros((1, 4, 16, 16)), jnp.zeros((1,)),
                        jnp.zeros((1, 7, ucfg.cross_attention_dim)))
@@ -176,7 +180,7 @@ def pipes():
     jpipe = JaxPipeline(unet, up, vae, vp)
     to_np = lambda p: jax.tree.map(np.asarray, p)            # noqa: E731
     port = DiffusionPipeline(
-        load_jax_params(UNet2DCondition(tiny_unet_config()), to_np(up)),
+        load_jax_params(UNet2DCondition(UNetConfig(**TWO_LEVELS)), to_np(up)),
         load_jax_params(AutoencoderKL(tiny_vae_config()), to_np(vp)),
         device="cpu")
     c = {"crossattn": np.asarray(jax.random.normal(jax.random.PRNGKey(0), (1, 7, 16))) * 0.1}
@@ -234,9 +238,11 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked(pipes):
 
 
 def test_unported_features_raise(pipes):
-    """The mesh (item 22) is all that raises; step callbacks run (one call a
-    step), DeepCache runs, image CFG asks for its image latent, an unknown
-    upscaler is a KeyError and a guidance leaf on one side a ValueError."""
+    """No feature is left unported: step callbacks run (one call a step),
+    DeepCache runs, image CFG asks for its image latent, an unknown upscaler
+    is a KeyError, a guidance leaf on one side a ValueError, and a mesh
+    without a 'tiles' axis the JAX package's ValueError (the mesh itself runs,
+    ``tests/test_torch_mesh.py``)."""
     _, port, c, u = pipes
     tiny = dict(width=128, height=128, sampler=SamplerConfig(steps=1))
     seen = []
@@ -258,7 +264,7 @@ def test_unported_features_raise(pipes):
                      tiled_diffusion=TiledDiffusionConfig(upscaler="R-ESRGAN 4x+"))
     with pytest.raises(ValueError, match="guidance"):
         port.txt2img({**c, "guidance": np.zeros((1, 4, 16, 16), np.float32)}, u, **tiny)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="tiles"):
         DiffusionPipeline(port.unet, port.vae, device="cpu", mesh=object())
 
 

@@ -12,9 +12,12 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image, PngImagePlugin
 
 from mdu_tpu_torch.utils import image as pimage
+
+torch.set_num_threads(2)
 
 
 def _texture(h, w, seed):

@@ -5,6 +5,8 @@ residuals, the hint path of ``tiling/conds.py`` and ``hint_to_tensor``,
 ``random_state_dict``'s zero rule and ``load_jax_params`` of both trees,
 against ``mdu_tpu``. Tolerance: atol 1e-4 x max|ref| (fp32 on both sides,
 JAX at 'highest')."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from mdu_tpu_torch import DiffusionPipeline, SamplerConfig
 from mdu_tpu_torch.models import (AutoencoderKL, ControlNet, StableSRGuidance, UNet2DCondition,
                                   load_jax_params, random_state_dict, sdxl_unet_config,
                                   state_dict_from_jax, tiny_sdxl_unet_config, tiny_vae_config)
+from mdu_tpu_torch.models.unet import UNetConfig
 from mdu_tpu_torch.tiling import conds
 from mdu_tpu_torch.utils.bbox import BBox
 from mdu_tpu_torch.utils.image import hint_to_tensor
@@ -58,10 +61,11 @@ def fill_gates(params, seed: int, scale: float = 0.3):
     return {"params": traverse_util.unflatten_dict(flat, sep="/")}
 
 
-def build_tiny_sdxl():
-    """The tiny SDXL UNet and ControlNet on both sides, the ControlNet's gates
+def build_tiny_sdxl(cfg=None):
+    """The tiny SDXL UNet and ControlNet on both sides (``cfg``: the JAX
+    package's config, the tiny SDXL one by default), the ControlNet's gates
     random: (jax unet, params, jax controlnet, params, port unet, port cn)."""
-    cfg = jax_tiny_sdxl()
+    cfg = cfg or jax_tiny_sdxl()
     added = {"text_embeds": jnp.zeros((1, cfg.addition_pooled_dim)),
              "time_ids": jnp.ones((1, cfg.num_time_ids))}
     unet, cn = JaxUNet(cfg), JaxControlNet(cfg)
@@ -69,8 +73,9 @@ def build_tiny_sdxl():
                        jnp.zeros((1, 7, CTX)), added)
     cp = fill_gates(random_params(cn, 2, jnp.zeros((1, 4, 16, 16)), jnp.zeros((1,)),
                                   jnp.zeros((1, 7, CTX)), jnp.zeros((1, 3, 128, 128)), added), 3)
-    port_unet = load_jax_params(UNet2DCondition(tiny_sdxl_unet_config()), _np(up)).eval()
-    port_cn = load_jax_params(ControlNet(tiny_sdxl_unet_config()), _np(cp)).eval()
+    port_cfg = UNetConfig(**dataclasses.asdict(cfg))
+    port_unet = load_jax_params(UNet2DCondition(port_cfg), _np(up)).eval()
+    port_cn = load_jax_params(ControlNet(port_cfg), _np(cp)).eval()
     return unet, up, cn, cp, port_unet, port_cn
 
 
