@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernels,reference,txt2img,samplers,deepcache,mesh,unclip,
                                     prompts,load,cli,layouts,img2img,adapters,stream,regional,
-                                    upscale8k,stream8k,demofusion,reference_cli]
+                                    upscale8k,stream8k,train,demofusion,reference_cli]
 
 Phases, one JSON line each (all of them but ``stream8k`` and
 ``reference_cli``, which ``reference`` includes, unless ``--phases`` names
@@ -91,6 +91,14 @@ some; ``device`` and ``build`` always run):
                  batch 2. Config 2 under NHWC (``NHWC_CONV_SHAPES``): #6
                  at 1280 -> 1280 on [10, 8, 12] and [10, 16, 24], 640 -> 1280
                  on [10, 16, 24], 960 -> 640 and 1280 -> 640 on [10, 32, 48]. ``device_ms`` and
+                 The backward kernel (``csrc/flash_attention_bwd.cu``) in
+                 fp32 and bf16 at the train step's levels [2, 8, 4096, 40]
+                 and [2, 8, 1024, 80], at [2, 10, 4096, 64], [2, 8, 576, 160]
+                 and ragged 1000 x 777, against autograd through #1's fp32
+                 plain version (fp32 within 1e-4 x max, bf16 within 2x the
+                 bf16 plain version's error + 1e-3 x max), the backward of
+                 ``F.scaled_dot_product_attention`` its yardstick
+                 (``check_attention_bwd``). ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
                  and the yardstick's launches (torch.profiler's kernel
                  durations, summed, per call). Bounds: max(flops / peak, bytes /
@@ -181,6 +189,10 @@ some; ``device`` and ``build`` always run):
                  then the sharded exact decode of the same latents against
                  the lockstep decode: in fp32 within 1 uint8 level, in bf16
                  within 2 e + 1e-3 x max (e: bf16's error against fp32).
+                 Last, DemoFusion x2 of the same SD1.5 from 512^2 on one
+                 device and on two shards of cuda:0 (``run_mesh_demofusion``:
+                 windows and views sharded, launches pinned, the latents to
+                 the bit or within 1e-3 x max of one device's).
 6c. ``unclip``   SD2.1-unCLIP (ViT-H, adm 2048) on config 2's canvas and
                  sampler, random bf16 weights; 1 warm and 1 timed image,
                  #1's launches at D = 64 pinned.
@@ -260,10 +272,21 @@ some; ``device`` and ``build`` always run):
                  (``bench.py:479-533``: config 3's settings with the fast
                  tiled VAE, encoder tile 512, decoder tile 64, ``tile_batch``
                  8), ``decode=False`` and then ``_decode_tensor``; launches
-                 pinned, the output finite.
+                 pinned, the output finite; its 18 tile batches make the
+                 plan decide the JAX package's scan grid (``scan_tiles``),
+                 which the port runs unrolled.
 9a. ``stream8k`` (named only) the 8K's exact decode in the mode the
                  pipeline picks: mode, footprints against free memory,
                  seconds, peak device memory, host peak RSS.
+9b. ``train``    the dp x tp train step (``parallel/training.py``) at SD1.5's
+                 full width in fp32, TF32 off (``phase_train``): batch 2 of
+                 [4, 64, 64] latents and [2, 77, 768] context, 3 steps at dp =
+                 tp = 1 (seconds a step, samples/s, peak memory; #1 10 and
+                 the backward kernel 10 a step), step 1 under remat (#1 20),
+                 step 1 with the long attentions patched here onto #1's
+                 plain version (no kernel launched), step 1 at dp = 2 x tp
+                 = 2 on cuda:0 x 4 (#1 and the backward 20); each against
+                 the kernel step: loss, gradient and parameters.
 10. ``demofusion`` config 5 through ``DiffusionPipeline.demofusion`` as
                  ``bench.py:579-640`` builds it: the SDXL UNet and a ControlNet
                  of its config (and the SD VAE, built and not run), random
@@ -276,13 +299,15 @@ some; ``device`` and ``build`` always run):
                  with no flag (seconds per phase, img/min, peak memory; a
                  finite [1, 4, 384, 384] final latent and three phase
                  latents) and one x2 image under the four flags; launches
-                 pinned in each (270 guided calls a x3 image, 90 a x2 one).
+                 pinned in each (270 guided calls a x3 image, 45 a x2 one:
+                 the x2 images run 10 steps).
                  Last, a x2 image under DeepCache N = 2 (the base phase and
                  the global views cached), launches pinned, with its mean
                  absolute latent difference from the exact x2.
 
-The reference phases' CPU runs go to ``CPU_REF_WORKERS`` worker processes
-while the card runs its own, and the settings in ``WARM_ONLY`` (config 2
+The reference phases' CPU runs go to ``CPU_REF_WORKERS`` worker processes,
+submitted before the kernel checks so that they run beside them and while
+the card runs its own, and the settings in ``WARM_ONLY`` (config 2
 under ``MDU_FLASH=fm``, the samplers' "DPM++ 2M Karras", and the
 ``layouts`` phase's ``MDU_GN`` and ``MDU_CONV_MM`` settings) keep their
 warm image, its checks and its pinned launches but time no second image:
@@ -303,6 +328,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -388,27 +414,31 @@ CONFIG4_RUNS = (("default", {}, EXPECTED_CONFIG4), ("flagged", FLAGS, EXPECTED_C
 # config 5 (bench.py:579-640): SDXL DemoFusion x3 with ControlNet from a 1024 x
 # 1024 base; windows 128 at overlap 64, window and view batches of 2
 # (MDU_BENCH_C5_TILE_BS's default), Euler 20 steps at CFG 7, denoise 0.45
-# (t_enc 9: 10 steps a phase), seed 0, no decode
+# (t_enc 9: 10 steps a phase), seed 0, no decode; the x2 images (warm, four
+# flags, DeepCache) at 10 steps (t_enc 4: 5 steps a later phase), cut to keep
+# the whole run near its time
 CFG5 = dict(size=1024, window=128, overlap=64, scale=3, tile_bs=2, steps=20, cfg=7.0,
-            denoise=0.45)
+            denoise=0.45, steps_x2=10)
 # guided calls (UNet + ControlNet at batch 2 x CFG) an image: phase 1 20
 # (untiled 128^2); phase 2 (256^2) 10 steps x (5 window + 2 view batches);
-# phase 3 (384^2) 10 x (13 + 5). 104 self-attentions at L >= 512 a call: the
-# UNet's 70 (down 4 + 20, mid 10, up 30 + 6), the ControlNet's 34
-C5_CALLS = {2: 20 + 70, 3: 20 + 70 + 180}
+# phase 3 (384^2) 10 x (13 + 5); a x2 image at 10 steps 10 + 5 x 7. 104
+# self-attentions at L >= 512 a call: the UNet's 70 (down 4 + 20, mid 10, up
+# 30 + 6), the ControlNet's 34
+C5_CALLS = {2: 10 + 35, 3: 20 + 70 + 180}
 EXPECTED_CONFIG5 = {"flash_attention_fm": 104 * C5_CALLS[3],
                     "flash_attention_fm.sm90": 104 * C5_CALLS[3]}
 EXPECTED_CONFIG5_X2 = {"flash_attention_fm": 104 * C5_CALLS[2],
                        "flash_attention_fm.sm90": 104 * C5_CALLS[2]}
 # x2 under the four flags: #3 as #1; #4 17 a call (the transformer norms, 11 +
 # 5, and the UNet's norm_out; the ResBlock norms fold into #6), the cluster
-# form for norm_out at batch 4 (42 MB: 60 calls of phase 2); #6 22 a call
+# form for norm_out at batch 4 (42 MB: 30 calls of phase 2, its 4 full window
+# batches and 2 view batches in each of 5 steps); #6 22 a call
 # (levels 0 and 1 where C, Co <= 640 and the JAX planner fits the conv: the
 # UNet's 14, the ControlNet's 8); no #5 (DemoFusion fuses its windows itself)
 EXPECTED_CONFIG5_FLAGGED = {"flash_attention_t": 104 * C5_CALLS[2],
                             "flash_attention_t.sm90": 104 * C5_CALLS[2],
-                            "fused_group_norm": 17 * C5_CALLS[2], "fused_group_norm.cluster": 60,
-                            "fused_group_norm.two_read": 17 * C5_CALLS[2] - 60,
+                            "fused_group_norm": 17 * C5_CALLS[2], "fused_group_norm.cluster": 30,
+                            "fused_group_norm.two_read": 17 * C5_CALLS[2] - 30,
                             "fused_conv3x3": 22 * C5_CALLS[2],
                             "fused_conv3x3.sm90": 22 * C5_CALLS[2]}
 # config 2 under two more samplers: (name, #1 launches per image = 10 a UNet call)
@@ -441,14 +471,37 @@ MESH_SHARDS = (1, 2)
 EXPECTED_MESH = {1: EXPECTED_LAUNCHES,
                  2: {"flash_attention_fm": 400, "flash_attention_fm.sm90": 400,
                      "flash_attention": 2, "flash_attention.wide": 2}}
+# DemoFusion x2 on the mesh (SD1.5, config 2's pipeline): 512^2 -> 1024^2,
+# windows of 96 latent at overlap 64 (4 of them) and 4 dilated views, both in
+# calls of 2; Euler 10 steps, denoise 0.45
+DF_MESH = dict(size=512, window=96, overlap=64, steps=10, denoise=0.45)
 EXPECTED_MESH_DEEPCACHE = {"flash_attention_fm": 300, "flash_attention_fm.sm90": 300,
                            "flash_attention": 2, "flash_attention.wide": 2}
-# config 5 x2 under DeepCache N = 2: the base phase's 20 calls and phase 2's 20
-# view calls alternate full (104 flash calls: the UNet's 70, the ControlNet's
-# 34) and cached (the ControlNet's 34: SDXL's level 0 has no transformer, so
-# the UNet's cached pass has no attention); phase 2's 50 window calls run full
-C5_DC_FLASH = 104 * 10 + 34 * 10 + 104 * 50 + 104 * 10 + 34 * 10
+# config 5 x2 (10 steps) under DeepCache N = 2: the base phase's 10 calls and
+# phase 2's 10 view calls (2 a step) alternate full (104 flash calls: the
+# UNet's 70, the ControlNet's 34) and cached (the ControlNet's 34: SDXL's
+# level 0 has no transformer, so the UNet's cached pass has no attention),
+# full on the even steps: 5 + 5 and, over phase 2's steps 0-4, 6 + 4; phase
+# 2's 25 window calls run full
+C5_DC_FLASH = 104 * 5 + 34 * 5 + 104 * 25 + 104 * 6 + 34 * 4
 EXPECTED_CONFIG5_DC = {"flash_attention_fm": C5_DC_FLASH, "flash_attention_fm.sm90": C5_DC_FLASH}
+# the train step (parallel/training.py) at SD1.5's full width and 512^2
+# training size, fp32, TF32 off: batch 2 of [4, 64, 64] latents and [2, 77,
+# 768] context, 3 steps at dp = tp = 1; each step runs the UNet's 10
+# self-attentions at 4096 tokens (level 0, D = 40: 5) and 1024 (level 1, D =
+# 80: 5) through #1's fp32 sm90 form and their gradients through the backward
+# kernel; remat runs each forward twice. dp = 2 x tp = 2 on cuda:0 x 4: one
+# sample a replica, so #1 and the backward twice a step
+TRAIN = dict(batch=2, latent=64, tokens=77, steps=3, lr=1e-5)
+EXPECTED_TRAIN = {"flash_attention_fm_f32": 10, "flash_attention_fm_f32.sm90": 10,
+                  "flash_attention_bwd": 10, "flash_attention_bwd.f32": 10}
+EXPECTED_TRAIN_REMAT = dict(EXPECTED_TRAIN, **{"flash_attention_fm_f32": 20,
+                                               "flash_attention_fm_f32.sm90": 20})
+EXPECTED_TRAIN_DP2_TP2 = {k: 2 * v for k, v in EXPECTED_TRAIN.items()}
+# the backward kernel's shapes (B, H, Lq, Lk, D): the train step's levels 0
+# and 1, SD2 / SDXL's D = 64, the widest head, ragged Lq != Lk
+BWD_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 10, 4096, 4096, 64),
+              (2, 8, 576, 576, 160), (2, 8, 1000, 777, 40)]
 # SD2.1-unCLIP (ViT-H: adm 2048) on config 2's canvas and sampler: heads of D =
 # 64, 5 at level 0 and 10 at level 1, 10 flash calls a UNet call
 EXPECTED_UNCLIP = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
@@ -1117,6 +1170,7 @@ def phase_kernels():
     check_group_norm(gen, summary)
     check_tile_blend(gen, summary)
     check_conv(gen, summary)
+    check_attention_bwd(gen, summary)
     return summary
 
 
@@ -1483,23 +1537,10 @@ def _hold_to_cpu(label, run, parts, must_launch, dtypes=None, off_path=(), cpu=N
     return out
 
 
-def phase_reference(pool=None):
-    """The tiny txt2img, img2img and regional txt2img pipelines on the card
-    against the same pipelines on the CPU (plain versions): in fp32 within
-    1e-4 of the largest CPU value; in bf16 within 2x the CPU bf16 run's own
-    error against the CPU fp32 run plus 1e-3 of the largest value. With no
-    flag each card run must launch its fm kernel (in fp32 its sm90 form: the
-    heads are D = 4 and 16); with the four flags, each flagged kernel (but
-    #5 in DemoFusion, which fuses its windows itself). The same for the tiny
-    SDXL + ControlNet DemoFusion x2 (``_tiny_demofusion``). Then the tiny pipeline under every
-    sampler, with no flag, held the same way; DPM adaptive's decisions on
-    the card must equal the CPU's in fp32. In bf16 the first decision where
-    the card and the CPU differ is printed with both devices' factors, the
-    0.81 they are held against, and the yardstick of bf16's rounding: the
-    largest gap between the CPU's bf16 and fp32 factors over the decisions
-    both dtypes take alike up to that one (``within_bf16_rounding``: the
-    card's gap at most twice that, the form of the bf16 bar). The CPU runs
-    go to ``pool``'s workers (``_cpu_refs``), all submitted at the start."""
+def _reference_runs():
+    """``phase_reference``'s flag settings with the kernels each must launch,
+    its pipelines, and the CPU jobs (``_cpu_refs`` specs and flags) in the
+    order the phase reads them."""
     import torch
 
     from mdu_tpu_torch.config import Method
@@ -1523,7 +1564,31 @@ def phase_reference(pool=None):
                   ("latent", "image"), ()))
     jobs = [(spec, flags) for flags, _ in runs for _, spec, _, _ in pipelines]
     jobs += [(("_tiny_sampler", (name, churn)), {}) for name, churn in TINY_SAMPLERS]
-    get = _submit_refs(pool, jobs)
+    return runs, pipelines, jobs
+
+
+def phase_reference(get=None):
+    """The tiny txt2img, img2img and regional txt2img pipelines on the card
+    against the same pipelines on the CPU (plain versions): in fp32 within
+    1e-4 of the largest CPU value; in bf16 within 2x the CPU bf16 run's own
+    error against the CPU fp32 run plus 1e-3 of the largest value. With no
+    flag each card run must launch its fm kernel (in fp32 its sm90 form: the
+    heads are D = 4 and 16); with the four flags, each flagged kernel (but
+    #5 in DemoFusion, which fuses its windows itself). The same for the tiny
+    SDXL + ControlNet DemoFusion x2 (``_tiny_demofusion``). Then the tiny pipeline under every
+    sampler, with no flag, held the same way; DPM adaptive's decisions on
+    the card must equal the CPU's in fp32. In bf16 the first decision where
+    the card and the CPU differ is printed with both devices' factors, the
+    0.81 they are held against, and the yardstick of bf16's rounding: the
+    largest gap between the CPU's bf16 and fp32 factors over the decisions
+    both dtypes take alike up to that one (``within_bf16_rounding``: the
+    card's gap at most twice that, the form of the bf16 bar). ``get`` reads
+    the CPU runs (``_submit_refs`` of ``_reference_runs``' jobs, submitted to
+    the pool before the kernel checks); without it they run here."""
+    import torch
+
+    runs, pipelines, jobs = _reference_runs()
+    get = get or _submit_refs(None, jobs)
     done = 0
     for flags, must_launch in runs:
         with flags_set(flags):
@@ -1989,7 +2054,9 @@ def phase_upscale8k():
     settings with the 8K's fast tiled VAE (encoder tile 512, decoder tile 64,
     ``tile_batch`` 8), ``decode=False`` and then ``_decode_tensor``, as
     ``bench.py:508-513`` does. Its launches must equal the pinned counts, and
-    the output must be [1, 3, 8192, 8192] and finite. Returns its launches."""
+    the output must be [1, 3, 8192, 8192] and finite; its plan must decide
+    the scan (18 tile batches, the JAX rule's threshold 8), which runs
+    unrolled. Returns its launches."""
     import numpy as np
     import torch
 
@@ -2002,6 +2069,10 @@ def phase_upscale8k():
                         fast_encoder=True, tile_batch=CFG8K["tile_batch"])
     src = (np.random.default_rng(1).random((CFG8K["image"],) * 2 + (3,)) * 255
            ).astype(np.uint8)
+    side = int(CFG8K["image"] * CFG3["scale"])
+    plan = pipe._plan(td, side // 8, side // 8)
+    require(plan.scan_tiles and plan.num_batches == 18,
+            f"8K upscale: scan_tiles {plan.scan_tiles}, {plan.num_batches} tile batches")
     pipe.free_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2015,15 +2086,14 @@ def phase_upscale8k():
     launches = dict(LAUNCHES)
     want = {k: EXPECTED_8K.get(k, 0) for k in launches}
     require(launches == want, f"8K upscale: launches {launches}, expected {want}")
-    side = int(CFG8K["image"] * CFG3["scale"])
     require(tuple(out.shape) == (1, 3, side, side), f"8K upscale: output {tuple(out.shape)}")
     require(bool(torch.isfinite(out).all()), "8K upscale: non-finite output")
     emit("upscale8k", config="2K -> 8K: MoD img2img x4 2048 -> 8192 with noise inversion, "
                              "fast tiled VAE, SD1.5 bf16", flags={}, seconds=seconds,
          img_per_min=60.0 / seconds, stage_seconds=dict(stages),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-         output_shape=list(out.shape), finite=True, launches=launches,
-         expected_launches=EXPECTED_8K)
+         output_shape=list(out.shape), finite=True, scan_tiles=plan.scan_tiles,
+         tile_batches=plan.num_batches, launches=launches, expected_launches=EXPECTED_8K)
     del pipe, cond, uncond, res, out
     torch.cuda.empty_cache()
     return launches
@@ -2102,9 +2172,11 @@ def phase_demofusion():
     size, latent = CFG5["size"], CFG5["size"] // 8
     out = {}
     # the last run: DeepCache N = 2 on the global views (and the base phase)
-    sp_dc = dataclasses.replace(sp, deepcache=2)
-    runs = (("warm x2", {}, 2, EXPECTED_CONFIG5_X2, sp), ("default", {}, 3, EXPECTED_CONFIG5, sp),
-            ("flagged x2", FLAGS, 2, EXPECTED_CONFIG5_FLAGGED, sp),
+    sp_x2 = dataclasses.replace(sp, steps=CFG5["steps_x2"])
+    sp_dc = dataclasses.replace(sp_x2, deepcache=2)
+    runs = (("warm x2", {}, 2, EXPECTED_CONFIG5_X2, sp_x2),
+            ("default", {}, 3, EXPECTED_CONFIG5, sp),
+            ("flagged x2", FLAGS, 2, EXPECTED_CONFIG5_FLAGGED, sp_x2),
             ("deepcache x2", {}, 2, EXPECTED_CONFIG5_DC, sp_dc))
     results = {}
     for label, flags, scale, expected, sp_run in runs:
@@ -2138,7 +2210,7 @@ def phase_demofusion():
                 (res.latents.float() - results["warm x2"].float()).abs().mean())
         emit("demofusion", config="config 5: SDXL DemoFusion with ControlNet, 1024 -> "
                                   f"{size * scale}, bf16", run=label, flags=flags, scale=scale,
-             sampler=sp.name, steps=sp.steps, cfg_scale=sp.cfg_scale,
+             sampler=sp.name, steps=sp_run.steps, cfg_scale=sp.cfg_scale,
              deepcache=sp_run.deepcache, **extra,
              denoising_strength=sp.denoising_strength, window=cfg.window_size,
              overlap=cfg.overlap, tile_bs=cfg.tile_bs, tile_bs_g=cfg.tile_bs_g,
@@ -2301,7 +2373,277 @@ def phase_mesh():
              decoder_tile=tv.decoder_tile_size, lockstep_s=decoded[name, 0][1],
              sharded_s=decoded[name, 2][1], max_abs_diff=diff, uint8_levels=levels,
              bar=("1 uint8 level" if name == "fp32" else bar), bf16_lockstep_error=e)
+    out.update(run_mesh_demofusion(pipe, cond, uncond))
     del pipe, cond, uncond
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_demofusion(pipe, cond, uncond):
+    """DemoFusion x2 of config 2's SD1.5 (bf16) from 512^2 (``DF_MESH``: 4
+    windows of 96 latent in 2 calls, 4 views in 2, Euler) on one device and
+    on two shards of cuda:0: each shard takes one window call and one view
+    call, of one device's shapes, so the latents should be one device's to
+    the bit; else within 1e-3 x max (the mesh's bar), and the line says so.
+    #1 10 a UNet call at 64^2 (base, views), 15 at 96^2 (windows); no
+    decode."""
+    import torch
+
+    from mdu_tpu_torch import DemoFusionConfig, SamplerConfig
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mdu_tpu_torch.parallel import make_tile_mesh
+
+    cfg = DemoFusionConfig(scale_factor=2, window_size=DF_MESH["window"],
+                           overlap=DF_MESH["overlap"], tile_bs=2, tile_bs_g=2)
+    sp = SamplerConfig(name="Euler", steps=DF_MESH["steps"], cfg_scale=7.0,
+                       denoising_strength=DF_MESH["denoise"])
+    # phase 2 samples the last t_enc + 1 sigmas' t_enc + 1 steps (Euler: one
+    # call a step), 2 window calls and 2 view calls each; the base's and the
+    # views' calls at 64^2 (levels 0 and 1 at >= 512 tokens: 10 #1 a call),
+    # the windows' at 96^2 (levels 0-2: 15)
+    n2 = pipe.schedule.img2img_steps(sp.steps, DF_MESH["denoise"])[1] + 1
+    calls = sp.steps + n2 * 4
+    flash = 10 * (sp.steps + n2 * 2) + 15 * n2 * 2
+    expected = {"flash_attention_fm": flash, "flash_attention_fm.sm90": flash}
+    res, out = {}, {}
+    for shards in (0, 2):
+        label = f"DemoFusion x2, {'2 shards on cuda:0' if shards else 'one device'}"
+        pipe.mesh = make_tile_mesh(devices=["cuda:0"] * shards) if shards else None
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[shards] = pipe.demofusion(cond, uncond, DF_MESH["size"], DF_MESH["size"], cfg,
+                                          sp, seed=3, decode=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            pipe.mesh = None
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        require(launches == expected, f"mesh {label}: launches {launches}, expected {expected}")
+        lat = res[shards].latents
+        require(tuple(lat.shape) == (1, 4, DF_MESH["size"] // 4, DF_MESH["size"] // 4)
+                and bool(torch.isfinite(lat).all()), f"mesh {label}: latents {tuple(lat.shape)}")
+        fields = dict(seconds=seconds, launches_per_image=launches)
+        if shards:
+            want = res[0].latents.float()
+            diff = (lat.float() - want).abs().max().item()
+            bar = 1e-3 * want.abs().max().item()
+            require(diff <= bar, f"mesh {label}: latents {diff} from one device's, bar {bar}")
+            fields.update(latents_bitwise_equal=diff == 0.0, latents_max_abs_diff=diff,
+                          latents_bar=bar)
+        emit("mesh", run=label, config="SD1.5 bf16 (config 2's), DemoFusion x2 from "
+             f"{DF_MESH['size']}^2", shards=shards or 1, unet_calls=calls, **DF_MESH,
+             expected_launches=expected, **fields)
+        out[label] = launches
+    return out
+
+
+def check_attention_bwd(gen, summary):
+    """The backward kernel at ``BWD_SHAPES`` in fp32 and bf16, held to autograd
+    through #1's fp32 plain version on the same inputs: fp32 within 1e-4 of
+    the largest gradient, bf16 within 2x the bf16 plain version's error + 1e-3
+    of it (each of dQ, dK, dV; the line gives the largest error over the
+    three, relative to that gradient's largest entry). Times: the kernel
+    (events and device), the plain version (``flash_attention_bwd_plain``),
+    and the backward of ``F.scaled_dot_product_attention`` at the same shape
+    as the yardstick (its forward run once, outside the timing). Bound: 12
+    B H Lq Lk D operations (2.5x the forward's products for dQ, dK, dV and the
+    recomputed Q K^T) against q, k, v, O, dO read and dQ, dK, dV written;
+    fp32 at three TF32 passes, with the CUDA cores' FMA bound beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdu_tpu_torch.ops.kernels import flash
+    from mdu_tpu_torch.ops.kernels.flash_bwd import (flash_attention_bwd,
+                                                      flash_attention_bwd_plain)
+
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Lq, Lk, D in BWD_SHAPES:
+            base = [torch.randn(B, H, L, D, generator=gen, device="cuda")
+                    for L in (Lq, Lk, Lk)]
+            do = torch.randn(B, H, Lq, D, generator=gen, device="cuda")
+
+            def autograd_of_plain(dt):
+                ts = [x.to(dt).requires_grad_() for x in base]
+                return torch.autograd.grad(flash.flash_attention_fm_plain(*ts), ts, do.to(dt))
+
+            ref = autograd_of_plain(torch.float32)
+            q, k, v = (x.to(dtype) for x in base)
+            g = do.to(dtype)
+            o = flash.flash_attention_fm(q, k, v)
+            got = flash_attention_bwd(q, k, v, o, g)
+            torch.cuda.synchronize()
+            own = autograd_of_plain(dtype) if dtype == torch.bfloat16 else None
+            errs, tols = [], []
+            for i, (a, r) in enumerate(zip(got, ref)):
+                scale = r.abs().max().item()
+                require(bool(torch.isfinite(a).all()), f"flash_attention_bwd: non-finite d{i}")
+                errs.append((a.float() - r).abs().max().item() / scale)
+                tols.append(1e-4 if dtype == torch.float32 else
+                            2 * (own[i].float() - r).abs().max().item() / scale + 1e-3)
+            for i in range(3):
+                require(errs[i] <= tols[i], f"flash_attention_bwd {dtype} {(B, H, Lq, Lk, D)}: "
+                                            f"gradient {i} error {errs[i]} > {tols[i]} x max")
+            del ref, own
+            big = B * H * Lq * Lk > 1e8
+            kern = lambda: flash_attention_bwd(q, k, v, o, g)
+            plain = lambda: flash_attention_bwd_plain(q, k, v, o, g)
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+            lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), g, retain_graph=True)
+            iters = 5 if big else 20
+            flops = 12.0 * B * H * Lq * Lk * D
+            nbytes = 4.0 * (Lq + Lk) * B * H * D * q.element_size()
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+            bound_ms, bound_by = bound(flops, nbytes, q.element_size(), peak)
+            check = dict(shape=[B, H, Lq, Lk, D], dtype=_dtype_name(dtype),
+                         max_abs_err=max(errs), errors=errs, tol=min(tols),
+                         ms=cuda_ms(kern, iters), device_ms=device_ms(kern, iters),
+                         plain_ms=cuda_ms(plain, 2, warmup=1), library_ms=cuda_ms(lib, iters),
+                         library_device_ms=device_ms(lib, iters), library_backend=
+                         sdpa_backend(q, k, v), bound_ms=bound_ms, bound_by=bound_by,
+                         error_basis="largest |got - autograd of the fp32 plain version| "
+                                     "over dQ, dK, dV, each over that gradient's largest")
+            if dtype == torch.float32:
+                check["fma_bound_ms"] = bound(flops, nbytes, 4, PEAK_FP32_FLOPS)[0]
+            emit("kernel_check", name="flash_attention_bwd", **check)
+            checks.append(check)
+            del q, k, v, o, g, got, base, do, qs, ks, vs, lib_out
+            torch.cuda.empty_cache()
+    summary["flash_attention_bwd"] = checks
+
+
+def phase_train():
+    """The dp x tp train step (``make_train_step``) at SD1.5's full width,
+    random fp32 weights drawn on the card, TF32 off: 3 steps of batch 2 at dp
+    = tp = 1 (finite losses; seconds a step, samples/s, peak memory), step 1
+    again under remat, step 1 with the long attentions routed through #1's
+    plain version (a patch of ``ops.attention._flash_variant`` here, never a
+    switch of the package), and step 1 at dp = 2 x tp = 2 on cuda:0 x 4; the
+    launches of each step pinned. Each variant against the kernel step 1:
+    the loss within 1e-5 relative, the gradient (AdamW's exp_avg, 0.1 g)
+    within 1e-3 of its largest entry against the plain route and 1e-4 under
+    remat and on the mesh, and the parameters after the step where |g| is 10x
+    that bar within 1e-3 x lr (elsewhere Adam's first step lr g / (|g| + eps)
+    is rounding noise's sign, held to its bound lr (1 + wd |theta|)). The 30
+    weights that carry the backward kernel's output (to_q, to_k, to_v of the
+    10 self-attentions at levels 0 and 1) are held each to the same bar of
+    its own largest entry, so that a fault the shared bar would hide in
+    their small gradients still fails. Returns each run's launches per
+    step."""
+    import torch
+
+    from mdu_tpu_torch.models import UNet2DCondition, random_state_dict, sd15_unet_config
+    from mdu_tpu_torch.ops import attention as attention_mod
+    from mdu_tpu_torch.ops.kernels import LAUNCHES, flash, reset_launches
+    from mdu_tpu_torch.parallel import make_train_mesh, make_train_step
+
+    smi = nvidia_smi_line()
+    with torch.device("meta"):
+        unet = UNet2DCondition(sd15_unet_config(), dtype=torch.float32)
+    unet.load_state_dict(random_state_dict(unet, 0, torch.float32, device="cuda"),
+                         assign=True)
+    params0 = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, hw = TRAIN["batch"], TRAIN["latent"]
+    lat = torch.randn(n, 4, hw, hw, generator=gen, device="cuda")
+    ctx = torch.randn(n, TRAIN["tokens"], 768, generator=gen, device="cuda") * 0.1
+    batch = {"latents": lat, "context": ctx}
+    draws = [{"t": torch.randint(0, 1000, (n,), generator=gen, device="cuda"),
+              "noise": torch.randn(lat.shape, generator=gen, device="cuda")}
+             for _ in range(TRAIN["steps"])]
+
+    def run(label, dp, tp, expected, steps=1, remat=False):
+        mesh = make_train_mesh(dp, tp, devices=["cuda:0"] * (dp * tp))
+        init_state, jitted = make_train_step(unet, mesh, learning_rate=TRAIN["lr"],
+                                             remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, p_shard = init_state(params0)
+        step = jitted(p_shard)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        losses, times = [], []
+        for i in range(steps):
+            reset_launches()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch, draws[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            want = {k: v for k, v in expected.items() if v}
+            require(launches == want, f"train {label} step {i + 1}: launches {launches}, "
+                                      f"expected {want}")
+            if i == 0:              # copies: the next steps update in place
+                first = dict(loss=losses[0],
+                             mu={k: opt.moment("exp_avg", k).clone() for k in params.names},
+                             params={k: v.clone() for k, v in params.state_dict().items()})
+        require(all(math.isfinite(x) for x in losses), f"train {label}: losses {losses}")
+        fields = dict(run=label, dp=dp, tp=tp, remat=remat, batch=n,
+                      latents=list(lat.shape), context=list(ctx.shape), losses=losses,
+                      step_s=times, setup_s=setup_s,
+                      samples_per_s=(n * (steps - 1) / sum(times[1:]) if steps > 1 else None),
+                      seconds_per_step=(sum(times[1:]) / (steps - 1) if steps > 1 else times[0]),
+                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                      launches_per_step=launches, nvidia_smi=smi)
+        del params, opt, step
+        torch.cuda.empty_cache()
+        return first, fields
+
+    kernel_leaves = [k for k in params0 if re.fullmatch(
+        r"(down_[01]|up_[23])_attn_\d+\.block_\d+\.attn1\.to_[qkv]\.weight", k)]
+    require(len(kernel_leaves) == 30, f"train: {len(kernel_leaves)} attention leaves at "
+                                      f"levels 0 and 1, expected 30")
+
+    def hold(label, got, ref, bar):
+        dl = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        require(dl <= 1e-5, f"train {label}: loss {got['loss']} against {ref['loss']}")
+        gmax = max(m.abs().max().item() for m in ref["mu"].values())
+        g_err = max((got["mu"][k] - m).abs().max().item() for k, m in ref["mu"].items())
+        require(g_err <= bar * gmax, f"train {label}: gradient {g_err} > {bar} x {gmax}")
+        attn_rel = 0.0
+        for k in kernel_leaves:
+            lmax = ref["mu"][k].abs().max().item()
+            err = (got["mu"][k] - ref["mu"][k]).abs().max().item()
+            require(err <= bar * lmax, f"train {label}: {k} gradient {err} > {bar} x {lmax}")
+            attn_rel = max(attn_rel, err / lmax)
+        p_err, over = 0.0, 0
+        for k, theta1 in ref["params"].items():
+            step_got, step_ref = got["params"][k] - params0[k], theta1 - params0[k]
+            firm = ref["mu"][k].abs() >= 10 * bar * gmax
+            if firm.any():
+                p_err = max(p_err, (step_got - step_ref)[firm].abs().max().item())
+            lim = TRAIN["lr"] * (1 + 1e-4 * params0[k].abs()) + 2e-7 * params0[k].abs()
+            over += int((step_got.abs() > lim).sum().item())
+        require(p_err <= 1e-3 * TRAIN["lr"], f"train {label}: parameters {p_err} from the "
+                                             f"kernel step's")
+        require(over == 0, f"train {label}: {over} parameters moved past Adam's bound")
+        return dict(loss_rel_diff=dl, gradient_max_abs_diff=g_err, gradient_max=gmax,
+                    gradient_bar=bar * gmax, attention_leaf_max_rel_diff=attn_rel,
+                    attention_leaf_bar=bar, firm_param_max_abs_diff=p_err)
+
+    out = {}
+    ref, fields = run("dp 1 x tp 1", 1, 1, EXPECTED_TRAIN, steps=TRAIN["steps"])
+    emit("train", **fields)
+    out["dp 1 x tp 1"] = fields["launches_per_step"]
+    got, fields = run("remat", 1, 1, EXPECTED_TRAIN_REMAT, remat=True)
+    emit("train", **fields, **hold("remat", got, ref, 1e-4))
+    out["remat"] = fields["launches_per_step"]
+    saved = attention_mod._flash_variant
+    attention_mod._flash_variant = lambda D: flash.flash_attention_fm_plain
+    try:
+        got, fields = run("plain attention", 1, 1, {})
+    finally:
+        attention_mod._flash_variant = saved
+    emit("train", **fields, **hold("plain attention", got, ref, 1e-3))
+    got, fields = run("dp 2 x tp 2 on cuda:0 x 4", 2, 2, EXPECTED_TRAIN_DP2_TP2)
+    emit("train", **fields, **hold("dp 2 x tp 2", got, ref, 1e-4))
+    out["dp 2 x tp 2"] = fields["launches_per_step"]
+    del unet, params0, ref, got
     torch.cuda.empty_cache()
     return out
 
@@ -2663,15 +3005,9 @@ def _tiny_esrgan(device: str, dtype):
     return (esrgan_upscaler(model)(x.to(device), 4.0).float().cpu(),)
 
 
-def phase_reference_adapters(pool=None):
-    """This slice's tiny paths on the card against the CPU, held as
-    ``_hold_to_cpu`` holds them (fp32 within 1e-4 of the largest CPU value,
-    bf16 within 2x the CPU bf16 run's error + 1e-3 of it): DeepCache N = 2 on
-    a tiled txt2img with a BACKGROUND region under Euler, Heun and Euler a; a
-    DemoFusion x2 with DeepCache and an AND cond; StableSR + ControlNet on a
-    tiled img2img; image CFG 1.5; unCLIP; a tiny ESRGAN upscale (no kernel:
-    its convs are cuDNN's). Each card run of a UNet must launch its #1. The
-    CPU runs go to ``pool``'s workers, as in ``phase_reference``."""
+def _adapter_runs():
+    """``phase_reference_adapters``' runs: (label, the ``_cpu_refs`` spec,
+    parts, the kernels each card run must launch by dtype)."""
     import torch
 
     fm = {torch.float32: ["flash_attention_fm_f32"], torch.bfloat16: ["flash_attention_fm"]}
@@ -2685,7 +3021,22 @@ def phase_reference_adapters(pool=None):
              ("unCLIP", ("_tiny_unclip", None), ("latent",), fm),
              ("ESRGAN x4", ("_tiny_esrgan", None), ("image",),
               {torch.float32: [], torch.bfloat16: []})]
-    get = _submit_refs(pool, [(spec, {}) for _, spec, _, _ in runs])
+    return runs
+
+
+def phase_reference_adapters(get=None):
+    """This slice's tiny paths on the card against the CPU, held as
+    ``_hold_to_cpu`` holds them (fp32 within 1e-4 of the largest CPU value,
+    bf16 within 2x the CPU bf16 run's error + 1e-3 of it): DeepCache N = 2 on
+    a tiled txt2img with a BACKGROUND region under Euler, Heun and Euler a; a
+    DemoFusion x2 with DeepCache and an AND cond; StableSR + ControlNet on a
+    tiled img2img; image CFG 1.5; unCLIP; a tiny ESRGAN upscale (no kernel:
+    its convs are cuDNN's). Each card run of a UNet must launch its #1.
+    ``get`` reads the CPU runs, as in ``phase_reference``."""
+    import torch
+
+    runs = _adapter_runs()
+    get = get or _submit_refs(None, [(spec, {}) for _, spec, _, _ in runs])
     for i, (label, (fn, args), parts, must) in enumerate(runs):
         run = globals()[fn] if args is None else globals()[fn](*args)
         refs, _, _, cpu_s = get(i)
@@ -3890,7 +4241,7 @@ def phase_stream8k():
 
 
 def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, config5=None,
-                slice_runs=None):
+                slice_runs=None, train=None):
     """The ``{"kernels": [...]}`` rows: every kernel at its main (first)
     config-2 shape, with its launches per image in the config-2 run that
     takes it (the flagged run for the flagged kernels, the fp32 image for the
@@ -3989,6 +4340,31 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, co
             rows.append(row(name + ".wide", name, wide, "fm", [(2, 1, 9600, 512)],
                             "mdu_tpu_torch/csrc/flash_attention_wide_sm90.cuh",
                             launch_key=name + ".wide", entry="mdu_flash_attention_fm_wide"))
+    if "flash_attention_bwd" in checks:
+        # the backward of #1-#3 (no TPU kernel has one); its main shape the
+        # train step's level 0 in fp32, launches per train step
+        bwd = checks["flash_attention_bwd"]
+        main = bwd[0]
+        rows.append(dict(
+            name="flash_attention_bwd", route="cuda",
+            source="mdu_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="mdu_tpu/ops/pallas/flash_attention.py:215",
+            replaces_note="the gradient of flash_attention_t_fm (and of :335, :282); the "
+                          "Pallas kernels have none",
+            launches=(train or {}).get("dp 1 x tp 1", {}).get("flash_attention_bwd", 0),
+            launches_run="train, dp 1 x tp 1, per step",
+            train_launches={k: v.get("flash_attention_bwd", 0) for k, v in (train or {}).items()},
+            max_abs_err=max(c["max_abs_err"] for c in bwd), ms=main["ms"],
+            device_ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], fma_bound_ms=main.get("fma_bound_ms"),
+            library_ms=main["library_ms"], library_device_ms=main["library_device_ms"],
+            library="torch.autograd.grad of F.scaled_dot_product_attention",
+            shape=main["shape"], dtype=main["dtype"],
+            shapes=[{f: c.get(f) for f in ("shape", "dtype", "max_abs_err", "tol", "ms",
+                                           "device_ms", "plain_ms", "library_ms",
+                                           "library_device_ms", "library_backend",
+                                           "bound_ms", "bound_by", "fma_bound_ms")}
+                    for c in bwd]))
     return rows
 
 
@@ -3998,7 +4374,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,reference,txt2img,samplers,deepcache,mesh,unclip,prompts,"
                             "load,cli,layouts,img2img,adapters,stream,regional,upscale8k,"
-                            "demofusion",
+                            "train,demofusion",
                     help="comma-separated phases after device and build (stream8k and "
                          "reference_cli, a part of reference, run only when named)")
     phases = set(ap.parse_args().phases.split(","))
@@ -4043,16 +4419,21 @@ def main() -> int:
         finally:
             phase_s[name] = time.perf_counter() - t0
 
-    if "kernels" in phases:
-        checks = timed("kernels", phase_kernels)
-        emit("kernels", kernels={k: [dict(shape=c["shape"], dtype=c["dtype"],
-                                          max_abs_err=c["max_abs_err"], tol=c["tol"])
-                                     for c in v] for k, v in checks.items()})
-    if "reference" in phases:
-        with _cpu_pool() as pool:
-            timed("reference", lambda: phase_reference(pool))
+    with _cpu_pool() if "reference" in phases else contextlib.nullcontext() as pool:
+        if pool is not None:
+            # the reference phases' CPU runs start now, on the pool's workers
+            # beside the kernel checks, which leave the host's other cores idle
+            ref_get = _submit_refs(pool, _reference_runs()[2])
+            adapters_get = _submit_refs(pool, [(spec, {}) for _, spec, _, _ in _adapter_runs()])
+        if "kernels" in phases:
+            checks = timed("kernels", phase_kernels)
+            emit("kernels", kernels={k: [dict(shape=c["shape"], dtype=c["dtype"],
+                                              max_abs_err=c["max_abs_err"], tol=c["tol"])
+                                         for c in v] for k, v in checks.items()})
+        if pool is not None:
+            timed("reference", lambda: phase_reference(ref_get))
             timed("reference_slice", phase_reference_slice)
-            timed("reference_adapters", lambda: phase_reference_adapters(pool))
+            timed("reference_adapters", lambda: phase_reference_adapters(adapters_get))
     if "reference" in phases or "reference_cli" in phases:
         timed("reference_cli", phase_reference_cli)
     if "txt2img" in phases:
@@ -4083,6 +4464,7 @@ def main() -> int:
     up8k = timed("upscale8k", phase_upscale8k) if "upscale8k" in phases else None
     if "stream8k" in phases:
         slice_runs["stream8k"] = {"decode": timed("stream8k", phase_stream8k)}
+    train = timed("train", phase_train) if "train" in phases else None
     config5 = timed("demofusion", phase_demofusion) if "demofusion" in phases else None
     if config5 is not None:
         slice_runs["demofusion_deepcache"] = {"x2": config5.pop("deepcache x2")}
@@ -4090,7 +4472,7 @@ def main() -> int:
     emit("done", seconds=time.perf_counter() - t_start, phases=sorted(phases),
          phase_seconds=phase_s)
     print(json.dumps({"kernels": kernel_rows(checks, launches, config3, up8k, config4,
-                                             config5, slice_runs)}))
+                                             config5, slice_runs, train)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -155,31 +155,21 @@ def _load(args):
     import torch
 
     from .device import resolve_device
-    from .models.loader import load_pipeline
+    from .models.loader import load_model
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     args._device = device = resolve_device(getattr(args, "device", None))
     print(f"loading checkpoint from {args.model_dir} ...", file=sys.stderr)
-    if args.model_dir.endswith((".safetensors", ".ckpt")):
-        # single-file A1111-style checkpoint (LDM naming)
-        from .models.single_file import load_single_file
-
-        pipe, conditioner = load_single_file(
-            args.model_dir, dtype=dtype,
-            tokenizer_dir=getattr(args, "tokenizer_dir", None), device=device)
-    else:
-        pipe, conditioner = load_pipeline(args.model_dir, dtype=dtype, device=device)
+    pipe, conditioner = load_model(args.model_dir, dtype, device,
+                                   getattr(args, "tokenizer_dir", None))
     if getattr(args, "devices", 1) > 1:
         from .parallel import make_tile_mesh
 
         devs = _devices(args)
         if len(devs) > 1:
-            if args.fn is cmd_demofusion:
-                from .pipeline import MESH_DEMOFUSION
-
-                raise NotImplementedError(MESH_DEMOFUSION)
             pipe.mesh = make_tile_mesh(devices=devs)
-            print(f"sharding grid tiles over {len(devs)} devices", file=sys.stderr)
+            what = "windows and views" if args.fn is cmd_demofusion else "grid tiles"
+            print(f"sharding {what} over {len(devs)} devices", file=sys.stderr)
     if getattr(args, "controlnet", None):
         from .models.loader import load_controlnet
 

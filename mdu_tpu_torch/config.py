@@ -49,6 +49,12 @@ class TiledDiffusionConfig:
     # pad every tile UNet batch to exactly tile_bs (same call shape for
     # every batch)
     deterministic: bool = False
+    # the JAX package's switch for its lax.scan grid, decided by its rule
+    # into the plan's ``scan_tiles`` (None: when the batches reach
+    # MDU_TILE_SCAN_THRESHOLD, 8; never under ``deterministic``). The scan
+    # bounds a compile and gives the unrolled result; the eager port runs
+    # the batches unrolled either way
+    tile_scan: Optional[bool] = None
 
     def validate(self) -> "TiledDiffusionConfig":
         """A copy with the overlap clamped below the tile size
@@ -97,11 +103,10 @@ class DemoFusionConfig:
     gaussian_filter: bool = True
     keep_intermediate: bool = True
     denoise_strengths: Tuple[float, ...] = (0.45,)  # per-phase strengths
-    # accepted for the JAX signature's sake and never read: the JAX package
-    # can run the window and view batches as a ``lax.scan`` to bound its
-    # compile memory, which gives the unrolled form's result
-    # (tests/test_demofusion.py::test_demofusion_scan_matches_unrolled);
-    # the port always runs them one after another
+    # the JAX package's switch for its windows' lax.scan, decided by its
+    # rule (``tiling/demofusion.py::resolve_df_scan``; None: MDU_DF_SCAN,
+    # else at MDU_TILE_SCAN_THRESHOLD, 8, or more batches a phase); the
+    # eager port runs the batches unrolled either way
     scan_windows: Optional[bool] = None
 
 

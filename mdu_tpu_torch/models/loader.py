@@ -433,3 +433,15 @@ def load_guidance(path: str, unet_cfg, dtype: torch.dtype = torch.float32,
     with torch.device("meta"):
         gm = StableSRGuidance(unet_cfg, guidance_scale=guidance_scale, dtype=dtype)
     return load_module(gm, state, lambda name: name, dtype, device)
+
+
+def load_model(path: str, dtype: torch.dtype = torch.float32, device=None,
+               tokenizer_dir: Optional[str] = None):
+    """(DiffusionPipeline, conditioner) from a diffusers folder or an A1111
+    single file (``.safetensors`` / ``.ckpt``, LDM naming), as the command
+    line's ``--model-dir`` takes either."""
+    if path.endswith((".safetensors", ".ckpt")):
+        from .single_file import load_single_file
+
+        return load_single_file(path, dtype=dtype, tokenizer_dir=tokenizer_dir, device=device)
+    return load_pipeline(path, dtype=dtype, device=device)

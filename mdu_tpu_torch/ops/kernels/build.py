@@ -35,6 +35,7 @@ SOURCES = {
     "group_norm": "group_norm.cu",
     "tile_blend": "tile_blend.cu",
     "conv3x3": "conv3x3.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

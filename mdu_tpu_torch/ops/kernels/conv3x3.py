@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .launch import aligned16, launch, ptr
+from .launch import aligned16, launch, ptr, refuse_grad
 
 __all__ = ["fused_conv3x3", "fused_conv3x3_plain", "pack_conv3x3_weight",
            "conv3x3_plan_fits", "conv_form", "launch_form", "conv_f32_form",
@@ -196,6 +196,8 @@ def fused_conv3x3(x, w, scale=None, shift=None, fuse_act: bool = False,
     Returns [B, H, W, Co]."""
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, scale, shift, fuse_act)
+    refuse_grad("fused_conv3x3", "train with MDU_FUSED_CONV off (the backward of #6 is "
+                "ROADMAP item 26)", x, w, scale, shift)
     if x.device.type != "cuda" or x.dim() != 4 or x.dtype not in (torch.bfloat16,
                                                                  torch.float32):
         raise ValueError(f"fused_conv3x3: needs a CUDA NHWC bf16 or fp32 tensor, got "

@@ -52,6 +52,12 @@ keeps fp32's precision (``csrc/flash_attention_f32_sm90.cuh``):
 PyTorch's own fp32 matmuls stay out of TF32 in the parity runs (a reference
 sets ``allow_tf32`` False); these kernels are held to 1e-4 of the fp32 plain
 version instead.
+
+Gradients: where grad mode is on and q, k or v requires grad, each wrapper
+runs its forward kernel inside a ``torch.autograd.Function`` that saves q,
+k, v and the output, and whose backward launches
+``csrc/flash_attention_bwd.cu`` (``flash_bwd.py``): the gradient of exact
+softmax attention, for D <= 160. Without grad the forward runs as it is.
 """
 from __future__ import annotations
 
@@ -60,12 +66,13 @@ from typing import Optional
 
 import torch
 
+from .flash_bwd import BWD_MAX_D, flash_attention_bwd, flash_attention_bwd_plain
 from .launch import LAUNCHES, aligned16, launch, ptr, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_fm", "flash_attention",
            "flash_attention_t", "flash_attention_fm_plain", "flash_attention_plain",
            "flash_attention_t_plain", "bf16_form", "launch_form", "f32_form",
-           "launch_f32_form"]
+           "launch_f32_form", "flash_attention_bwd", "flash_attention_bwd_plain"]
 
 MAX_D = {"flash_attention_fm": 512, "flash_attention": 512, "flash_attention_t": 512,
          "flash_attention_fm_f32": 512, "flash_attention_f32": 512,
@@ -148,6 +155,41 @@ def flash_attention_t_plain(q, k, v, scale: Optional[float] = None):
 
 
 # ------------------------------------------------------------------ wrappers
+
+
+class _WithBackward(torch.autograd.Function):
+    """A forward kernel's output whose gradient comes from the backward
+    kernel (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, run, scale):
+        o = run(q, k, v)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _differentiable(name: str, run, q, k, v, scale: Optional[float], clamp: bool = False):
+    """``run(q, k, v)``, inside ``_WithBackward`` where autograd needs its
+    gradient. Refuses what the backward kernel does not compute: heads wider
+    than 160 (ROADMAP item 28) and the clamped shift."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        return run(q, k, v)
+    if q.shape[-1] > BWD_MAX_D:
+        raise NotImplementedError(f"{name}: heads wider than {BWD_MAX_D} (D = "
+                                  f"{q.shape[-1]}) have no backward kernel yet (ROADMAP "
+                                  f"item 28)")
+    if clamp:
+        raise NotImplementedError(f"{name}: the clamped shift has no backward kernel")
+    return _WithBackward.apply(q, k, v, run, q.shape[-1] ** -0.5 if scale is None else scale)
+
 
 
 def _check(name: str, q, k, v) -> None:
@@ -258,12 +300,16 @@ def flash_attention_fm(q, k, v, scale: Optional[float] = None,
     if q.device.type == "cpu":
         return flash_attention_fm_plain(q, k, v, scale, smax, clamp, bf16_exp)
     _check("flash_attention_fm", q, k, v)
-    if q.dtype == torch.float32:
-        name = "flash_attention_fm_f32"
-        return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale, smax, clamp,
-                               bf16_exp)
-    return launch_form("flash_attention_fm", bf16_form("flash_attention_fm", q, k, v),
-                       q, k, v, scale, smax, clamp, bf16_exp)
+
+    def run(q, k, v):
+        if q.dtype == torch.float32:
+            name = "flash_attention_fm_f32"
+            return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale, smax,
+                                   clamp, bf16_exp)
+        return launch_form("flash_attention_fm", bf16_form("flash_attention_fm", q, k, v),
+                           q, k, v, scale, smax, clamp, bf16_exp)
+
+    return _differentiable("flash_attention_fm", run, q, k, v, scale, clamp)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -273,11 +319,15 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _check("flash_attention", q, k, v)
-    if q.dtype == torch.float32:
-        name = "flash_attention_f32"
-        return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale)
-    return launch_form("flash_attention", bf16_form("flash_attention", q, k, v),
-                       q, k, v, scale)
+
+    def run(q, k, v):
+        if q.dtype == torch.float32:
+            name = "flash_attention_f32"
+            return launch_f32_form(name, f32_form(name, q, k, v), q, k, v, scale)
+        return launch_form("flash_attention", bf16_form("flash_attention", q, k, v),
+                           q, k, v, scale)
+
+    return _differentiable("flash_attention", run, q, k, v, scale)
 
 
 def flash_attention_t(q, k, v, scale: Optional[float] = None):
@@ -297,5 +347,8 @@ def flash_attention_t(q, k, v, scale: Optional[float] = None):
     _check("flash_attention_t", q, k, v)
     if q.dtype == torch.float32 or q.shape[-1] > MMA_MAX_D:   # #2's kernel
         return flash_attention(q, k, v, scale)
-    return launch_form("flash_attention_t", bf16_form("flash_attention_t", q, k, v),
-                       q, k, v, scale)
+    return _differentiable(
+        "flash_attention_t",
+        lambda q, k, v: launch_form("flash_attention_t", bf16_form("flash_attention_t", q, k, v),
+                                    q, k, v, scale),
+        q, k, v, scale)

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from .launch import aligned16, launch, ptr
+from .launch import aligned16, launch, ptr, refuse_grad
 
 __all__ = ["fused_group_norm", "fused_group_norm_plain", "gn_plan", "cluster_split",
            "launch_form"]
@@ -81,6 +81,8 @@ def fused_group_norm(x, num_groups: int, weight, bias, eps: float = 1e-6):
     if x.device.type == "cpu":
         return fused_group_norm_plain(x, num_groups, weight, bias, eps)
     name = "fused_group_norm"
+    refuse_grad(name, "train with MDU_FUSED_GN off (the backward of #4 is ROADMAP "
+                "item 26)", x, weight, bias)
     if x.device.type != "cuda" or x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"{name}: needs a CUDA [B, C, H, W] bf16 or fp32 tensor, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")

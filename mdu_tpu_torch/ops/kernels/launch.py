@@ -14,6 +14,8 @@ mma.sync kernel; ``flash_attention_fm_f32``, ``flash_attention_f32`` and
 ``fused_conv3x3_f32`` (the fp32 kernels of #1, #2 and #6): ``.sm90`` (wgmma,
 three TF32 passes), ``.wide`` (mma.sync in TF32 at D > 160) and ``.simt``
 (the CUDA cores); ``fused_group_norm``: ``.cluster`` and ``.two_read``).
+``flash_attention_bwd`` counts the calls of the attention backward (three
+kernels each; ``.f32`` and ``.bf16`` by dtype).
 ``fused_tile_blend_floor`` counts the empty kernel that measures #5's launch
 floor (never on a pipeline's path).
 
@@ -47,6 +49,7 @@ LAUNCHES = {
     "fused_conv3x3_f32.sm90": 0, "fused_conv3x3_f32.simt": 0,
     "fused_group_norm.cluster": 0, "fused_group_norm.two_read": 0,
     "fused_tile_blend_floor": 0,
+    "flash_attention_bwd": 0, "flash_attention_bwd.f32": 0, "flash_attention_bwd.bf16": 0,
 }
 # (loaded library, C function name) -> the function, its argtypes set
 _FNS: Dict[Tuple[ctypes.CDLL, str], ctypes._CFuncPtr] = {}
@@ -100,6 +103,14 @@ def launch(name: str, library: str, fn_name: str, device: torch.device, *args,
             LAUNCHES[f"{name}.{form}"] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+
+
+def refuse_grad(name: str, why: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through kernel ``name``,
+    which has no backward kernel: its output would carry none."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward kernel, and an input requires "
+                                  f"grad: {why}")
 
 
 def aligned16(*tensors) -> bool:

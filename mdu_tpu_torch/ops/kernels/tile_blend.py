@@ -25,7 +25,7 @@ import torch
 
 from ...utils.bbox import BBox
 from ...utils.blend_table import build_contributor_table
-from .launch import launch, ptr
+from .launch import launch, ptr, refuse_grad
 
 __all__ = ["BlendTable", "fused_tile_blend", "fused_tile_blend_plain",
            "tile_blend_floor"]
@@ -122,6 +122,8 @@ def fused_tile_blend(tiles, weights, h: int, w: int, bboxes: Sequence[BBox],
     ``bboxes`` when not given)."""
     if tiles.device.type == "cpu":
         return fused_tile_blend_plain(tiles, weights, h, w, bboxes, normalize, table)
+    refuse_grad("fused_tile_blend", "the tile blend runs at inference only; set "
+                "MDU_FUSED_BLEND off to differentiate the grid", tiles, weights)
     return _launch("fused_tile_blend", "mdu_tile_blend", tiles, weights, h, w, bboxes,
                    normalize, table)
 

@@ -1,9 +1,13 @@
-"""Tile parallelism over a mesh of devices (counterpart of the inference part
-of ``mdu_tpu/parallel/``; the dp x tp training step is not ported yet)."""
-from .mesh import ShardAxis, ShardReducer, TileMesh, canonical_device, make_tile_mesh
+"""Parallelism over a mesh of devices (counterpart of ``mdu_tpu/parallel/``):
+the tile mesh at inference and the dp x tp train step."""
+from .mesh import (NamedSharding, ShardAxis, ShardReducer, TileMesh, TrainMesh,
+                   canonical_device, make_tile_mesh, make_train_mesh, replicated)
 from .sharded import (make_sharded_tile_denoiser, run_shards, shard_vae_tiles,
                       sharded_tiled_vae_decode, sharded_tiled_vae_encode_moments)
+from .training import make_train_step, param_shardings
 
-__all__ = ["ShardAxis", "ShardReducer", "TileMesh", "canonical_device", "make_tile_mesh",
+__all__ = ["NamedSharding", "ShardAxis", "ShardReducer", "TileMesh", "TrainMesh",
+           "canonical_device", "make_tile_mesh", "make_train_mesh", "replicated",
            "make_sharded_tile_denoiser", "run_shards", "shard_vae_tiles",
-           "sharded_tiled_vae_decode", "sharded_tiled_vae_encode_moments"]
+           "sharded_tiled_vae_decode", "sharded_tiled_vae_encode_moments",
+           "make_train_step", "param_shardings"]

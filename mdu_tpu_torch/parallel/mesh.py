@@ -1,4 +1,4 @@
-"""The tile mesh (counterpart of ``mdu_tpu/parallel/mesh.py:17-19``).
+"""The tile mesh and the train mesh (counterpart of ``mdu_tpu/parallel/mesh.py``).
 
 The JAX package's tile mesh is a ``jax.sharding.Mesh`` with one axis,
 ``tiles``, driven by one controller: ``shard_map`` runs a shard per device
@@ -14,12 +14,19 @@ over the ``tiles`` axis: each shard's thread hands in its partial sums, the
 partials go to the mesh's first device and are added there in shard order
 (so the total does not depend on which thread came first), and each shard
 gets the totals back on its own device.
+
+The train mesh (``make_train_mesh``) is a dp x tp grid of devices, which
+may repeat in the same way: ``devices=["cuda:0"] * 4`` gives dp = tp = 2 on
+one card, ``["cpu"] * 8`` the JAX tests' dp = 4, tp = 2. A ``NamedSharding``
+names how a parameter lies on it, as ``jax.sharding.NamedSharding`` does:
+``spec`` ``()`` replicated, ``("tp", None)`` its rows split over tp,
+``(None, "tp")`` its columns.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -59,13 +66,7 @@ def make_tile_mesh(n_devices: Optional[int] = None,
     """A mesh of ``n_devices`` shards: the first ``n_devices`` of ``devices``
     (a device may repeat), or by default of the cards (all of them when
     ``n_devices`` is None)."""
-    if devices is None:
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if count == 0:
-            raise RuntimeError("make_tile_mesh takes the CUDA devices by default and none "
-                               "is available; pass devices=['cpu'] * n for CPU shards")
-        devices = [torch.device("cuda", i) for i in range(count)]
-    devs = [canonical_device(d) for d in devices]
+    devs = [canonical_device(d) for d in (devices if devices is not None else _cards())]
     n = len(devs) if n_devices is None else n_devices
     if not 1 <= n <= len(devs):
         raise ValueError(f"a mesh of {n} shards over {len(devs)} devices")
@@ -113,3 +114,58 @@ class ShardAxis:
 
     def psum(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return self.reducer.all_reduce(self.shard, tensors)
+
+
+@dataclass(frozen=True)
+class TrainMesh:
+    """A dp x tp grid of devices: ``devices[r][j]`` holds tp shard j of data
+    replica r."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def shape(self):
+        """The axis sizes, as ``jax.sharding.Mesh.shape`` names them."""
+        return {"dp": len(self.devices), "tp": len(self.devices[0])}
+
+    @property
+    def dp(self) -> int:
+        return len(self.devices)
+
+    @property
+    def tp(self) -> int:
+        return len(self.devices[0])
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """How a tensor lies on ``mesh``: ``spec`` names the mesh axis each of
+    its dims splits over (None: not split; ``()``: replicated)."""
+
+    mesh: Any
+    spec: Tuple[Optional[str], ...] = ()
+
+
+def _cards() -> List[torch.device]:
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count == 0:
+        raise RuntimeError("a mesh takes the CUDA devices by default and none is "
+                           "available; pass devices=['cpu'] * n for CPU shards")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+def make_train_mesh(dp: int, tp: int,
+                    devices: Optional[Sequence[DeviceLike]] = None) -> TrainMesh:
+    """The first dp * tp of ``devices`` (by default the cards; a device may
+    repeat) as a dp x tp grid, row by row."""
+    devs = [canonical_device(d) for d in (devices if devices is not None else _cards())]
+    if dp < 1 or tp < 1 or len(devs) < dp * tp:
+        raise ValueError(f"need {dp * tp} devices, have {len(devs)}")
+    devs = devs[:dp * tp]
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"a mesh's devices are of one type, got {devs}")
+    return TrainMesh(tuple(tuple(devs[r * tp:(r + 1) * tp]) for r in range(dp)))
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())

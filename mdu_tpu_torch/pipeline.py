@@ -57,6 +57,9 @@ conds stacked per tile, CFG, AND and scheduled conds included), DeepCache's
 caches riding their shard, noise inversion's grid too, and runs the exact
 tiled decode and encode sharded (``parallel/sharded.py``), each GroupNorm's
 statistics pooled over the shards. Regions run unsharded after the grid.
+DemoFusion shards its windows and dilated views the same way
+(``tiling/demofusion.py``); its base phase runs untiled on the pipeline's
+device.
 The UNet, ControlNet, guidance model and VAE are copied to each mesh device
 other than the pipeline's own (``_on``); two shards on one device share its
 modules.
@@ -92,7 +95,7 @@ from .tiling.conds import (Cond, concat_conds, dequantize_hint, fit_cond_canvase
 from .tiling.demofusion import demofusion_generate
 from .tiling.regions import compose_region_noise, resolve_seed
 from .tiling.schedulers import (DiffusionTilePlan, make_sharded_grid, make_tiled_denoiser,
-                                plan_tiled_diffusion)
+                                plan_tiled_diffusion, shard_walk)
 from .tiling.streaming_vae import DEFAULT_BUDGET, exact_vae_mode, streaming_tiled_vae
 from .tiling.tiled_vae import tiled_vae_decode, tiled_vae_encode_moments
 from .upscale import get_upscaler
@@ -142,12 +145,23 @@ class NoiseInverseCache:
                 and float((self.x0.float() - x0.float()).abs().sum()) < 100)   # ref :635
 
 
+def _leaves(tree) -> list:
+    """A cond's leaves in ``jax.tree.leaves`` order: dict keys sorted, into
+    the lists of hints."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for part in tree for leaf in _leaves(part)]
+    return [] if tree is None else [tree]
+
+
 def cond_fingerprint(cond: Optional[Cond]) -> str:
-    """sha1 over every leaf's shape and bytes, leaves in key order (a bf16
-    leaf's bytes are read as int16)."""
+    """sha1 over every leaf's shape and bytes, leaves in
+    ``mdu_tpu/pipeline.py:98-108``'s order (a bf16 leaf's bytes are read as
+    int16)."""
     h = hashlib.sha1()
-    for key in sorted(cond or {}):
-        leaf = torch.as_tensor(cond[key]).detach().to("cpu").contiguous()
+    for leaf in _leaves(cond):
+        leaf = torch.as_tensor(leaf).detach().to("cpu").contiguous()
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.view(torch.int16)
         h.update(str(tuple(leaf.shape)).encode())
@@ -176,12 +190,6 @@ class GenerationResult:
 def _is_plain(c) -> bool:
     """A cond dict of leaves: no callable, bank or AND cond."""
     return not callable(c) and not is_and(c) and "__bank__" not in (c or {})
-
-
-# DemoFusion shards its windows and views on the JAX package's mesh
-# (``mdu_tpu/tiling/demofusion.py:555-559``); the port refuses a mesh there
-MESH_DEMOFUSION = ("DemoFusion on a tile mesh (its windows and views sharded) is not ported "
-                   "yet (ROADMAP queue 1, item 25); run it without a mesh (--devices 1)")
 
 
 class DiffusionPipeline:
@@ -624,10 +632,9 @@ class DiffusionPipeline:
         if not plan.draw_background:
             return []
         if self.mesh is not None and plan.bboxes:
-            t_local = -(-len(plan.bboxes) // self.mesh.tiles)
-            n_local = -(-t_local // plan.tile_bs)
             return [zeros(mult * plan.tile_bs * B, plan.tile_h, plan.tile_w, dev)
-                    for dev in self.mesh.devices for _ in range(n_local)]
+                    for dev, *_ in shard_walk(len(plan.bboxes), self.mesh.devices,
+                                              plan.tile_bs)]
         return [zeros(mult * (plan.tile_bs if plan.uniform_batches else len(bb)) * B,
                       plan.tile_h, plan.tile_w) for bb in plan.batched]
 
@@ -641,7 +648,8 @@ class DiffusionPipeline:
                                     tile_w=td.tile_w, overlap=td.overlap,
                                     tile_bs=td.tile_bs,
                                     uniform_batches=td.deterministic,
-                                    regions=td.regions, draw_background=td.draw_background)
+                                    regions=td.regions, draw_background=td.draw_background,
+                                    tile_scan=td.tile_scan)
 
     @staticmethod
     def _region_seeds(plan: Optional[DiffusionTilePlan], seed: int) -> Optional[list]:
@@ -953,8 +961,6 @@ class DiffusionPipeline:
         """DemoFusion from given unit noise: ``base_noise`` [1, 4, h, w] for
         phase 1 and ``phase_noises``, the later phases' noises in order.
         ``sampler_noise`` as in ``_txt2img_from_noise``, for every phase."""
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_DEMOFUSION)
         cfg = cfg or DemoFusionConfig()
         sp = sampler or SamplerConfig()
         self._check_sampler(self._resolve_sampler(sp))

@@ -31,13 +31,26 @@ a view batch: their geometry is the same every step. The local windows
 re-jitter every step, so a cached deep feature would belong to another crop,
 and they run the full model (``mdu_tpu/tiling/demofusion.py:507-600``).
 
-The window and view batches run one after another: the JAX package can roll
-them into a ``lax.scan`` (``scan_windows``), which bounds its compile memory
-and gives the same result.
+The window and view batches run one after another. ``resolve_df_scan``
+decides as the JAX package does whether it would roll them into a
+``lax.scan`` (``scan_windows``, else ``MDU_DF_SCAN``, else at
+``MDU_TILE_SCAN_THRESHOLD`` or more batches); the scan bounds a compile and
+gives the unrolled result, so the eager port runs them unrolled either way.
+
+On a tile mesh (``pipe.mesh``) the windows and the views shard as the JAX
+package shards them (``_make_sharded_batch_denoise``,
+``mdu_tpu/tiling/demofusion.py:385-466, 585-596``): the K items padded to a
+multiple of the mesh's size by repeating the last, shard d takes a
+contiguous run of them and denoises it on its device in chunks of the batch
+size, each padded to it (``tiling/schedulers.py::shard_walk``, the tile
+grid's walk); the outputs come back to the canvas's device and are added in
+window or view order, as on one device. Under DeepCache one cache a chunk on
+its shard's device.
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -53,6 +66,7 @@ from ..utils.bbox import BBox
 from ..utils.grid import batch_bboxes
 from ..samplers.denoiser import mark_deepcache
 from .conds import Cond, dequantize_hint, is_and, map_leaves
+from .schedulers import ShardCall, shard_walk
 
 LATENT_TO_PIXEL = 8
 
@@ -121,6 +135,27 @@ def draw_jitter(plan: DemoFusionPhasePlan, rng: np.random.Generator) -> np.ndarr
         out[i, 0] = rng.integers(lo[0], hi[0] + 1)
         out[i, 1] = rng.integers(lo[1], hi[1] + 1)
     return out
+
+
+def resolve_df_scan(cfg: DemoFusionConfig, plan: Optional[DemoFusionPhasePlan] = None) -> bool:
+    """``cfg.scan_windows``; unset, ``MDU_DF_SCAN`` (1 / 0); else whether the
+    phase has ``MDU_TILE_SCAN_THRESHOLD`` (8) or more window and view batches
+    (``mdu_tpu/tiling/demofusion.py:268-284``)."""
+    if cfg.scan_windows is not None:
+        return bool(cfg.scan_windows)
+    env = os.environ.get("MDU_DF_SCAN")
+    if env is not None:
+        return env == "1"
+    if plan is None:
+        return False
+    thresh = int(os.environ.get("MDU_TILE_SCAN_THRESHOLD", "8"))
+    return len(plan.window_batches) + len(plan.global_batches) >= thresh
+
+
+def _batch_walk(batches: Sequence[Sequence[int]]) -> List[ShardCall]:
+    """One call a batch on the canvas's device (None), in ``shard_walk``'s
+    form."""
+    return [(None, bi, list(b), len(b)) for bi, b in enumerate(batches)]
 
 
 # ------------------------------------------------------------ cond slicing
@@ -221,13 +256,14 @@ def resize_spatial_conds(c: Optional[Cond], src_hw: Tuple[int, int],
 # --------------------------------------------------------------- denoiser
 
 
-def demofusion_deepcache_aux(pipe, plan: DemoFusionPhasePlan, uncond_is_none: bool,
-                             cfg_scale: float, n_and: int, branch: int,
+def demofusion_deepcache_aux(pipe, plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
+                             uncond_is_none: bool, cfg_scale: float, n_and: int, branch: int,
                              B: int) -> List[torch.Tensor]:
     """The global views' DeepCache caches, zeros in the UNet's dtype, one a
     view batch: [mult * views * B, C_b, h / s / 2^(b-1), w / s / 2^(b-1)],
     ``mult`` P + 1 under an AND of P, 2 under CFG, else 1
-    (``mdu_tpu/tiling/demofusion.py:469-505``, the unrolled form)."""
+    (``mdu_tpu/tiling/demofusion.py:469-505``, the unrolled form): on a mesh
+    one a chunk of ``tile_bs_g`` views on its shard's device."""
     bc = pipe.unet.cfg.block_out_channels
     if not 1 <= branch <= len(bc) - 1:
         raise ValueError(f"cache_branch must be in [1, {len(bc) - 1}]")
@@ -237,22 +273,51 @@ def demofusion_deepcache_aux(pipe, plan: DemoFusionPhasePlan, uncond_is_none: bo
     if hs % down or ws % down:
         raise ValueError(f"deepcache_branch={branch} needs dilated-view dims divisible by "
                          f"{down}, got {hs}x{ws}")
-    return [torch.zeros((mult * len(b) * B, bc[branch], hs // down, ws // down),
-                        dtype=pipe.unet.dtype, device=pipe.device) for b in plan.global_batches]
+    walk = views_walk(pipe, plan, cfg)
+    return [torch.zeros((mult * len(ids) * B, bc[branch], hs // down, ws // down),
+                        dtype=pipe.unet.dtype, device=dev if dev is not None else pipe.device)
+            for dev, _, ids, _ in walk]
+
+
+def views_walk(pipe, plan: DemoFusionPhasePlan, cfg: DemoFusionConfig) -> List[ShardCall]:
+    mesh = getattr(pipe, "mesh", None)
+    if mesh is not None:
+        return shard_walk(len(plan.global_offsets), mesh.devices, cfg.tile_bs_g)
+    n, seen = [], 0
+    for b in plan.global_batches:
+        n.append(list(range(seen, seen + len(b))))
+        seen += len(b)
+    return _batch_walk(n)
+
+
+def windows_walk(pipe, plan: DemoFusionPhasePlan, cfg: DemoFusionConfig) -> List[ShardCall]:
+    mesh = getattr(pipe, "mesh", None)
+    if mesh is not None:
+        return shard_walk(len(plan.windows), mesh.devices, cfg.tile_bs)
+    return _batch_walk(plan.window_batches)
+
+
+def _cond_to(c: Optional[Cond], dev: Optional[torch.device]) -> Optional[Cond]:
+    if c is None or dev is None:
+        return c
+    return _map_cond(c, lambda leaf: leaf.to(dev))
 
 
 def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
-                             guided: Callable, cond, uncond, lat0: torch.Tensor,
+                             guided_on: Callable, cond, uncond, lat0: torch.Tensor,
                              noise: torch.Tensor, t_enc: int, jitter: np.ndarray,
-                             deepcache: int = 1, guided_cached: Optional[Callable] = None,
+                             windows: List[ShardCall], views: List[ShardCall], deepcache: int = 1,
                              caches: Optional[List[torch.Tensor]] = None):
-    """``denoised_fn(x, sigma, step)`` of one DemoFusion phase over
-    ``guided(x, sigma, c, u)``, the pipeline's CFG'd denoiser. ``cond`` and
-    ``uncond`` are prepared conds (``DiffusionPipeline._prepare``), resolved
-    every step. ``jitter`` [n_windows, 2] holds the phase's window offsets.
-    With ``deepcache`` N > 1 the global views run ``guided_cached`` on
-    ``caches`` (``demofusion_deepcache_aux``), the cached pass on the steps
-    that N does not divide."""
+    """``denoised_fn(x, sigma, step)`` of one DemoFusion phase.
+    ``guided_on(device)`` gives the pipeline's CFG'd denoisers ``(guided,
+    guided_cached)`` over the modules on ``device`` (None: the canvas's).
+    ``cond`` and ``uncond`` are prepared conds (``DiffusionPipeline._prepare``),
+    resolved every step. ``jitter`` [n_windows, 2] holds the phase's window
+    offsets. ``windows`` and ``views`` are the calls' walks
+    (``windows_walk``, ``views_walk``: one device's batches or the mesh's
+    shards). With ``deepcache`` N > 1 the global views
+    run ``guided_cached`` on ``caches`` (``demofusion_deepcache_aux``, one a
+    view call), the cached pass on the steps that N does not divide."""
     from ..pipeline import DiffusionPipeline
 
     use_cache = deepcache > 1
@@ -263,6 +328,19 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
     cond_f = DiffusionPipeline._as_cond_fn(cond)
     uncond_f = DiffusionPipeline._as_cond_fn(uncond)
     n_total = len(plan.global_offsets)
+
+    def call(dev, x, sigma, c, u, slot, step):
+        """The guided denoiser on ``dev`` (None: ``x``'s), its output on
+        ``x``'s device."""
+        guided, guided_cached = guided_on(dev)
+        xd, sd = (x, sigma) if dev is None else (x.to(dev), sigma.to(dev))
+        cd, ud = _cond_to(c, dev), _cond_to(u, dev)
+        if slot is None:
+            out = guided(xd, sd, cd, ud)
+        else:
+            out, caches[slot] = guided_cached(xd, sd, cd, ud, caches[slot],
+                                              step % deepcache != 0)
+        return out.to(x.device)
 
     def denoised_fn(x, sigma, step):
         B, C, H, W = x.shape
@@ -276,16 +354,16 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
         u_step = uncond_f(step) if uncond_f is not None else None
         c_pad, u_pad = _pad_spatial(c_step, jr, hw), _pad_spatial(u_step, jr, hw)
 
-        # local windows: uniform average (ref :251-264)
+        # local windows: uniform average (ref :251-264), added in window order
         buf = torch.zeros_like(xp)
         cnt = torch.zeros((1, 1, H + 2 * jr, W + 2 * jr), **f32)
-        for batch in plan.window_batches:
-            woffs = [offs[i] for i in batch]
+        for dev, _, ids, real in windows:
+            woffs = [offs[i] for i in ids]
             tiles = torch.cat([xp[:, :, oy:oy + tile, ox:ox + tile] for oy, ox in woffs])
-            out = guided(tiles, sigma, _window_cond(c_pad, woffs, tile, hw, jr),
-                         _window_cond(u_pad, woffs, tile, hw, jr))
-            out = out.reshape(len(batch), B, C, tile, tile)
-            for k, (oy, ox) in enumerate(woffs):
+            out = call(dev, tiles, sigma, _window_cond(c_pad, woffs, tile, hw, jr),
+                       _window_cond(u_pad, woffs, tile, hw, jr), None, step)
+            out = out.reshape(len(ids), B, C, tile, tile)
+            for k, (oy, ox) in enumerate(woffs[:real]):     # the rest: weight 0
                 buf[:, :, oy:oy + tile, ox:ox + tile] += out[k]
                 cnt[:, :, oy:oy + tile, ox:ox + tile] += 1.0
         cnt = torch.where(cnt == 0, torch.ones_like(cnt), cnt)   # jitter can leave gaps
@@ -300,22 +378,17 @@ def make_demofusion_denoiser(plan: DemoFusionPhasePlan, cfg: DemoFusionConfig,
         else:
             xg = x
         x_global = torch.zeros_like(x)
-        seen = 0
-        for bi, batch in enumerate(plan.global_batches):
+        for dev, slot, ids, real in views:
+            batch = [plan.global_offsets[i] for i in ids]
             # mixture: the first half of the doubled offsets sees the
             # unblurred input (ref :283-304)
-            views = [(x if cfg.mixture and seen + k < n_total // 2 else xg)[:, :, oy::s, ox::s]
-                     for k, (oy, ox) in enumerate(batch)]
-            cg, ug = _dilated_cond(c_step, batch, s, hw), _dilated_cond(u_step, batch, s, hw)
-            if use_cache:
-                out, caches[bi] = guided_cached(torch.cat(views), sigma, cg, ug, caches[bi],
-                                                step % deepcache != 0)
-            else:
-                out = guided(torch.cat(views), sigma, cg, ug)
-            out = out.reshape(len(batch), B, C, out.shape[-2], out.shape[-1])
-            for k, (oy, ox) in enumerate(batch):
+            vs = [(x if cfg.mixture and i < n_total // 2 else xg)[:, :, oy::s, ox::s]
+                  for i, (oy, ox) in zip(ids, batch)]
+            out = call(dev, torch.cat(vs), sigma, _dilated_cond(c_step, batch, s, hw),
+                       _dilated_cond(u_step, batch, s, hw), slot if use_cache else None, step)
+            out = out.reshape(len(ids), B, C, out.shape[-2], out.shape[-1])
+            for k, (oy, ox) in enumerate(batch[:real]):      # the rest: weight 0
                 x_global[:, :, oy::s, ox::s] += out[k]
-            seen += len(batch)
         if cfg.mixture:
             x_global = x_global / 2.0
 
@@ -381,7 +454,13 @@ def demofusion_generate(pipe, cond, uncond, width: int, height: int,
     phases = [latents]
     rng = np.random.default_rng(seed)
     strengths = list(cfg.denoise_strengths) or [0.45]
-    guided, guided_cached = pipe._make_guided(sp.cfg_scale, sp.deepcache_branch)
+    guides = {}
+
+    def guided_on(dev):
+        if dev not in guides:
+            guides[dev] = pipe._make_guided(sp.cfg_scale, sp.deepcache_branch, device=dev)
+        return guides[dev]
+
     n_and = len(cond["__and__"]) if is_and(cond) else 0
     for phase_i, scale in enumerate(range(2, cfg.scale_factor + 1)):
         if pipe.interrupted:
@@ -398,13 +477,14 @@ def demofusion_generate(pipe, cond, uncond, width: int, height: int,
                                   device=lat0.device)
         sigmas = all_sig[steps - t_enc - 1:]
         noise = torch.as_tensor(phase_noises[phase_i], dtype=lat0.dtype, device=lat0.device)
-        caches = (demofusion_deepcache_aux(pipe, plan, uncond is None, sp.cfg_scale, n_and,
-                                           sp.deepcache_branch, lat0.shape[0])
+        caches = (demofusion_deepcache_aux(pipe, plan, cfg, uncond is None, sp.cfg_scale,
+                                           n_and, sp.deepcache_branch, lat0.shape[0])
                   if sp.deepcache > 1 else None)
         # per-step cooperative interruption, as in the tiled pipeline
         den_fn = pipe._interruptible(make_demofusion_denoiser(
-            plan, cfg, guided, c_phase, u_phase, lat0, noise, t_enc, jitter, sp.deepcache,
-            guided_cached, caches))
+            plan, cfg, guided_on, c_phase, u_phase, lat0, noise, t_enc, jitter,
+            windows_walk(pipe, plan, cfg), views_walk(pipe, plan, cfg), sp.deepcache,
+            caches))
         latents = pipe._sample(sp, den_fn, lat0 + noise * sigmas[0], sigmas, sampler_noise)
         latents = ((latents - latents.mean()) / latents.std(correction=0) * anchor_std
                    + anchor_mean)

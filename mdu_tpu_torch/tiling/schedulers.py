@@ -19,8 +19,11 @@ FOREGROUND regions are feather-blended over the result (ref
 multidiffusion.py:189-216). Under ``MDU_FUSED_BLEND`` the grid's sum is one
 fused gather over all tiles (``ops/kernels/tile_blend.py``), as in
 ``mdu_tpu/tiling/schedulers.py:343-367``, and the region adds follow it.
-The JAX package rolls 8 or more tile batches into a ``lax.scan``; that is a
-compile-time measure with the same arithmetic, and the port stays unrolled.
+A plan records the JAX package's scan decision (``scan_tiles``:
+``_resolve_tile_scan``, ``tile_scan`` or 8 or more tile batches, never under
+``uniform_batches``). There the scan bounds the compile time and gives the
+unrolled batches' result; the eager port has nothing to compile and runs the
+batches unrolled whatever the plan decides.
 
 A tile denoiser that keeps DeepCache state (``stateful=True``: one cache a
 tile batch, kept by the pipeline's denoiser) never takes the fused blend, as
@@ -86,6 +89,8 @@ class DiffusionTilePlan:
     region_weights: Tuple[Optional[np.ndarray], ...] = ()   # MoD BACKGROUND gaussians
     # pad every tile batch to exactly tile_bs
     uniform_batches: bool = False
+    # the JAX package would run the grid as a lax.scan (``resolve_tile_scan``)
+    scan_tiles: bool = False
 
     @property
     def num_batches(self) -> int:
@@ -96,13 +101,15 @@ def plan_tiled_diffusion(method: str, latent_h: int, latent_w: int,
                          tile_h: int = 96, tile_w: int = 96, overlap: int = 48,
                          tile_bs: int = 4, uniform_batches: bool = False,
                          regions: Sequence[RegionSpec] = (),
-                         draw_background: bool = True) -> DiffusionTilePlan:
+                         draw_background: bool = True,
+                         tile_scan: Optional[bool] = None) -> DiffusionTilePlan:
     """The MultiDiffusion or Mixture of Diffusers plan (ref
     abstractdiffusion.py:172-229): the grid (unless ``draw_background`` is
     off, which only regions can ask for) paints each tile's gaussian under
     MoD, a 1 under MD; the valid regions, at most ``MDU_MAX_REGIONS`` (16;
     ref --md_max_regions), resolve to latent bboxes and a BACKGROUND region
-    paints a gaussian of its size under MoD, a 1 under MD."""
+    paints a gaussian of its size under MoD, a 1 under MD. ``scan_tiles``
+    by ``resolve_tile_scan``."""
     if method not in (Method.MULTI_DIFF, Method.MIX_DIFF):
         # the JAX planner runs any other name as MultiDiffusion; DemoFusion
         # has its own entry point
@@ -146,12 +153,26 @@ def plan_tiled_diffusion(method: str, latent_h: int, latent_w: int,
             gw = gaussian_weights(r.w, r.h) if is_mod else None
             weights[:, :, r.y:r.y + r.h, r.x:r.x + r.w] += 1.0 if gw is None else gw
         region_weights.append(gw)
+    batched = tuple(tuple(b) for b in batch_bboxes(grid, tile_bs))
     return DiffusionTilePlan(
         method=method, h=latent_h, w=latent_w, tile_h=tile_h, tile_w=tile_w,
         overlap=overlap, tile_bs=tile_bs, draw_background=draw_background,
-        bboxes=tuple(grid), batched=tuple(tuple(b) for b in batch_bboxes(grid, tile_bs)),
+        bboxes=tuple(grid), batched=batched,
         regions=region_bboxes, weights=weights, tile_weights=tile_weights,
-        region_weights=tuple(region_weights), uniform_batches=uniform_batches)
+        region_weights=tuple(region_weights), uniform_batches=uniform_batches,
+        scan_tiles=resolve_tile_scan(tile_scan, len(batched), uniform_batches))
+
+
+def resolve_tile_scan(tile_scan: Optional[bool], n_batches: int,
+                      uniform_batches: bool) -> bool:
+    """``mdu_tpu/tiling/schedulers.py:168-181``: never under
+    ``uniform_batches``; ``tile_scan`` when given (with more than one
+    batch); else when the batches reach ``MDU_TILE_SCAN_THRESHOLD`` (8)."""
+    if uniform_batches:
+        return False
+    if tile_scan is not None:
+        return bool(tile_scan) and n_batches > 1
+    return n_batches >= int(os.environ.get("MDU_TILE_SCAN_THRESHOLD", "8"))
 
 
 def _mod_rescale(plan: DiffusionTilePlan) -> np.ndarray:
@@ -277,11 +298,35 @@ def make_tiled_denoiser(plan: DiffusionTilePlan, tile_denoise: Optional[TileDeno
     return denoised_fn
 
 
-def _pad_tiles(a: torch.Tensor, n: int) -> torch.Tensor:
-    """``a`` with its leading axis padded to ``n`` by repeating its last entry."""
-    if a.shape[0] >= n:
-        return a
-    return torch.cat([a, a[-1:].expand(n - a.shape[0], *a.shape[1:])])
+# one call of a shard walk: (device, cache slot, the call's item indices
+# padded to its width, how many of them lead with real items)
+ShardCall = Tuple[torch.device, int, List[int], int]
+
+
+def shard_walk(n_items: int, devices: Sequence[torch.device], bs: int,
+               pad_chunks: bool = True) -> List[ShardCall]:
+    """The mesh's calls over ``n_items`` items (``mdu_tpu/tiling/
+    schedulers.py:505-632``, ``demofusion.py:385-466``): the items padded to a
+    multiple of the mesh's size by repeating the last, shard d takes a
+    contiguous run of k_local of them and walks it in chunks of ``bs``, each
+    padded to ``bs`` by repeating its last item where ``pad_chunks``; chunk
+    ci of shard d is cache slot d * n_local + ci, the device-major order of
+    the JAX package's caches. The tile grid and DemoFusion's windows and
+    views walk the mesh alike, so both stay bitwise one device's under the
+    same call shapes."""
+    n_dev = len(devices)
+    k_local = -(-n_items // n_dev)
+    n_local = -(-k_local // bs)
+    order = list(range(n_items)) + [n_items - 1] * (n_dev * k_local - n_items)
+    walk = []
+    for d, dev in enumerate(devices):
+        for ci, s0 in enumerate(range(0, k_local, bs)):
+            lo = d * k_local + s0
+            ids = order[lo:lo + min(bs, k_local - s0)]
+            width = bs if pad_chunks else len(ids)
+            walk.append((dev, d * n_local + ci, ids + [ids[-1]] * (width - len(ids)),
+                         max(0, min(len(ids), n_items - lo))))
+    return walk
 
 
 def make_sharded_grid(plan: DiffusionTilePlan, mesh,
@@ -289,14 +334,11 @@ def make_sharded_grid(plan: DiffusionTilePlan, mesh,
                       stateful: bool = False):
     """``grid_tiles(x, sigma, step) -> [T, B, C, th, tw]``: the grid's denoised
     tiles, in bbox order on ``x``'s device (``mdu_tpu/tiling/schedulers.py:
-    505-632``). The T tiles are padded to a multiple of the mesh's size by
-    repeating the last tile; shard d takes tiles [d * t, (d + 1) * t) and
-    denoises them on its device in chunks of ``tile_bs``, each padded to
-    ``tile_bs`` under ``uniform_batches`` or ``stateful`` (the DeepCache
-    caches need one call shape); chunk ``ci`` of shard d is ``chunk_idx``
-    d * n_local + ci, the device-major order of the JAX package's caches.
-    The host walks the shards in order; each shard's calls run on its own
-    device, so the cards' work overlaps. A shard that fails raises.
+    505-632``), over ``shard_walk``'s calls: the chunks padded to ``tile_bs``
+    under ``uniform_batches`` or ``stateful`` (the DeepCache caches need one
+    call shape), the cache slot as ``chunk_idx``. The host walks the shards
+    in order; each shard's calls run on its own device, so the cards' work
+    overlaps. A shard that fails raises.
 
     ``tile_conds_fn(step)`` gives the conds stacked on a leading tile axis
     (``tile_cond_stacked``), or None.
@@ -306,35 +348,24 @@ def make_sharded_grid(plan: DiffusionTilePlan, mesh,
     loop's arithmetic: under
     ``uniform_batches`` every call has the unsharded one's shape and the
     result is bitwise that of one device."""
-    devices = mesh.devices
-    n_dev = len(devices)
-    T = len(plan.bboxes)
-    t_local = -(-T // n_dev)
-    th, tw, bs = plan.tile_h, plan.tile_w, plan.tile_bs
-    pad_chunks = plan.uniform_batches or stateful
+    th, tw = plan.tile_h, plan.tile_w
+    walk = shard_walk(len(plan.bboxes), mesh.devices, plan.tile_bs,
+                      plan.uniform_batches or stateful)
 
     def grid_tiles(x, sigma, step):
         B, C = x.shape[0], x.shape[1]
-        tiles = _pad_tiles(gather_tiles(x, plan.bboxes), n_dev * t_local)
+        tiles = gather_tiles(x, plan.bboxes)
         conds = tile_conds_fn(step) if tile_conds_fn is not None else None
-        if conds is not None:
-            conds = map_leaves(lambda leaf: _pad_tiles(leaf, n_dev * t_local), conds)
         outs = []
-        for d, dev in enumerate(devices):
-            lo = d * t_local
-            s_dev = sigma.to(dev)
-            for ci, s0 in enumerate(range(0, t_local, bs)):
-                k = min(bs, t_local - s0)
-                kp = bs if pad_chunks else k
-                chunk = _pad_tiles(tiles[lo + s0:lo + s0 + k], kp).to(dev)
-                cchunk = None
-                if conds is not None:
-                    cchunk = map_leaves(
-                        lambda leaf: _pad_tiles(leaf[lo + s0:lo + s0 + k], kp).to(dev).reshape(
-                            (kp * leaf.shape[1],) + tuple(leaf.shape[2:])), conds)
-                out = sharded_tile_denoise(chunk.reshape(kp * B, C, th, tw), s_dev, step,
-                                           cchunk, d * (-(-t_local // bs)) + ci)
-                outs.append(out.reshape(kp, B, C, th, tw)[:k])
-        return torch.cat([o.to(x.device) for o in outs])[:T]
+        for dev, slot, ids, real in walk:
+            idx = torch.as_tensor(ids, device=x.device)
+            cchunk = None
+            if conds is not None:
+                cchunk = map_leaves(lambda leaf: leaf[idx.to(leaf.device)].to(dev).reshape(
+                    (len(ids) * leaf.shape[1],) + tuple(leaf.shape[2:])), conds)
+            out = sharded_tile_denoise(tiles[idx].to(dev).reshape(len(ids) * B, C, th, tw),
+                                       sigma.to(dev), step, cchunk, slot)
+            outs.append(out.reshape(len(ids), B, C, th, tw)[:real].to(x.device))
+        return torch.cat(outs)
 
     return grid_tiles

@@ -339,12 +339,14 @@ def _aux_shapes(caches):
 
 
 @pytest.mark.parametrize("case", ["untiled", "and", "image_cfg", "uniform", "branch2",
-                                  "no_uncond", "odd"])
+                                  "no_uncond", "odd", "scan"])
 def test_deepcache_aux_matches_jax(pipes, case):
-    """``_deepcache_aux``'s caches against the JAX package's (unrolled grid):
-    mult 2 / P + 1 / 3 / 1, ``Kp`` per batch or ``tile_bs`` when uniform,
-    the width and size at the branch, and the error for tile dims the
-    branch's 2^(b-1) does not divide."""
+    """``_deepcache_aux``'s caches against the JAX package's unrolled grid's
+    (a plan that scans runs unrolled in the port: one cache a batch, where
+    the JAX scan keeps one a chunk of ``tile_bs``): mult 2 / P + 1 / 3 / 1,
+    ``Kp`` per batch or ``tile_bs`` when uniform, the width and size at the
+    branch, and the error for tile dims the branch's 2^(b-1) does not
+    divide."""
     jpipe, port = pipes
     c, u = jax_cond(0), jax_cond(1)
     h, w, td, branch, icfg = 16, 40, dict(TD, tile_bs=3), 1, None
@@ -360,12 +362,18 @@ def test_deepcache_aux_matches_jax(pipes, case):
         u = None
     elif case == "odd":
         branch, h, w, td = 2, 13, 30, dict(td, tile_w=13, tile_h=13)
+    scan = case == "scan"
     plan = plan_tiled_diffusion(td["method"], h, w, tile_h=td["tile_h"], tile_w=td["tile_w"],
                                 overlap=td["overlap"], tile_bs=td["tile_bs"],
-                                uniform_batches=td.get("uniform_batches", False))
+                                uniform_batches=td.get("uniform_batches", False),
+                                tile_scan=scan)
     jp = jax_plan(td["method"], h, w, tile_h=td["tile_h"], tile_w=td["tile_w"],
                   overlap=td["overlap"], tile_bs=td["tile_bs"],
-                  uniform_batches=td.get("uniform_batches", False), tile_scan=False)
+                  uniform_batches=td.get("uniform_batches", False), tile_scan=scan)
+    assert plan.scan_tiles == jp.scan_tiles == scan
+    if scan:
+        jp = jax_plan(td["method"], h, w, tile_h=td["tile_h"], tile_w=td["tile_w"],
+                      overlap=td["overlap"], tile_bs=td["tile_bs"], tile_scan=False)
     args = (7.0, branch, 1, (h, w), icfg)
     if case == "odd":
         for fn, p, cc in ((port._deepcache_aux, plan, c), (jpipe._deepcache_aux, jp, to_jax(c))):
@@ -556,7 +564,8 @@ def test_demofusion_deepcache_and_cond_matches_jax(pipes, capsys):
     assert "global dilated views only" in capsys.readouterr().err
     plan = pdf.plan_demofusion_phase(32, 32, 2, DemoFusionConfig(**DF, mixture=True))
     jplan = jdf.plan_demofusion_phase(32, 32, 2, jcfg.DemoFusionConfig(**DF, mixture=True))
-    caches = pdf.demofusion_deepcache_aux(port, plan, False, 7.0, 2, 1, 1)
+    caches = pdf.demofusion_deepcache_aux(port, plan, DemoFusionConfig(**DF, mixture=True),
+                                          False, 7.0, 2, 1, 1)
     jcaches = jdf.demofusion_deepcache_aux(jpipe, jplan, jcfg.DemoFusionConfig(**DF), False,
                                            7.0, 2, 1, 1)
     assert _aux_shapes(caches) == _aux_shapes(jcaches) == [(6, 16, 16, 16)] * 4
@@ -581,3 +590,54 @@ def test_demofusion_scheduled_cond_matches_jax(pipes):
                                          DemoFusionConfig(**DF), SamplerConfig(**sp), seed=5,
                                          decode=False)
     torch.testing.assert_close(called.latents, got.latents, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------ the scan grid
+
+
+@pytest.mark.parametrize("tile_scan,uniform,thresh,w", [
+    (None, False, None, 40), (None, False, "2", 40), (None, False, None, 160),
+    (True, False, None, 40), (True, True, None, 40), (True, False, None, 16),
+    (False, False, "1", 160), (None, True, "1", 160)])
+def test_scan_tiles_decision_matches_jax(monkeypatch, tile_scan, uniform, thresh, w):
+    """``scan_tiles`` by ``_resolve_tile_scan``'s rule: never under uniform
+    batches, ``tile_scan`` with more than one batch, else the batch count
+    against ``MDU_TILE_SCAN_THRESHOLD`` (8 by default)."""
+    if thresh is None:
+        monkeypatch.delenv("MDU_TILE_SCAN_THRESHOLD", raising=False)
+    else:
+        monkeypatch.setenv("MDU_TILE_SCAN_THRESHOLD", thresh)
+    kw = dict(tile_h=16, tile_w=16, overlap=8, tile_bs=2, uniform_batches=uniform,
+              tile_scan=tile_scan)
+    plan, jp = plan_tiled_diffusion(Method.MULTI_DIFF, 16, w, **kw), jax_plan(
+        Method.MULTI_DIFF, 16, w, **kw)
+    assert plan.scan_tiles == jp.scan_tiles
+    assert plan.num_batches == len(jp.batched)
+
+
+@pytest.mark.parametrize("case", ["md", "mod", "deepcache"])
+def test_scan_grid_matches_jax(pipes, case):
+    """``tile_scan=True`` on a 16 x 40 latent (4 tiles, ``tile_bs`` 3): the
+    JAX package's ``lax.scan`` grid runs chunks of 3, the second padded with
+    the last tile twice at weight 0; the port runs the plan's batches of 2
+    and 2 unrolled, within 1e-5 x max of it, and to the bit what it runs
+    with ``tile_scan=False``; Mixture of Diffusers and DeepCache N = 2 (the
+    scan's one cache a chunk, the port's one a batch) too."""
+    jpipe, port = pipes
+    c, u = jax_cond(0), jax_cond(1)
+    td = dict(TD, tile_bs=3, method=Method.MIX_DIFF if case == "mod" else Method.MULTI_DIFF)
+    sp = dict(name="Euler", steps=4, deepcache=2 if case == "deepcache" else 1)
+    seed = 6
+    want = jpipe.txt2img(to_jax(c), to_jax(u), 320, 128, jcfg.SamplerConfig(**sp), seed=seed,
+                         tiled_diffusion=jcfg.TiledDiffusionConfig(**td, tile_scan=True),
+                         decode=False).latents
+    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1, 4, 16, 40)))
+    ptd = TiledDiffusionConfig(**td, tile_scan=True)
+    assert port._plan(ptd, 16, 40).scan_tiles
+    got = port._txt2img_from_noise(noise, c, u, SamplerConfig(**sp), seed, ptd,
+                                   decode=False).latents
+    _close(got, want, rel=1e-5)
+    unrolled = port._txt2img_from_noise(noise, c, u, SamplerConfig(**sp), seed,
+                                        dataclasses.replace(ptd, tile_scan=False),
+                                        decode=False).latents
+    torch.testing.assert_close(unrolled, got, rtol=0, atol=0)

@@ -151,8 +151,10 @@ def test_denoiser_matches_jax(rng, knobs):
         m = c["control"][0].mean(axis=(1, 2, 3)) - u["control"][0].mean(axis=(1, 2, 3))
         return views * 0.5 + m.reshape(-1, 1, 1, 1) * sigma
 
-    fn = pdf.make_demofusion_denoiser(plan, cfg, guided, pcond, pun, torch.from_numpy(lat0),
-                                      torch.from_numpy(noise), 4, jitter)
+    fn = pdf.make_demofusion_denoiser(plan, cfg, lambda dev: (guided, None), pcond, pun,
+                                      torch.from_numpy(lat0), torch.from_numpy(noise), 4,
+                                      jitter, pdf.windows_walk(None, plan, cfg),
+                                      pdf.views_walk(None, plan, cfg))
     jfn = jdf.make_demofusion_denoiser(jplan, jc_, guided, jcond, jun, jnp.asarray(lat0),
                                        jnp.asarray(noise), t_enc=4, jitter=jnp.asarray(jitter))
     for step, sigma in ((0, 3.0), (3, 0.7)):
@@ -240,3 +242,103 @@ def test_demofusion_entry_points_run_on_cpu(sdxl_pipes):
     assert cached.latents.shape == res.latents.shape and torch.isfinite(cached.latents).all()
     with pytest.raises(NotImplementedError, match="DiffusionPipeline.demofusion"):
         plan_tiled_diffusion(Method.DEMO_FU, 32, 32)
+
+
+# ----------------------------------------------- the mesh and the scan (stand-in UNet)
+
+
+@pytest.fixture(scope="module")
+def standin_meshes():
+    """The stand-in UNet's pipelines (``test_torch_deepcache.py``): JAX and
+    the port on one device, and each on a mesh of two (JAX's
+    ``make_tile_mesh(2)``, the port's ``["cpu"] * 2``)."""
+    from mdu_tpu.parallel import make_tile_mesh as jax_tile_mesh
+    from mdu_tpu_torch.parallel import make_tile_mesh
+    from test_torch_deepcache import standin_pipes
+
+    return (standin_pipes(),
+            standin_pipes(jax_kw={"mesh": jax_tile_mesh(2)},
+                          mesh=make_tile_mesh(devices=["cpu"] * 2)))
+
+
+# window 16 at overlap 8 on the 32 x 32 phase: 9 windows (2 shards: 5 and 4,
+# padded to 5 and 5), 4 views (8 with mixture)
+STAND_DF = dict(window_size=16, overlap=8, tile_bs=2, tile_bs_g=3, scale_factor=2)
+DF_CASES = {"plain": ({}, dict(name="Euler", steps=4, denoising_strength=0.7)),
+            "deepcache_mixture": (dict(mixture=True),
+                                  dict(name="Euler", steps=6, denoising_strength=0.7,
+                                       deepcache=2)),
+            "scan": (dict(scan_windows=True), dict(name="Euler", steps=4,
+                                                   denoising_strength=0.7)),
+            "scan_deepcache": (dict(scan_windows=True, mixture=True),
+                               dict(name="Euler", steps=6, denoising_strength=0.7,
+                                    deepcache=2))}
+
+
+def _standin_demofusion(pipes, knobs, sp, seed=5):
+    from test_torch_deepcache import jax_cond, to_jax
+
+    jpipe, port = pipes
+    df = dict(STAND_DF, **knobs)
+    c, u = jax_cond(0), jax_cond(1)
+    want = jpipe.demofusion(to_jax(c), to_jax(u), 128, 128, jcfg.DemoFusionConfig(**df),
+                            jcfg.SamplerConfig(**sp), seed=seed, decode=False).latents
+    base = np.array(jax.random.normal(jax.random.PRNGKey(seed), (1, 4, 16, 16)))
+    phase = np.array(jax.random.normal(jax.random.fold_in(jax.random.PRNGKey(seed), 102),
+                                       (1, 4, 32, 32)))
+    got = port._demofusion_from_noise(torch.from_numpy(base), [torch.from_numpy(phase)], c, u,
+                                      128, 128, DemoFusionConfig(**df), SamplerConfig(**sp),
+                                      seed=seed, decode=False).latents
+    return got, want
+
+
+@pytest.mark.parametrize("case", ["plain", "deepcache_mixture"])
+def test_demofusion_on_a_mesh_matches_jax(standin_meshes, case):
+    """DemoFusion x2 on a 2-shard mesh, the windows and views sharded (under
+    DeepCache one cache a chunk on its shard), against JAX's on its 2-device
+    mesh within 1e-4 x max; and against the port's one device to the bit:
+    the stand-in is elementwise per sample, so another batch composition
+    changes nothing."""
+    single, mesh = standin_meshes
+    knobs, sp = DF_CASES[case]
+    got, want = _standin_demofusion(mesh, knobs, sp)
+    _close(got, want)
+    one, _ = _standin_demofusion(single, knobs, sp)
+    torch.testing.assert_close(got, one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["scan", "scan_deepcache"])
+def test_demofusion_scan_matches_jax(standin_meshes, case):
+    """``scan_windows`` on one device: the port runs the window and view
+    batches unrolled, within 1e-5 x max of JAX's ``lax.scan`` (the batches
+    padded to the widest at weight 0, under DeepCache one uniform cache a
+    view batch)."""
+    single, _ = standin_meshes
+    knobs, sp = DF_CASES[case]
+    got, want = _standin_demofusion(single, knobs, sp)
+    _close(got, want, rel=1e-5)
+
+
+@pytest.mark.parametrize("scan_windows,env,thresh,h", [
+    (None, None, None, 32), (None, None, "20", 32), (None, None, None, 64),
+    (True, None, None, 32), (False, None, "2", 64), (None, "1", None, 32),
+    (None, "0", "2", 64)])
+def test_df_scan_decision_matches_jax(monkeypatch, scan_windows, env, thresh, h):
+    """``resolve_df_scan`` against ``_resolve_df_scan``: the knob first, then
+    ``MDU_DF_SCAN``, then the batch count against ``MDU_TILE_SCAN_THRESHOLD``;
+    the port's views walk the unrolled batches whatever it decides."""
+    for name, val in (("MDU_DF_SCAN", env), ("MDU_TILE_SCAN_THRESHOLD", thresh)):
+        if val is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, val)
+    # mixture: 8 views in batches of 3, 3, 2
+    knobs = dict(STAND_DF, mixture=True, scan_windows=scan_windows)
+    cfg, jc_ = DemoFusionConfig(**knobs), jcfg.DemoFusionConfig(**knobs)
+    plan, jplan = pdf.plan_demofusion_phase(h, h, 2, cfg), jdf.plan_demofusion_phase(h, h, 2, jc_)
+    want = jdf._resolve_df_scan(jc_, jplan)
+    assert pdf.resolve_df_scan(cfg, plan) == want
+    assert pdf.resolve_df_scan(cfg) == jdf._resolve_df_scan(jc_)
+    walk = pdf.views_walk(None, plan, cfg)
+    widths = [len(ids) for _, _, ids, _ in walk]
+    assert widths == [3, 3, 2]

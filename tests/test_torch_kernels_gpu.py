@@ -714,3 +714,81 @@ def test_tiny_deepcache_txt2img_matches_cpu():
             assert flash.LAUNCHES["flash_attention_fm_f32"] - before == 20
     ref = out["cpu"]
     assert (out[str(dev)] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# (kernel, (B, H, Lq, Lk, D)) of the backward kernel: the train step's UNet
+# levels at SD1.5's 512^2 (4096 tokens at D = 40, 1024 at 80), SD2 / SDXL's
+# D = 64, the widest head (160), ragged Lq != Lk, D off 16 and a lone tile
+BWD_CASES = [("flash_attention_fm", (2, 8, 4096, 4096, 40)),
+             ("flash_attention_fm", (2, 8, 1024, 1024, 80)),
+             ("flash_attention", (2, 10, 1024, 1024, 64)),
+             ("flash_attention_t", (2, 8, 576, 576, 160)),
+             ("flash_attention_fm", (1, 3, 1000, 777, 40)),
+             ("flash_attention_t", (1, 2, 77, 513, 13)),
+             ("flash_attention", (1, 1, 40, 30, 4))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", BWD_CASES)
+def test_backward_kernel_matches_autograd_of_the_plain_version(name, shape, dtype):
+    """The gradient through each wrapper on the card (one backward launch)
+    against autograd through the fp32 plain version: fp32 within 1e-4 of the
+    largest gradient, bf16 within 2x the bf16 plain version's error + 1e-3 of
+    it."""
+    dev = _card()
+    B, H, Lq, Lk, D = shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    base = [torch.randn(B, H, L, D, generator=gen, device=dev) for L in (Lq, Lk, Lk)]
+    do = torch.randn(B, H, Lq, D, generator=gen, device=dev)
+    kernel, plain = _fns(name)
+
+    def grads(fn, dt):
+        ts = [x.to(dt).requires_grad_() for x in base]
+        return torch.autograd.grad(fn(*ts), ts, do.to(dt))
+
+    ref = grads(plain, torch.float32)
+    before = flash.LAUNCHES["flash_attention_bwd"]
+    got = grads(kernel, dtype)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES["flash_attention_bwd"] == before + 1
+    own = grads(plain, dtype) if dtype == torch.bfloat16 else None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        scale = r.abs().max().item()
+        err = (g.float() - r).abs().max().item()
+        if dtype == torch.float32:
+            assert err <= 1e-4 * scale, (i, err, scale)
+        else:
+            assert err <= 2 * (own[i].float() - r).abs().max().item() + 1e-3 * scale
+
+
+def test_backward_kernel_refuses_wide_heads_and_the_clamp():
+    dev = _card()
+    q = torch.randn(1, 1, 600, 512, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 28"):
+        flash.flash_attention(q, q, q)
+    q = torch.randn(1, 1, 600, 40, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="clamp"):
+        flash.flash_attention_fm(q, q, q, clamp=True)
+    with torch.no_grad():                 # no gradient asked: the forward runs
+        assert flash.flash_attention_fm(q, q, q, clamp=True).shape == q.shape
+
+
+def test_kernels_without_a_backward_raise_under_grad():
+    """#4, #5 and #6 raise where autograd would need their gradient (they
+    used to hand back a tensor without one); under no_grad they run."""
+    dev = _card()
+    x = torch.randn(2, 64, 16, 16, device=dev, requires_grad=True)
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(NotImplementedError, match="MDU_FUSED_GN"):
+        fused_group_norm(x, 32, w, b)
+    xh = torch.randn(2, 16, 16, 64, device=dev, requires_grad=True)
+    wh = torch.randn(3, 3, 64, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="MDU_FUSED_CONV"):
+        fused_conv3x3(xh, wh)
+    bboxes = split_grid(32, 32, 16, 16, 8)
+    tiles = torch.randn(len(bboxes), 4, 16, 16, device=dev, requires_grad=True)
+    weights = torch.as_tensor(paint_count(32, 32, bboxes)[0, 0], device=dev)
+    with pytest.raises(NotImplementedError, match="MDU_FUSED_BLEND"):
+        fused_tile_blend(tiles, weights, 32, 32, bboxes)
+    with torch.no_grad():
+        assert fused_group_norm(x, 32, w, b).shape == x.shape

@@ -296,6 +296,27 @@ def test_mesh_decode_takes_the_memory_guard(pipes, monkeypatch, capsys):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_items,n_dev,bs,pad", [(5, 2, 2, True), (9, 2, 3, False),
+                                                  (1, 2, 4, True), (8, 4, 2, False)])
+def test_shard_walk(n_items, n_dev, bs, pad):
+    """``schedulers.shard_walk``, the one walk of the tile grid and
+    DemoFusion's windows and views on a mesh: the items padded to n_dev *
+    k_local by repeating the last, each shard's run in chunks of ``bs``
+    (padded to ``bs`` with the chunk's last item where asked), cache slots
+    device-major, and the real items, in walk order, each item once."""
+    devices = [torch.device("cpu")] * n_dev
+    walk = schedulers.shard_walk(n_items, devices, bs, pad)
+    k_local = -(-n_items // n_dev)
+    n_local = -(-k_local // bs)
+    assert [slot for _, slot, _, _ in walk] == list(range(n_dev * n_local))
+    assert [i for _, _, ids, real in walk for i in ids[:real]] == list(range(n_items))
+    for _, slot, ids, real in walk:
+        run = min(bs, k_local - (slot % n_local) * bs)
+        assert len(ids) == (bs if pad else run)
+        assert ids[run:] == [ids[run - 1]] * (len(ids) - run)
+        assert all(i == n_items - 1 for i in ids[real:run])     # the mesh's padding
+
+
 def test_mesh_never_takes_the_fused_blend(pipes, monkeypatch):
     """Under MDU_FUSED_BLEND the mesh adds the tiles as the unsharded loop
     does and never calls #5 (``mdu_tpu/tiling/schedulers.py:303-305``): its
@@ -320,13 +341,16 @@ def test_mesh_guard_and_shard_threads(pipes):
     for another device; twelve shard threads
     (more than the cores) through 50 all-reduces at a short switch interval,
     each total exact; and a shard that fails: it raises, and the shard
-    waiting for it at the all-reduce does not hang. No mesh falls back to
-    one device: DemoFusion, whose sharded windows are not ported, refuses a
-    mesh."""
+    waiting for it at the all-reduce does not hang. DemoFusion runs on the
+    mesh (its windows and views sharded, ``tests/test_torch_demofusion.py``
+    holds it against JAX's mesh): the two-level UNet's x2 on 2 shards equals
+    one device's within 1e-5 x max (the shards' chunks have other batch
+    sizes than one device's batches)."""
     unet, vae = pipes[0].unet, pipes[0].vae
-    with pytest.raises(NotImplementedError, match="DemoFusion on a tile mesh"):
-        pipes[1].demofusion(_cond(0), _cond(1), 128, 128, DemoFusionConfig(scale_factor=2),
-                            SamplerConfig(steps=1))
+    df = (_cond(0), _cond(1), 128, 128, DemoFusionConfig(scale_factor=2),
+          SamplerConfig(steps=2, denoising_strength=0.6))
+    _close(pipes[1].demofusion(*df, decode=False).latents,
+           pipes[0].demofusion(*df, decode=False).latents, rel=1e-5)
     with pytest.raises(ValueError, match="tiles"):
         DiffusionPipeline(unet, vae, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="mesh over"):
@@ -374,7 +398,8 @@ def test_cli_devices_above_the_available_warn_then_shard(monkeypatch, tmp_path, 
     """``--devices 3`` where two devices are there: the JAX CLI's warning,
     then the run sharded over the two (``mdu_tpu/cli.py:139-150``); under
     ``--deterministic`` its PNG is the ``--devices 1`` run's to the bit.
-    ``demofusion --devices 2`` raises."""
+    ``demofusion --devices 2`` shards its windows and views, its PNG within
+    1 uint8 level of ``--devices 1``'s."""
     from mdu_tpu_torch import cli
     from mdu_tpu_torch.models import clip as clip_mod
     from mdu_tpu_torch.models import unet as unet_mod
@@ -406,10 +431,14 @@ def test_cli_devices_above_the_available_warn_then_shard(monkeypatch, tmp_path, 
     assert "warning: only 2 of 3 requested devices available" in err
     assert "sharding grid tiles over 2 devices" in err
     np.testing.assert_array_equal(load_image(outs[0]), load_image(outs[1]))
-    # DemoFusion refuses the mesh before it shards anything
-    with pytest.raises(NotImplementedError, match="DemoFusion on a tile mesh"):
+    dfs = []
+    for n in ("1", "2"):
         cli.main(["demofusion", "--model-dir", ckpt, "--prompt", "a cat", "-W", "128", "-H",
-                  "128", "--steps", "1", "--device", "cpu", "--devices", "2",
-                  "--out", str(tmp_path / "df.png")])
-    assert "sharding grid tiles" not in capsys.readouterr().err
+                  "128", "--steps", "2", "--scale", "2", "--window-size", "16", "--overlap",
+                  "8", "--seed", "3", "--device", "cpu", "--devices", n,
+                  "--vae-decoder-tile", "16", "--out", str(tmp_path / f"df{n}.png")])
+        dfs.append(str(tmp_path / f"df{n}_scale1.png"))
+    assert "sharding windows and views over 2 devices" in capsys.readouterr().err
+    a, b = (load_image(p).astype(np.int16) for p in dfs)
+    assert np.abs(a - b).max() <= 1
 

@@ -271,7 +271,11 @@ def test_unported_features_raise(pipes):
 def test_port_imports_no_jax():
     files = sorted(p for p in (REPO / "mdu_tpu_torch").rglob("*.py")
                    if "_build" not in p.parts) + [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "examples" / "torch").glob("*.py"))
     assert len(files) > 20
+    assert REPO / "mdu_tpu_torch" / "parallel" / "training.py" in files
+    assert REPO / "mdu_tpu_torch" / "ops" / "kernels" / "flash_bwd.py" in files
+    assert REPO / "examples" / "torch" / "demofusion_x3.py" in files
     banned = ("jax", "jaxlib", "flax", "mdu_tpu", "safetensors")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
