@@ -90,13 +90,17 @@ some; ``device`` and ``build`` always run):
                  the [4, 64, 64, 320] -> 640 transition and levels 0 and 1 at
                  batch 2. Config 2 under NHWC (``NHWC_CONV_SHAPES``): #6
                  at 1280 -> 1280 on [10, 8, 12] and [10, 16, 24], 640 -> 1280
-                 on [10, 16, 24], 960 -> 640 and 1280 -> 640 on [10, 32, 48]. ``device_ms`` and
-                 The backward kernel (``csrc/flash_attention_bwd.cu``) in
-                 fp32 and bf16 at the train step's levels [2, 8, 4096, 40]
+                 on [10, 16, 24], 960 -> 640 and 1280 -> 640 on [10, 32, 48].
+                 The backward in fp32 and bf16 in its tensor-core forms
+                 (``csrc/flash_attention_bwd_sm90.cuh``: f32_sm90,
+                 bf16_sm90) at the train step's levels [2, 8, 4096, 40]
                  and [2, 8, 1024, 80], at [2, 10, 4096, 64], [2, 8, 576, 160]
-                 and ragged 1000 x 777, against autograd through #1's fp32
-                 plain version (fp32 within 1e-4 x max, bf16 within 2x the
-                 bf16 plain version's error + 1e-3 x max), the backward of
+                 and ragged 1000 x 777, and at the two train levels also in
+                 its CUDA-core form (``csrc/flash_attention_bwd.cu``:
+                 f32_simt, bf16_simt, the earlier time), against autograd
+                 through #1's fp32 plain version (fp32 within 1e-4 x max,
+                 bf16 within 2x the bf16 plain version's error + 1e-3 x
+                 max), the backward of
                  ``F.scaled_dot_product_attention`` its yardstick
                  (``check_attention_bwd``). ``device_ms`` and
                  ``library_device_ms``: the device time alone of the kernel's
@@ -489,19 +493,22 @@ EXPECTED_CONFIG5_DC = {"flash_attention_fm": C5_DC_FLASH, "flash_attention_fm.sm
 # training size, fp32, TF32 off: batch 2 of [4, 64, 64] latents and [2, 77,
 # 768] context, 3 steps at dp = tp = 1; each step runs the UNet's 10
 # self-attentions at 4096 tokens (level 0, D = 40: 5) and 1024 (level 1, D =
-# 80: 5) through #1's fp32 sm90 form and their gradients through the backward
-# kernel; remat runs each forward twice. dp = 2 x tp = 2 on cuda:0 x 4: one
-# sample a replica, so #1 and the backward twice a step
+# 80: 5) through #1's fp32 sm90 form and their gradients through the
+# backward's fp32 tensor-core form (f32_sm90); remat runs each forward twice.
+# dp = 2 x tp = 2 on cuda:0 x 4: one sample a replica, so #1 and the backward
+# twice a step
 TRAIN = dict(batch=2, latent=64, tokens=77, steps=3, lr=1e-5)
 EXPECTED_TRAIN = {"flash_attention_fm_f32": 10, "flash_attention_fm_f32.sm90": 10,
-                  "flash_attention_bwd": 10, "flash_attention_bwd.f32": 10}
+                  "flash_attention_bwd": 10, "flash_attention_bwd.f32_sm90": 10}
 EXPECTED_TRAIN_REMAT = dict(EXPECTED_TRAIN, **{"flash_attention_fm_f32": 20,
                                                "flash_attention_fm_f32.sm90": 20})
 EXPECTED_TRAIN_DP2_TP2 = {k: 2 * v for k, v in EXPECTED_TRAIN.items()}
 # the backward kernel's shapes (B, H, Lq, Lk, D): the train step's levels 0
-# and 1, SD2 / SDXL's D = 64, the widest head, ragged Lq != Lk
+# and 1, SD2 / SDXL's D = 64, the widest head, ragged Lq != Lk; the first
+# BWD_SIMT_SHAPES also in the CUDA-core form (the earlier form's time)
 BWD_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 10, 4096, 4096, 64),
               (2, 8, 576, 576, 160), (2, 8, 1000, 777, 40)]
+BWD_SIMT_SHAPES = 2
 # SD2.1-unCLIP (ViT-H: adm 2048) on config 2's canvas and sampler: heads of D =
 # 64, 5 at level 0 and 10 at level 1, 10 flash calls a UNet call
 EXPECTED_UNCLIP = {"flash_attention_fm": 200, "flash_attention_fm.sm90": 200,
@@ -2440,27 +2447,32 @@ def run_mesh_demofusion(pipe, cond, uncond):
 
 
 def check_attention_bwd(gen, summary):
-    """The backward kernel at ``BWD_SHAPES`` in fp32 and bf16, held to autograd
-    through #1's fp32 plain version on the same inputs: fp32 within 1e-4 of
-    the largest gradient, bf16 within 2x the bf16 plain version's error + 1e-3
-    of it (each of dQ, dK, dV; the line gives the largest error over the
-    three, relative to that gradient's largest entry). Times: the kernel
-    (events and device), the plain version (``flash_attention_bwd_plain``),
-    and the backward of ``F.scaled_dot_product_attention`` at the same shape
-    as the yardstick (its forward run once, outside the timing). Bound: 12
-    B H Lq Lk D operations (2.5x the forward's products for dQ, dK, dV and the
+    """The backward at ``BWD_SHAPES`` in fp32 and bf16, in the form the rule
+    picks (``bwd_form``: the tensor-core forms f32_sm90 and bf16_sm90 take
+    every entry) and, at the first ``BWD_SIMT_SHAPES`` (the train step's
+    levels), also in the CUDA-core form (f32_simt, bf16_simt: the earlier
+    form, the ``earlier_*`` fields). Each held to autograd through #1's fp32 plain
+    version on the same inputs: fp32 within 1e-4 of the largest gradient,
+    bf16 within 2x the bf16 plain version's error + 1e-3 of it (each of dQ,
+    dK, dV; the line gives the largest error over the three, relative to that
+    gradient's largest entry). Times: the kernel (events and device), the
+    plain version (``flash_attention_bwd_plain``), and the backward of
+    ``F.scaled_dot_product_attention`` at the same shape as the yardstick
+    (its forward run once, outside the timing). Bound: 12 B H Lq Lk D
+    operations (2.5x the forward's products for dQ, dK, dV and the
     recomputed Q K^T) against q, k, v, O, dO read and dQ, dK, dV written;
     fp32 at three TF32 passes, with the CUDA cores' FMA bound beside it."""
     import torch
     import torch.nn.functional as F
 
     from mdu_tpu_torch.ops.kernels import flash
-    from mdu_tpu_torch.ops.kernels.flash_bwd import (flash_attention_bwd,
-                                                      flash_attention_bwd_plain)
+    from mdu_tpu_torch.ops.kernels.flash_bwd import (bwd_form, flash_attention_bwd,
+                                                      flash_attention_bwd_plain, launch_bwd_form)
 
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for B, H, Lq, Lk, D in BWD_SHAPES:
+        simt = "bf16_simt" if dtype == torch.bfloat16 else "f32_simt"
+        for n_shape, (B, H, Lq, Lk, D) in enumerate(BWD_SHAPES):
             base = [torch.randn(B, H, L, D, generator=gen, device="cuda")
                     for L in (Lq, Lk, Lk)]
             do = torch.randn(B, H, Lq, D, generator=gen, device="cuda")
@@ -2473,44 +2485,58 @@ def check_attention_bwd(gen, summary):
             q, k, v = (x.to(dtype) for x in base)
             g = do.to(dtype)
             o = flash.flash_attention_fm(q, k, v)
-            got = flash_attention_bwd(q, k, v, o, g)
-            torch.cuda.synchronize()
             own = autograd_of_plain(dtype) if dtype == torch.bfloat16 else None
-            errs, tols = [], []
-            for i, (a, r) in enumerate(zip(got, ref)):
-                scale = r.abs().max().item()
-                require(bool(torch.isfinite(a).all()), f"flash_attention_bwd: non-finite d{i}")
-                errs.append((a.float() - r).abs().max().item() / scale)
-                tols.append(1e-4 if dtype == torch.float32 else
-                            2 * (own[i].float() - r).abs().max().item() / scale + 1e-3)
-            for i in range(3):
-                require(errs[i] <= tols[i], f"flash_attention_bwd {dtype} {(B, H, Lq, Lk, D)}: "
-                                            f"gradient {i} error {errs[i]} > {tols[i]} x max")
-            del ref, own
+            form = bwd_form(q, k, v, g)
             big = B * H * Lq * Lk > 1e8
-            kern = lambda: flash_attention_bwd(q, k, v, o, g)
+            iters = 5 if big else 20
+            runs = {form: lambda: flash_attention_bwd(q, k, v, o, g)}
+            if n_shape < BWD_SIMT_SHAPES and form != simt:
+                runs[simt] = lambda: launch_bwd_form(simt, q, k, v, o, g)
+            measured = {}
+            for f, kern in runs.items():
+                got = kern()
+                torch.cuda.synchronize()
+                errs, tols = [], []
+                for i, (a, r) in enumerate(zip(got, ref)):
+                    scale = r.abs().max().item()
+                    require(bool(torch.isfinite(a).all()),
+                            f"flash_attention_bwd {f}: non-finite d{i}")
+                    errs.append((a.float() - r).abs().max().item() / scale)
+                    tols.append(1e-4 if dtype == torch.float32 else
+                                2 * (own[i].float() - r).abs().max().item() / scale + 1e-3)
+                for i in range(3):
+                    require(errs[i] <= tols[i], f"flash_attention_bwd {f} {(B, H, Lq, Lk, D)}: "
+                                                f"gradient {i} error {errs[i]} > {tols[i]} x max")
+                del got
+                measured[f] = dict(errs=errs, tols=tols, ms=cuda_ms(kern, iters),
+                                   device_ms=device_ms(kern, iters))
+            del ref, own
             plain = lambda: flash_attention_bwd_plain(q, k, v, o, g)
             qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
             lib_out = F.scaled_dot_product_attention(qs, ks, vs)
             lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), g, retain_graph=True)
-            iters = 5 if big else 20
             flops = 12.0 * B * H * Lq * Lk * D
             nbytes = 4.0 * (Lq + Lk) * B * H * D * q.element_size()
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
             bound_ms, bound_by = bound(flops, nbytes, q.element_size(), peak)
-            check = dict(shape=[B, H, Lq, Lk, D], dtype=_dtype_name(dtype),
-                         max_abs_err=max(errs), errors=errs, tol=min(tols),
-                         ms=cuda_ms(kern, iters), device_ms=device_ms(kern, iters),
+            main = measured[form]
+            check = dict(shape=[B, H, Lq, Lk, D], dtype=_dtype_name(dtype), form=form,
+                         max_abs_err=max(main["errs"]), errors=main["errs"],
+                         tol=min(main["tols"]), ms=main["ms"], device_ms=main["device_ms"],
                          plain_ms=cuda_ms(plain, 2, warmup=1), library_ms=cuda_ms(lib, iters),
                          library_device_ms=device_ms(lib, iters), library_backend=
                          sdpa_backend(q, k, v), bound_ms=bound_ms, bound_by=bound_by,
                          error_basis="largest |got - autograd of the fp32 plain version| "
                                      "over dQ, dK, dV, each over that gradient's largest")
+            if simt in measured and simt != form:
+                check.update(earlier_form=simt, earlier_ms=measured[simt]["ms"],
+                             earlier_device_ms=measured[simt]["device_ms"],
+                             earlier_max_abs_err=max(measured[simt]["errs"]))
             if dtype == torch.float32:
                 check["fma_bound_ms"] = bound(flops, nbytes, 4, PEAK_FP32_FLOPS)[0]
             emit("kernel_check", name="flash_attention_bwd", **check)
             checks.append(check)
-            del q, k, v, o, g, got, base, do, qs, ks, vs, lib_out
+            del q, k, v, o, g, base, do, qs, ks, vs, lib_out
             torch.cuda.empty_cache()
     summary["flash_attention_bwd"] = checks
 
@@ -4341,30 +4367,47 @@ def kernel_rows(checks, launches, config3=None, upscale8k=None, config4=None, co
                             "mdu_tpu_torch/csrc/flash_attention_wide_sm90.cuh",
                             launch_key=name + ".wide", entry="mdu_flash_attention_fm_wide"))
     if "flash_attention_bwd" in checks:
-        # the backward of #1-#3 (no TPU kernel has one); its main shape the
-        # train step's level 0 in fp32, launches per train step
+        # the backward of #1-#3 (no TPU kernel has one), named by the form its
+        # main shape (the train step's level 0 in fp32) takes; each form's
+        # launches per train step, and each dtype's tensor-core form with its
+        # CUDA-core form's earlier time at the train step's shapes
         bwd = checks["flash_attention_bwd"]
         main = bwd[0]
+        per_step = {k: v for k, v in (train or {}).get("dp 1 x tp 1", {}).items()
+                    if k.startswith("flash_attention_bwd.")}
+        fields = ("shape", "dtype", "form", "max_abs_err", "tol", "ms", "device_ms",
+                  "earlier_form", "earlier_ms", "earlier_device_ms", "earlier_max_abs_err",
+                  "plain_ms", "library_ms", "library_device_ms", "library_backend",
+                  "bound_ms", "bound_by", "fma_bound_ms")
+        forms = []
+        for form, source in (("f32_sm90", "mdu_tpu_torch/csrc/flash_attention_bwd_f32.cu"),
+                             ("bf16_sm90", "mdu_tpu_torch/csrc/flash_attention_bwd_bf16.cu")):
+            taken = [c for c in bwd if c["form"] == form]
+            forms.append(dict(
+                form=form, source=source, design="mdu_tpu_torch/csrc/flash_attention_bwd_sm90.cuh",
+                launches_per_train_step=per_step.get(f"flash_attention_bwd.{form}", 0),
+                earlier_form=form.split("_")[0] + "_simt",
+                earlier_source="mdu_tpu_torch/csrc/flash_attention_bwd.cu",
+                shapes=[{f: c.get(f) for f in fields if f in c} for c in taken]))
         rows.append(dict(
-            name="flash_attention_bwd", route="cuda",
-            source="mdu_tpu_torch/csrc/flash_attention_bwd.cu",
+            name="flash_attention_bwd", route="cuda", form=main["form"],
+            source="mdu_tpu_torch/csrc/flash_attention_bwd_sm90.cuh",
             replaces="mdu_tpu/ops/pallas/flash_attention.py:215",
             replaces_note="the gradient of flash_attention_t_fm (and of :335, :282); the "
                           "Pallas kernels have none",
             launches=(train or {}).get("dp 1 x tp 1", {}).get("flash_attention_bwd", 0),
             launches_run="train, dp 1 x tp 1, per step",
             train_launches={k: v.get("flash_attention_bwd", 0) for k, v in (train or {}).items()},
+            form_launches_per_train_step=per_step,
             max_abs_err=max(c["max_abs_err"] for c in bwd), ms=main["ms"],
             device_ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], fma_bound_ms=main.get("fma_bound_ms"),
             library_ms=main["library_ms"], library_device_ms=main["library_device_ms"],
             library="torch.autograd.grad of F.scaled_dot_product_attention",
             shape=main["shape"], dtype=main["dtype"],
-            shapes=[{f: c.get(f) for f in ("shape", "dtype", "max_abs_err", "tol", "ms",
-                                           "device_ms", "plain_ms", "library_ms",
-                                           "library_device_ms", "library_backend",
-                                           "bound_ms", "bound_by", "fma_bound_ms")}
-                    for c in bwd]))
+            **{f: main[f] for f in ("earlier_form", "earlier_ms", "earlier_device_ms")
+               if f in main},
+            forms=forms))
     return rows
 
 

@@ -1,6 +1,9 @@
 // The backward of flash attention on Hopper (sm_90a): dQ, dK and dV of
 // O = softmax(Q K^T * scale) V on [bh, L, D], for fp32 or bf16 q, k, v, O and
-// dO, fp32 accumulation, the gradients written in the inputs' dtype.
+// dO, fp32 accumulation, the gradients written in the inputs' dtype. This is
+// the CUDA-core form (f32_simt, bf16_simt), which takes what the tensor-core
+// forms (flash_attention_bwd_sm90.cuh: f32_sm90, bf16_sm90) do not: D off
+// their multiples, unaligned views (ops/kernels/flash_bwd.py, bwd_form).
 //
 // Replaces no TPU kernel of its own: the TPU kernels of
 // mdu_tpu/ops/pallas/flash_attention.py (flash_attention_t_fm,
@@ -34,7 +37,7 @@
 // (rows ty + 16 i, columns tx + 16 j), so each depth step reads 8 values for
 // 16 multiply-adds; rows are padded to DP + 1 floats, so the 16 rows that a
 // half-warp reads fall in 16 banks. bf16 inputs are widened to fp32 as they
-// are loaded. A tensor-core form (wgmma, TMA) is later work.
+// are loaded.
 //
 // D <= 160 (every UNet head: 40, 80, 160, 64), any Lq and Lk (the ragged
 // tiles are masked); the wrapper refuses wider heads.

@@ -209,15 +209,6 @@ __device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr, uint32_t rank) {
   return v;
 }
 
-// ``bytes`` (a multiple of 16) from 16-byte aligned global ``src`` to shared
-// ``dst``, completing on ``bar``
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 // The channel's affine of group element ``e`` (of group g), kept across the
 // elements of a thread's vector: ``next`` is the first element of the next
 // channel.

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's warpgroup kernels
 // (flash_attention_sm90.cuh, flash_attention_f32_sm90.cuh,
-// flash_attention_wide_sm90.cuh, conv3x3.cu, conv3x3_f32_sm90.cuh):
-// mbarriers, TMA loads of 2-, 3- and 4-d tensor maps and stores to 4-d ones,
-// wgmma shared-memory descriptors, the wgmma fence, commit and wait, the tf32
-// wgmma products, named barriers, bf16 packing and rounding, and on the host
-// cuTensorMapEncodeTiled and the bf16 16-column slice map of the flash kernels.
+// flash_attention_wide_sm90.cuh, flash_attention_bwd_sm90.cuh, conv3x3.cu,
+// conv3x3_f32_sm90.cuh, group_norm.cu):
+// mbarriers, bulk copies of contiguous bytes, TMA loads of 2-, 3- and 4-d
+// tensor maps and stores to 4-d ones, wgmma shared-memory descriptors, the
+// wgmma fence, commit and wait, the tf32 wgmma products, named barriers, bf16
+// packing and rounding, and on the host cuTensorMapEncodeTiled and the bf16
+// 16-column slice map of the flash kernels.
 #pragma once
 
 #include <cuda.h>
@@ -40,6 +42,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ``bytes`` contiguous bytes of global memory into shared memory (both
+// 16-byte aligned, bytes % 16 == 0), completing on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // One box of a 2-d tensor map ({column, row} coordinates) into shared memory,
@@ -199,7 +210,8 @@ __device__ __forceinline__ float round_bf16(float x) {
 // g + 8 (i / 2), column 8j + 2t + i % 2 of the warp's 16 rows. ``acc`` 0
 // overwrites D. N = 8, 16, 24, 32, 40, 48, 64, 80 and 128, the widths that
 // flash_attention_f32_sm90.cuh uses (::ss at 32 and 64); Tf32<80>::ss (both
-// operands from shared memory) for conv3x3_f32_sm90.cuh.
+// operands from shared memory) for conv3x3_f32_sm90.cuh; ::ss at 8 and 16
+// for the backward's narrow tiles (flash_attention_bwd_sm90.cuh).
 
 // x rounded to the nearest tf32 (ties away from zero, as cvt.rna.tf32.f32
 // rounds, in two integer operations: the conversion measured slower), as
@@ -225,6 +237,15 @@ struct Tf32<8> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
+  __device__ __forceinline__ static void ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
 };
 
 template <>
@@ -239,6 +260,16 @@ struct Tf32<16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+  __device__ __forceinline__ static void ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 

@@ -36,6 +36,8 @@ SOURCES = {
     "tile_blend": "tile_blend.cu",
     "conv3x3": "conv3x3.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_bf16": "flash_attention_bwd_bf16.cu",
+    "flash_attention_bwd_f32": "flash_attention_bwd_f32.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -55,9 +55,11 @@ version instead.
 
 Gradients: where grad mode is on and q, k or v requires grad, each wrapper
 runs its forward kernel inside a ``torch.autograd.Function`` that saves q,
-k, v and the output, and whose backward launches
-``csrc/flash_attention_bwd.cu`` (``flash_bwd.py``): the gradient of exact
-softmax attention, for D <= 160. Without grad the forward runs as it is.
+k, v and the output, and whose backward launches the form of the backward
+that ``flash_bwd.bwd_form`` picks (``flash_bwd.py``: f32_sm90 and bf16_sm90
+on the tensor cores, f32_simt and bf16_simt on the CUDA cores): the gradient
+of exact softmax attention, for D <= 160. Without grad the forward runs as
+it is.
 """
 from __future__ import annotations
 

@@ -1,19 +1,33 @@
-"""The backward of the flash kernels: its CUDA kernel and its plain version.
+"""The backward of the flash kernels: its CUDA kernels and their plain version.
 
-``csrc/flash_attention_bwd.cu`` computes dQ, dK and dV of
-softmax(Q K^T * scale) V on [B, H, L, D] from q, k, v, the forward's output
-O and dO, recomputing each query row's log-sum-exp. It replaces no TPU
-kernel: the Pallas kernels of ``mdu_tpu/ops/pallas/flash_attention.py``
-have no backward. ``flash.py`` makes #1, #2 and #3 autograd functions whose
-backward is this kernel (``flash_attention_bwd``), so that a train step on
-the card keeps the gradient of every long self-attention.
+The kernels compute dQ, dK and dV of softmax(Q K^T * scale) V on [B, H, L, D]
+from q, k, v, the forward's output O and dO, recomputing each query row's
+log-sum-exp. They replace no TPU kernel: the Pallas kernels of
+``mdu_tpu/ops/pallas/flash_attention.py`` have no backward. ``flash.py``
+makes #1, #2 and #3 autograd functions whose backward is
+``flash_attention_bwd``, so that a train step on the card keeps the gradient
+of every long self-attention.
 
 The gradient is that of exact softmax attention: the fixed shift of #1
 cancels, and the rounding of p to v's dtype in the forward is taken as the
 identity (as autograd through a plain version takes its ``.to(v.dtype)``).
 fp32 and bf16 inputs, fp32 accumulation, gradients in the inputs' dtype;
-1 <= D <= 160. Each call launches three kernels and counts one under
-``LAUNCHES["flash_attention_bwd"]`` and ``["flash_attention_bwd.f32|bf16"]``.
+1 <= D <= 160. Four forms, chosen by ``bwd_form`` on dtype, D and alignment
+alone (never on a failure):
+
+* ``f32_sm90`` (``csrc/flash_attention_bwd_f32.cu``): wgmma in TF32, each
+  product as three passes, for fp32 with D % 4 == 0, D <= 160 and 16-byte
+  aligned q, k, v, dO (a tensor map needs 16-byte strides and bases);
+* ``bf16_sm90`` (``csrc/flash_attention_bwd_bf16.cu``): wgmma in bf16, P and
+  dS each as two bf16 passes (big and small parts), for bf16 with D % 8 ==
+  0, 16 <= D <= 160 and the same alignment;
+* ``f32_simt`` and ``bf16_simt`` (``csrc/flash_attention_bwd.cu``): the CUDA
+  cores, for anything else (D = 13, an unaligned view).
+
+The tensor-core forms (``csrc/flash_attention_bwd_sm90.cuh``) launch two
+kernels a call, the CUDA-core form three. Each call counts one under
+``LAUNCHES["flash_attention_bwd"]`` and one under
+``LAUNCHES["flash_attention_bwd.<form>"]``.
 """
 from __future__ import annotations
 
@@ -22,12 +36,21 @@ from typing import Optional
 
 import torch
 
-from .launch import launch, ptr
+from .launch import aligned16, launch, ptr
 
-__all__ = ["BWD_MAX_D", "flash_attention_bwd", "flash_attention_bwd_plain"]
+__all__ = ["BWD_MAX_D", "BWD_FORMS", "bwd_form", "launch_bwd_form", "flash_attention_bwd",
+           "flash_attention_bwd_plain"]
 
-BWD_MAX_D = 160   # widest head of the backward kernel (every UNet head)
+BWD_MAX_D = 160   # widest head of the backward kernels (every UNet head)
+# (library, C function) of each form
+BWD_FORMS = {
+    "f32_sm90": ("flash_attention_bwd_f32", "mdu_flash_attention_bwd_f32_sm90"),
+    "bf16_sm90": ("flash_attention_bwd_bf16", "mdu_flash_attention_bwd_bf16_sm90"),
+    "f32_simt": ("flash_attention_bwd", "mdu_flash_attention_bwd"),
+    "bf16_simt": ("flash_attention_bwd", "mdu_flash_attention_bwd"),
+}
 _ROWS = 1024      # query rows per chunk of the plain version (bounds memory)
+_PAD = 64         # the lse and delta scratch holds Lq rounded up to this
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, scale: Optional[float] = None):
@@ -51,10 +74,43 @@ def flash_attention_bwd_plain(q, k, v, o, do, scale: Optional[float] = None):
     return torch.cat(dqs, dim=2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_form(q, k, v, do) -> str:
+    """The form of the backward that takes these inputs: ``f32_sm90`` for fp32
+    with D % 4 == 0 and D <= 160, ``bf16_sm90`` for bf16 with D % 8 == 0 and
+    16 <= D <= 160, each with q, k, v and dO on 16-byte boundaries; else
+    ``f32_simt`` or ``bf16_simt``."""
+    D = q.shape[-1]
+    aligned = aligned16(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        sm90 = D % 8 == 0 and 16 <= D <= BWD_MAX_D
+        return "bf16_sm90" if sm90 and aligned else "bf16_simt"
+    sm90 = D % 4 == 0 and D <= BWD_MAX_D
+    return "f32_sm90" if sm90 and aligned else "f32_simt"
+
+
+def launch_bwd_form(form: str, q, k, v, o, do, scale: Optional[float] = None):
+    """Launch one form of the backward on checked inputs (``flash_attention_bwd``
+    passes ``bwd_form``'s choice; a test or a benchmark may run another form
+    that takes the same inputs, such as the simt one). Returns dQ, dK, dV."""
+    B, H, Lq, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    pad = -(-Lq // _PAD) * _PAD
+    stats = torch.empty(2, B * H * pad, device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    library, fn_name = BWD_FORMS[form]
+    args = [ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(dq), ptr(dk), ptr(dv), ptr(stats[0]),
+            ptr(stats[1]), ctypes.c_int(B * H), ctypes.c_int(Lq), ctypes.c_int(k.shape[2]),
+            ctypes.c_int(D), ctypes.c_float(scale)]
+    if form.endswith("simt"):
+        args.append(ctypes.c_int(int(q.dtype == torch.bfloat16)))
+    launch("flash_attention_bwd", library, fn_name, q.device, *args, form=form)
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, o, do, scale: Optional[float] = None):
-    """dQ, dK, dV of flash attention; the kernel on a CUDA tensor, the plain
-    version on a CPU tensor. Raises on anything the kernel does not take
-    (``NotImplementedError`` for D > 160, ROADMAP item 28)."""
+    """dQ, dK, dV of flash attention; the form ``bwd_form`` picks on a CUDA
+    tensor, the plain version on a CPU tensor. Raises on anything the kernels
+    do not take (``NotImplementedError`` for D > 160, ROADMAP item 28)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, scale)
     name = "flash_attention_bwd"
@@ -76,12 +132,4 @@ def flash_attention_bwd(q, k, v, o, do, scale: Optional[float] = None):
                                   f"backward kernel yet (ROADMAP item 28)")
     if Lq == 0 or Lk == 0 or D == 0:
         raise ValueError(f"{name}: empty input {tuple(q.shape)} / {tuple(k.shape)}")
-    scale = D ** -0.5 if scale is None else scale
-    stats = torch.empty(2, B * H * Lq, device=q.device, dtype=torch.float32)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    bf16 = q.dtype == torch.bfloat16
-    launch(name, name, "mdu_flash_attention_bwd", q.device, ptr(q), ptr(k), ptr(v), ptr(o),
-           ptr(do), ptr(dq), ptr(dk), ptr(dv), ptr(stats[0]), ptr(stats[1]),
-           ctypes.c_int(B * H), ctypes.c_int(Lq), ctypes.c_int(Lk), ctypes.c_int(D),
-           ctypes.c_float(scale), ctypes.c_int(int(bf16)), form="bf16" if bf16 else "f32")
-    return dq, dk, dv
+    return launch_bwd_form(bwd_form(q, k, v, do), q, k, v, o, do, scale)

@@ -14,8 +14,9 @@ mma.sync kernel; ``flash_attention_fm_f32``, ``flash_attention_f32`` and
 ``fused_conv3x3_f32`` (the fp32 kernels of #1, #2 and #6): ``.sm90`` (wgmma,
 three TF32 passes), ``.wide`` (mma.sync in TF32 at D > 160) and ``.simt``
 (the CUDA cores); ``fused_group_norm``: ``.cluster`` and ``.two_read``).
-``flash_attention_bwd`` counts the calls of the attention backward (three
-kernels each; ``.f32`` and ``.bf16`` by dtype).
+``flash_attention_bwd`` counts the calls of the attention backward, and
+``.f32_sm90`` / ``.bf16_sm90`` (the tensor-core forms, two kernels a call) and
+``.f32_simt`` / ``.bf16_simt`` (the CUDA cores, three) the calls of each form.
 ``fused_tile_blend_floor`` counts the empty kernel that measures #5's launch
 floor (never on a pipeline's path).
 
@@ -49,7 +50,9 @@ LAUNCHES = {
     "fused_conv3x3_f32.sm90": 0, "fused_conv3x3_f32.simt": 0,
     "fused_group_norm.cluster": 0, "fused_group_norm.two_read": 0,
     "fused_tile_blend_floor": 0,
-    "flash_attention_bwd": 0, "flash_attention_bwd.f32": 0, "flash_attention_bwd.bf16": 0,
+    "flash_attention_bwd": 0, "flash_attention_bwd.f32_sm90": 0,
+    "flash_attention_bwd.bf16_sm90": 0, "flash_attention_bwd.f32_simt": 0,
+    "flash_attention_bwd.bf16_simt": 0,
 }
 # (loaded library, C function name) -> the function, its argtypes set
 _FNS: Dict[Tuple[ctypes.CDLL, str], ctypes._CFuncPtr] = {}

@@ -38,6 +38,7 @@ from mdu_tpu_torch.ops.kernels import (LAUNCHES, flash_attention, flash_attentio
                                        fused_group_norm_plain, fused_tile_blend,
                                        fused_tile_blend_plain)
 from mdu_tpu_torch.ops.kernels import flash as flash_mod
+from mdu_tpu_torch.ops.kernels import flash_bwd as flash_bwd_mod
 from mdu_tpu_torch.ops.kernels.conv3x3 import _plan_blocks
 from mdu_tpu_torch.tiling import schedulers as psched
 from mdu_tpu_torch.utils import grid
@@ -319,6 +320,38 @@ def test_f32_form_rule(monkeypatch, name, D, unaligned, form):
         fn = flash_attention_fm if name == "flash_attention_fm_f32" else flash_attention
         assert fn(m, m, m).shape == m.shape
         assert calls[-1][:4] == calls[0][:4]
+
+
+@pytest.mark.parametrize("dtype,D,unaligned,form", [
+    *[(torch.float32, D, False, "f32_simt" if D == 13 else "f32_sm90")
+      for D in (4, 13, 40, 64, 80, 160)],
+    *[(torch.bfloat16, D, False, "bf16_simt" if D in (4, 13) else "bf16_sm90")
+      for D in (4, 13, 40, 64, 80, 160)],
+    *[(dt, D, True, f"{name}_simt") for dt, name in ((torch.float32, "f32"),
+                                                    (torch.bfloat16, "bf16"))
+      for D in (4, 13, 40, 64, 80, 160)]])
+def test_bwd_form_rule(monkeypatch, dtype, D, unaligned, form):
+    """The backward's form by dtype, D and alignment alone: fp32 with D % 4
+    == 0 and D <= 160 and bf16 with D % 8 == 0 and 16 <= D <= 160 go to the
+    tensor-core forms when q, k, v and dO sit on 16-byte boundaries; a view
+    one element off, or any other head, to the CUDA-core form. A form's
+    launch calls its own library's C function, counted under it, with the
+    dtype flag for simt only."""
+    calls = []
+    monkeypatch.setattr(flash_bwd_mod, "launch",
+                        lambda name, lib, fn, dev, *args, form=None:
+                        calls.append((name, lib, fn, form, args)))
+    x = _off16((1, 2, 8, D), dtype, unaligned)
+    ok = torch.zeros(1, 2, 8, D, dtype=dtype)
+    for args in ((x, ok, ok, ok), (ok, ok, x, ok), (ok, x, ok, ok), (ok, ok, ok, x)):
+        assert flash_bwd_mod.bwd_form(*args) == form
+    grads = flash_bwd_mod.launch_bwd_form(form, x, ok, ok, ok, ok)
+    assert [tuple(g.shape) for g in grads] == [(1, 2, 8, D)] * 3
+    # (q, k, v, o, do, dq, dk, dv, lse, delta, bh, Lq, Lk, D, scale) + (bf16)
+    assert [(c[:4], len(c[4])) for c in calls] == [
+        (("flash_attention_bwd", *flash_bwd_mod.BWD_FORMS[form], form),
+         15 + form.endswith("simt"))]
+    assert calls[0][4][10].value == 2 and calls[0][4][14].value == pytest.approx(D ** -0.5)
 
 
 def test_flash_t_fp32_takes_flash_attention_f32_forms(monkeypatch):
